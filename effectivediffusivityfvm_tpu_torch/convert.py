@@ -1,0 +1,41 @@
+"""Carry the JAX package's solver state into the port.
+
+Each function takes the JAX-side structure with its arrays as numpy arrays
+(or anything ``np.asarray`` accepts, such as JAX arrays) and returns the
+port's structure of torch tensors on ``device`` in ``dtype``.  Fields are
+read by name, so any NamedTuple with the same field names will do.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import numpy as np
+import torch
+
+from .ops.flux import BoundaryFluxSpec
+from .ops.fvm import StencilCoeffs
+
+__all__ = ["coeffs_from_numpy", "spec_from_numpy", "levels_from_numpy"]
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def coeffs_from_numpy(c, device, dtype) -> StencilCoeffs:
+    """A ``StencilCoeffs``-like structure → :class:`StencilCoeffs`."""
+    return StencilCoeffs(*(_tensor(getattr(c, f), device, dtype)
+                           for f in StencilCoeffs._fields))
+
+
+def spec_from_numpy(s, device, dtype) -> BoundaryFluxSpec:
+    """A ``BoundaryFluxSpec``-like structure → :class:`BoundaryFluxSpec`."""
+    return BoundaryFluxSpec(*(_tensor(getattr(s, f), device, dtype)
+                              for f in BoundaryFluxSpec._fields))
+
+
+def levels_from_numpy(levels: Sequence, device, dtype) -> List[StencilCoeffs]:
+    """A hierarchy built by ``build_hierarchy(..., pad_levels=True)`` →
+    a list of :class:`StencilCoeffs`, fine to coarse."""
+    return [coeffs_from_numpy(c, device, dtype) for c in levels]

@@ -1,0 +1,126 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+The ``.cu`` files under ``effectivediffusivityfvm_tpu_torch/csrc/`` expose a
+plain C interface (no PyTorch headers, so a build takes seconds).  They are
+compiled for ``sm_90a`` into ``<checkout>/build/kernels/`` the first time a
+wrapper needs them; the library's file name carries a hash of the sources
+and flags, so an edited source is rebuilt and an unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["load_library", "build_info", "SOURCE_DIR", "BUILD_DIR"]
+
+_PKG = Path(__file__).resolve().parents[2]
+SOURCE_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+# -fmad=false: the kernels round every multiply and add as the plain
+# PyTorch versions' separate elementwise ops do, so the two agree bit for
+# bit outside the (double) reductions.  With contraction on, the V-cycle on
+# a contrast-1e6 medium moved by 4e-4 of max|z| in fp32; the passes are
+# bandwidth-bound, so the lost FMAs cost no time.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-lineinfo"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+
+# C entry points and their argument types; every pointer (and the stream)
+# goes as c_void_p so ctypes never narrows it to a 32-bit int.
+_ENTRIES = {
+    "deff_cycle_scratch_elems": ([_I, _P, _P], ctypes.c_longlong),
+    "deff_cg_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
+    "deff_launch_count": ([], ctypes.c_longlong),
+}
+for _t in ("f32", "f64"):
+    _ENTRIES[f"deff_v_cycle_{_t}"] = (
+        [_I, _I, _P, _P,            # B, L, ny[], nx[]
+         _P, _P, _P,                # aw[], an[], dinv[] (pointer arrays)
+         _P, _P, _P,                # r, z, scratch
+         _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
+         _P], _I)                   # stream
+    _ENTRIES[f"deff_cg_steps_{_t}"] = (
+        [_I, _I, _P, _P,            # B, L, ny[], nx[]
+         _P, _P, _P, _P,            # aw[], an[], dinv[], b
+         _P, _P, _P, _P,            # x, r, p, rz
+         _P, _P, _P, _I,            # active, stop, hi, k
+         _P, _P,                    # k_done, sum|r_true|
+         _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
+         _P, _P, _P], _I)           # scratch, int scratch, stream
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                       "(put nvcc on PATH or set CUDA_HOME)")
+
+
+def _sources():
+    return sorted(SOURCE_DIR.glob("*.cu")) + sorted(SOURCE_DIR.glob("*.cuh"))
+
+
+_INFO = {}
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    lib_path = BUILD_DIR / f"libdeff_kernels_{h.hexdigest()[:16]}.so"
+    log_path = lib_path.with_suffix(".log")
+    t0 = time.perf_counter()
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(s) for s in srcs if s.suffix == ".cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log_path.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, lib_path)
+    _INFO["seconds"] = time.perf_counter() - t0
+    _INFO["path"] = str(lib_path)
+    _INFO["log"] = log_path.read_text() if log_path.exists() else ""
+    lib = ctypes.CDLL(str(lib_path))
+    for name, (argtypes, restype) in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+def build_info() -> dict:
+    """Seconds the last :func:`load_library` took (build included), the
+    library path, and nvcc's output (``-Xptxas -v`` register/spill lines)."""
+    load_library()
+    return dict(_INFO)
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a C entry returned a non-zero ``cudaError_t``."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA error {status}")

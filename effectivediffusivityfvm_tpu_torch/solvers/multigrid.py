@@ -1,0 +1,277 @@
+"""Geometric multigrid hierarchy and the fused MGCG solve (torch port of
+``effectivediffusivityfvm_tpu.solvers.multigrid``, fused engine only).
+
+Aggregates are aligned 2x2 cell blocks: restriction sums a block,
+prolongation injects piecewise-constant corrections, and the Galerkin coarse
+operator ``R A P`` of a 5-point stencil is again a 5-point stencil in closed
+form (coarse face conductance = sum of the two fine conductances crossing
+it; coarse diagonal = sum of fine diagonals - 2 x internal conductances).
+Odd dimensions are padded with decoupled identity cells (diag 1, couplings
+0, b 0).
+
+The solve runs PCG with one V(nu, nu) cycle as the preconditioner, as the
+JAX package's fused "cgstep" engine does: each window of up to
+``check_every`` iterations is one call of the K1 kernel
+(:func:`~..ops.kernels.cgstep.cg_steps`), which also refreshes and restarts
+CG from the true residual at the window's end.  Masked systems must use the
+symmetric assembly (``fvm_coefficients(..., symmetric=True)``).
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import fvm
+from ..ops.flux import BoundaryFluxSpec, boundary_deff
+from ..ops.kernels.cgstep import batch_sum, cg_steps
+from ..ops.kernels.vcycle import v_cycle
+from .driver import SolveResult, resolve_check_every, resolve_first_window
+
+__all__ = ["restrict", "prolong", "coarsen", "build_hierarchy", "solve_mgcg",
+           "solve_mgcg_batched"]
+
+
+def _pad_op(c: fvm.StencilCoeffs, py: int, px: int) -> fvm.StencilCoeffs:
+    """Pad by ``(py, px)`` trailing rows/cols of decoupled identity cells."""
+    if not (py or px):
+        return c
+
+    def z(a):
+        return F.pad(a, (0, px, 0, py))
+
+    diag = F.pad(c.diag, (0, px, 0, py), value=1.0)
+    return fvm.StencilCoeffs(a_w=z(c.a_w), a_e=z(c.a_e), a_n=z(c.a_n),
+                             a_s=z(c.a_s), diag=diag,
+                             diag_inv=fvm.guarded_inverse(diag), b=z(c.b))
+
+
+def _pad_even(c: fvm.StencilCoeffs) -> fvm.StencilCoeffs:
+    """Pad odd dims with decoupled identity cells so 2x2 blocks align."""
+    ny, nx = c.diag.shape[-2], c.diag.shape[-1]
+    return _pad_op(c, ny % 2, nx % 2)
+
+
+def _blocks(a):
+    """``(..., 2i, 2j) -> (..., i, 2, j, 2)`` view."""
+    ny, nx = a.shape[-2], a.shape[-1]
+    return a.reshape(a.shape[:-2] + (ny // 2, 2, nx // 2, 2))
+
+
+def restrict(r):
+    """``R r``: sum over aligned 2x2 blocks."""
+    return _blocks(r).sum(dim=(-3, -1))
+
+
+def prolong(e):
+    """``P e``: piecewise-constant injection (repeat 2x2)."""
+    return e.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def coarsen(c: fvm.StencilCoeffs) -> fvm.StencilCoeffs:
+    """Galerkin coarse operator ``R A P`` for aligned 2x2 aggregation."""
+    c = _pad_even(c)
+    ae_b = _blocks(c.a_e)
+    as_b = _blocks(c.a_s)
+    a_e_c = ae_b[..., :, :, :, 1].sum(-2)      # crossing coarse E faces
+    a_s_c = as_b[..., :, 1, :, :].sum(-1)      # crossing coarse S faces
+    internal = ae_b[..., :, :, :, 0].sum(-2) + as_b[..., :, 0, :, :].sum(-1)
+
+    diag_c = restrict(c.diag) - 2.0 * internal
+    b_c = restrict(c.b)
+
+    z_col = torch.zeros_like(a_e_c[..., :, :1])
+    z_row = torch.zeros_like(a_s_c[..., :1, :])
+    a_e_c = torch.cat([a_e_c[..., :, :-1], z_col], dim=-1)
+    a_w_c = torch.cat([z_col, a_e_c[..., :, :-1]], dim=-1)
+    a_s_c = torch.cat([a_s_c[..., :-1, :], z_row], dim=-2)
+    a_n_c = torch.cat([z_row, a_s_c[..., :-1, :]], dim=-2)
+
+    # Cells whose coarse diagonal lost all significance to cancellation
+    # (contrast-1e6 media in fp32) are decoupled: diag_inv = 0.
+    floor = 1e-6 * restrict(c.diag)
+    ok = diag_c > floor
+    diag_inv = torch.where(ok, 1.0 / torch.where(ok, diag_c, 1.0), 0.0)
+    return fvm.StencilCoeffs(a_w_c, a_e_c, a_n_c, a_s_c, diag_c, diag_inv, b_c)
+
+
+def build_hierarchy(c: fvm.StencilCoeffs, min_size: int = 8,
+                    pad_levels: bool = False) -> List[fvm.StencilCoeffs]:
+    """Fine-to-coarse operator list; stops when a dim is ``<= min_size``.
+    ``pad_levels=True`` stores every level padded to even dims, as the
+    kernels require."""
+    if pad_levels:
+        c = _pad_even(c)
+    levels = [c]
+    while min(c.diag.shape[-2], c.diag.shape[-1]) > min_size:
+        c = coarsen(c)
+        if pad_levels:
+            c = _pad_even(c)
+        levels.append(c)
+    return levels
+
+
+def _run_mgcg_fused(coeffs, spec, x0, *, tol, max_iter, check_every,
+                    criterion, nu, mg_omega, coarse_iters, min_size, over,
+                    first_window, kernels=(cg_steps, v_cycle)) -> SolveResult:
+    """Batched MGCG, ``k`` whole PCG iterations per K1 call.
+
+    Check, restart, divergence and freeze semantics follow the JAX fused
+    driver: a window is ``first_window`` iterations first, then
+    ``check_every``, cut by ``max_iter`` (a cut window still checks); the
+    in-kernel stop threshold is the mean-|r| tolerance times ``ny*nx`` over
+    the physical cells; the tripwire is ``1e3 * best * ny*nx``; the best
+    iterate is kept and returned for an image whose divergence net fired.
+    The loop reads ``any(active)`` back to the host once per window.
+
+    ``kernels`` is ``(cg_steps, v_cycle)``; passing their plain versions
+    runs the same solve without the CUDA kernels (for comparisons).
+    """
+    cg_fn, cycle_fn = kernels
+    bsz, ny, nx = coeffs.b.shape
+    dtype = x0.dtype
+    dev = x0.device
+    tol_ = torch.tensor(tol, dtype=dtype, device=dev)
+    levels = build_hierarchy(coeffs, min_size=min_size, pad_levels=True)
+    lvl0 = levels[0]
+    py, px = lvl0.diag.shape[-2], lvl0.diag.shape[-1]
+    mg = dict(omega=mg_omega, nu=nu, coarse_iters=coarse_iters, over=over)
+
+    def unpad(a):
+        return a[..., :ny, :nx]
+
+    def mean_abs(v):
+        return torch.mean(torch.abs(unpad(v)), dim=(-2, -1))
+
+    def where3(m, a, b):
+        return torch.where(m[:, None, None], a, b)
+
+    bscale = mean_abs(lvl0.b) if criterion == "relresidual" else None
+    npts = torch.tensor(ny * nx, dtype=dtype, device=dev)
+    if criterion == "residual":
+        stop_sum = torch.full((bsz,), tol, dtype=dtype, device=dev) * npts
+    elif criterion == "relresidual":
+        stop_sum = tol_ * bscale * npts
+    else:
+        stop_sum = torch.zeros((bsz,), dtype=dtype, device=dev)
+
+    def deff_fn(xp):
+        return boundary_deff(spec, unpad(xp))
+
+    # x is updated in place by K1: start from a private copy
+    x = F.pad(x0, (0, px - nx, 0, py - ny)).clone(
+        memory_format=torch.contiguous_format)
+    r = lvl0.b - fvm.apply_operator(lvl0, x)
+    p = cycle_fn(levels, r, **mg)
+    rz = batch_sum(r * p)
+
+    def scal(v):
+        return torch.full((bsz,), v, dtype=dtype, device=dev)
+
+    deff, deff_old, pc, conv = scal(1.0), scal(5.0), scal(100.0), scal(100.0)
+    iters = torch.zeros((bsz,), dtype=torch.int32, device=dev)
+    x_best = x.clone()
+    best = mean_abs(r)
+    bad = torch.zeros((bsz,), dtype=torch.bool, device=dev)
+    it = 0
+    while it < max_iter:
+        active = tol_ < torch.abs(pc)
+        if not bool(active.any()):
+            break
+        k = (min(first_window, max_iter) if it == 0
+             else min(check_every, max_iter - it))
+        hi_sum = 1e3 * best * npts
+        x, r, p, rz, kdone, sr_true = cg_fn(
+            levels, x, r, p, rz, active.to(dtype), stop_sum, hi_sum, k, **mg)
+        it += k
+        iters = iters + torch.where(active, kdone, 0)
+        # a window cut by max_iter lands a check all the same
+        do_check = ((it - first_window) % check_every == 0) or it >= max_iter
+        upd = active & do_check
+        r_mean = sr_true / npts
+        improved = upd & (r_mean < best)
+        x_best = where3(improved, x, x_best)
+        best = torch.where(improved, r_mean, best)
+        diverged = upd & (~torch.isfinite(r_mean) | (r_mean > 1e3 * best))
+
+        deff_new = deff_fn(x)
+        if criterion == "deff":
+            pc_new = (deff_old - deff_new) / deff_old
+            deff_old = torch.where(upd, deff_new, deff_old)
+        elif criterion == "relresidual":
+            pc_new = r_mean / bscale
+        else:
+            pc_new = r_mean
+        deff = torch.where(upd, deff_new, deff)
+        pc = torch.where(upd, pc_new, pc)
+        pc = torch.where(diverged, 0.0, pc)
+        conv = torch.where(upd, pc_new, conv)
+        bad = bad | diverged
+
+    # last iterate unless the divergence net fired
+    x_out = where3(bad, x_best, x)
+    deff_out = deff_fn(x_out)
+    if criterion == "relresidual":
+        conv = torch.where(bad, best / bscale, conv)
+    elif criterion != "deff":
+        conv = torch.where(bad, best, conv)
+    return SolveResult(x=unpad(x_out), deff=deff_out, conv=conv, iters=iters)
+
+
+def _mgcg_core(coeffs, spec, x0, *, tol, max_iter, check_every, criterion,
+               batched, nu1, nu2, mg_omega, coarse_iters, min_size, over,
+               first_window, kernels=(cg_steps, v_cycle)) -> SolveResult:
+    first_window = resolve_first_window(first_window, check_every, criterion)
+    if nu1 != nu2:
+        raise ValueError("the fused CG engine implements V(nu, nu)")
+    if not batched:
+        coeffs = fvm.StencilCoeffs(*(a[None] for a in coeffs))
+        spec = BoundaryFluxSpec(*(a[None] for a in spec))
+        x0 = x0[None]
+    res = _run_mgcg_fused(
+        coeffs, spec, x0, tol=tol, max_iter=max_iter,
+        check_every=check_every, criterion=criterion, nu=nu1,
+        mg_omega=mg_omega, coarse_iters=coarse_iters, min_size=min_size,
+        over=over, first_window=first_window, kernels=kernels)
+    if not batched:
+        res = SolveResult(*(a[0] for a in res))
+    return res
+
+
+def solve_mgcg(coeffs, spec, x0, *, tol: float = 1e-8, max_iter: int = 10_000,
+               check_every: int = 0, criterion: str = "residual",
+               nu1: int = 1, nu2: int = 1, mg_omega=0.8,
+               coarse_iters: int = 32, min_size: int = 8, over: float = 1.8,
+               first_window: int = 1) -> SolveResult:
+    """Multigrid-preconditioned CG on one ``(ny, nx)`` image.
+
+    ``criterion``: "residual" (mean |b - A x|), "relresidual" (divided by
+    mean |b|) or "deff" (relative Deff change).  ``mg_omega`` is a scalar
+    damping or a per-sweep tuple of ``nu1`` factors.  ``first_window`` is
+    the length of the first K1 window (``0`` = auto, see
+    :func:`~.driver.resolve_first_window`).  The V-cycle and the CG
+    iterations run as CUDA kernels on a CUDA tensor and as their plain
+    PyTorch versions on a CPU tensor.
+    """
+    return _mgcg_core(coeffs, spec, x0, tol=tol, max_iter=max_iter,
+                      check_every=resolve_check_every(check_every, 10),
+                      criterion=criterion, batched=False, nu1=nu1, nu2=nu2,
+                      mg_omega=mg_omega, coarse_iters=coarse_iters,
+                      min_size=min_size, over=over, first_window=first_window)
+
+
+def solve_mgcg_batched(coeffs, spec, x0, *, tol: float = 1e-8,
+                       max_iter: int = 10_000, check_every: int = 0,
+                       criterion: str = "residual", nu1: int = 1,
+                       nu2: int = 1, mg_omega=0.8, coarse_iters: int = 32,
+                       min_size: int = 8, over: float = 1.8,
+                       first_window: int = 1) -> SolveResult:
+    """Batched :func:`solve_mgcg` on ``(B, ny, nx)``; converged images are
+    frozen while the rest iterate."""
+    return _mgcg_core(coeffs, spec, x0, tol=tol, max_iter=max_iter,
+                      check_every=resolve_check_every(check_every, 10),
+                      criterion=criterion, batched=True, nu1=nu1, nu2=nu2,
+                      mg_omega=mg_omega, coarse_iters=coarse_iters,
+                      min_size=min_size, over=over, first_window=first_window)

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: every test takes the ``cuda`` fixture, which skips when no
+CUDA device is present, so on a CPU-only machine they all skip.  They import
+no JAX, so where JAX is not installed run them without the JAX-side
+conftest:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
+
+float64 runs the kernels' double instantiation.  The kernels are built
+without FMA contraction and follow their plain versions operation for
+operation, so the only differences left are the order of the (double)
+reductions: 1e-9 of max-abs in float64, and chip_smoke.py's 1e-4 in
+float32.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from effectivediffusivityfvm_tpu_torch.ops import fvm
+from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
+from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
+    cg_steps, cg_steps_reference)
+from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
+    v_cycle, v_cycle_reference)
+from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+
+pytestmark = pytest.mark.gpu
+
+MG = dict(omega=(1.281, 0.5584), nu=2, coarse_iters=8, over=1.8)
+TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _problem(dev, dtype, bsz, ny, nx, seed=0, contrast=1e4):
+    rng = np.random.default_rng(seed)
+    d = torch.tensor(np.exp(rng.uniform(0, np.log(contrast), (bsz, ny, nx))),
+                     dtype=dtype, device=dev)
+    c = fvm.fvm_coefficients(d, 0.0, 1.0)
+    levels = multigrid.build_hierarchy(c, min_size=4, pad_levels=True)
+    py, px = levels[0].diag.shape[-2:]
+    x = torch.zeros((bsz, py, px), dtype=dtype, device=dev)
+    x[:, :ny, :nx] = torch.arange(nx, dtype=dtype, device=dev).div(nx)
+    return d, c, levels, x
+
+
+def _rel_err(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 24), (15, 23), (64, 64), (40, 97)])
+def test_v_cycle_kernel_matches_plain(cuda, dtype, shape):
+    _, _, levels, x = _problem(cuda, dtype, 3, *shape)
+    r = levels[0].b - fvm.apply_operator(levels[0], x)
+    before = v_cycle.launches
+    z = v_cycle(levels, r, **MG)
+    torch.cuda.synchronize()
+    assert v_cycle.launches == before + 1
+    assert _rel_err(z, v_cycle_reference(levels, r, **MG)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cg_steps_kernel_matches_plain(cuda, dtype):
+    """Image 0 runs the window, 1 is frozen, 2 exits at iteration 0 on its
+    stop, 3 overshoots (rz inflated) and trips its hi after one step."""
+    _, _, levels, x = _problem(cuda, dtype, 4, 48, 40, seed=1)
+    r = levels[0].b - fvm.apply_operator(levels[0], x)
+    p = v_cycle_reference(levels, r, **MG)
+    rz = torch.sum(r * p, dim=(-2, -1))
+    sr0 = torch.sum(r.abs(), dim=(-2, -1))
+    rz[3] *= 1e3
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=dtype, device=cuda)
+    stop = torch.zeros_like(sr0)
+    stop[2] = 10 * sr0[2]
+    hi = torch.full_like(sr0, float("inf"))
+    hi[3] = 2 * sr0[3]
+    state = (x, r, p, rz, active, stop, hi)
+    got = cg_steps(levels, *(t.clone() for t in state), 4, **MG)
+    ref = cg_steps_reference(levels, *(t.clone() for t in state), 4, **MG)
+    torch.cuda.synchronize()
+    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
+    for g, e in zip(got[:3], ref[:3]):
+        for b in range(4):
+            assert _rel_err(g[b], e[b]) <= TOL[dtype]
+    for g, e in zip(got[3::2], ref[3::2]):
+        torch.testing.assert_close(g, e, rtol=10 * TOL[dtype], atol=0)
+    for g, s in zip(got[:4], state[:4]):
+        assert torch.equal(g[1], s[1])          # frozen: bit-unchanged
+    assert float(got[5][1]) == 0.0
+
+
+def test_solve_on_gpu_matches_plain_on_cpu(cuda):
+    d, c, _, _ = _problem(cuda, torch.float64, 3, 32, 48, seed=2)
+    spec = make_flux_spec(d, 0.0, 1.0)
+    x0 = torch.arange(48, dtype=torch.float64, device=cuda).div(48)
+    x0 = x0.expand(3, 32, 48)
+    kw = dict(tol=1e-9, max_iter=500, check_every=10, first_window=10,
+              nu1=2, nu2=2, mg_omega=MG["omega"], min_size=4, coarse_iters=8)
+    got = multigrid.solve_mgcg_batched(c, spec, x0, **kw)
+    ref = multigrid.solve_mgcg_batched(
+        fvm.StencilCoeffs(*(a.cpu() for a in c)),
+        type(spec)(*(a.cpu() for a in spec)), x0.cpu(), **kw)
+    assert got.iters.cpu().tolist() == ref.iters.tolist()
+    torch.testing.assert_close(got.deff.cpu(), ref.deff, rtol=1e-9, atol=0)
+
+
+def test_wrappers_reject_bad_input(cuda):
+    _, _, levels, x = _problem(cuda, torch.float32, 2, 16, 24)
+    r = levels[0].b - fvm.apply_operator(levels[0], x)
+    with pytest.raises(ValueError):
+        v_cycle(levels, r.to(torch.float64), **MG)
+    with pytest.raises(ValueError):
+        v_cycle(levels, r[:, :, :-1], **MG)
+    with pytest.raises(ValueError):
+        v_cycle(levels, r.transpose(1, 2).contiguous().transpose(1, 2), **MG)

@@ -3,25 +3,41 @@
 
 The port keeps the JAX package's module paths and function names so each
 function's counterpart is easy to find.  It imports ``torch``, ``numpy`` and
-``scipy`` only; the JAX package stays the reference the port is tested
-against.
+``scipy`` only (PIL when it reads an image); the JAX package stays the
+reference the port is tested against.
 
-Ported so far: the batched 2-phase 2D solve — image classes → diffusivity
-field → 5-point FVM assembly → multigrid-preconditioned CG
-(:func:`solvers.multigrid.solve_mgcg_batched`, whose V-cycle and fused CG
-iterations run as hand-written CUDA kernels on the GPU) → boundary-flux
-Deff.
+Ported so far:
+
+* the reference CLI path, ``python -m effectivediffusivityfvm_tpu_torch.cli
+  input.txt``: configuration, image decoding, flood fill, the single and
+  batch pipelines (2- and 3-phase) and the reference's CSV writers;
+* the solvers ``jacobi`` (plain PyTorch sweeps), ``jacobi_pallas`` (the
+  hand-written CUDA Jacobi kernel) and ``mgcg`` (multigrid-preconditioned
+  CG, whose V-cycle and fused CG iterations run as hand-written CUDA
+  kernels);
+* the image → diffusivity field → 5-point FVM assembly → boundary-flux Deff
+  chain under them.
+
+Everything runs on the CUDA device by default; pass ``device="cpu"`` to the
+pipelines (or CPU tensors to the solvers) to run the kernels' plain PyTorch
+versions instead.
 """
 
+from .config import SimulationConfig, parse_input_file
 from .models.phases import d_field_from_classes, two_phase_classes
 from .ops.flux import BoundaryFluxSpec, boundary_deff, make_flux_spec
 from .ops.fvm import StencilCoeffs, fvm_coefficients, jacobi_sweep, residual
+from .pipeline.batch import batch_sim, batch_sim_3phase
+from .pipeline.single import single_sim, single_sim_3phase
 from .solvers.driver import SolveResult
+from .solvers.jacobi import solve_jacobi, solve_jacobi_batched
 from .solvers.multigrid import solve_mgcg, solve_mgcg_batched
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "SimulationConfig",
+    "parse_input_file",
     "two_phase_classes",
     "d_field_from_classes",
     "StencilCoeffs",
@@ -32,7 +48,13 @@ __all__ = [
     "boundary_deff",
     "make_flux_spec",
     "SolveResult",
+    "solve_jacobi",
+    "solve_jacobi_batched",
     "solve_mgcg",
     "solve_mgcg_batched",
+    "single_sim",
+    "single_sim_3phase",
+    "batch_sim",
+    "batch_sim_3phase",
     "__version__",
 ]

@@ -1,9 +1,10 @@
 """Carry the JAX package's solver state into the port.
 
-Each function takes the JAX-side structure with its arrays as numpy arrays
-(or anything ``np.asarray`` accepts, such as JAX arrays) and returns the
-port's structure of torch tensors on ``device`` in ``dtype``.  Fields are
-read by name, so any NamedTuple with the same field names will do.
+Each array function takes the JAX-side structure with its arrays as numpy
+arrays (or anything ``np.asarray`` accepts, such as JAX arrays) and returns
+the port's structure of torch tensors on ``device`` in ``dtype``.  Fields
+are read by name, so any NamedTuple with the same field names will do.
+:func:`config_from_fields` carries a run's configuration.
 """
 
 from __future__ import annotations
@@ -13,10 +14,20 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from .config import SimulationConfig
 from .ops.flux import BoundaryFluxSpec
 from .ops.fvm import StencilCoeffs
 
-__all__ = ["coeffs_from_numpy", "spec_from_numpy", "levels_from_numpy"]
+__all__ = ["coeffs_from_numpy", "spec_from_numpy", "levels_from_numpy",
+           "config_from_fields"]
+
+
+def config_from_fields(d: dict) -> SimulationConfig:
+    """The JAX package's configuration, as ``dataclasses.asdict`` gives it,
+    → a validated :class:`SimulationConfig` with the same fields."""
+    cfg = SimulationConfig(**d)
+    cfg.validate()
+    return cfg
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:

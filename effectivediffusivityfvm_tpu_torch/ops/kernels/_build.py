@@ -59,6 +59,12 @@ for _t in ("f32", "f64"):
          _P, _P,                    # k_done, sum|r_true|
          _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
          _P, _P, _P], _I)           # scratch, int scratch, stream
+    _ENTRIES[f"deff_jacobi_sweeps_{_t}"] = (
+        [_I, _I, _I,                # B, ny, nx
+         _P, _P, _P, _P,            # aw, an, dinv, b
+         _P, _P, _P,                # x, out, scratch
+         _P, _I, _D,                # active (int32 or null), k, omega
+         _P], _I)                   # stream
 
 
 def _nvcc() -> str:

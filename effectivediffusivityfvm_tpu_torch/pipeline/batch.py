@@ -1,0 +1,296 @@
+"""Batch (ML dataset generation) pipelines, single-device part (torch port
+of ``effectivediffusivityfvm_tpu.pipeline.batch``).
+
+Re-design of the reference batch modes:
+  * ``BatchSim``       (Deff2D.cuh:1843-2054): 2-phase, single solve per image
+    at the requested D_fluid (no DCF continuation), 9 output values per image;
+  * ``BatchSim3Phase`` (Deff2D.cuh:2056-2419): 3-phase, DCG homotopy per
+    image, 10 values per image, optional per-image ``CMAP_%05d.csv``.
+
+The reference processes images strictly serially and re-allocates all GPU
+buffers per image (Deff2D.cuh:1867/1975).  Here images are grouped by shape,
+stacked to ``(B, ny, nx)``, and solved together per group on one device.
+Per-image convergence is preserved exactly: a converged image's field
+freezes while the rest keep sweeping (see ``solvers/driver.run_batched``).
+
+Checkpoint/resume (fixes the reference's documented all-or-nothing
+limitation, PDF §3.6): with ``cfg.incremental_output`` rows are flushed per
+completed group and a rerun resumes after the last finished image.
+
+Host/device pipelining: group k+1's host preprocessing (stack, porosity,
+flood fill) runs on a worker thread while the device solves group k
+(:func:`_prefetched`).
+
+Not ported yet: the multi-device paths (``Devices``/``DP``/``SP`` other
+than 1, ROADMAP slice 6), the compacting batch solve (``Compact: 1`` with
+mgcg, slice 3), and ``Pallas: off|interpret`` (the JAX package's XLA and
+interpreter engines; ``auto`` and ``force`` both run the CUDA kernels).
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import SimulationConfig
+from ..io import images as img_io
+from ..io import writers
+from ..models import floodfill, phases
+from ..ops import fvm
+from ..ops.flux import make_flux_spec
+from ..solvers.dispatch import needs_spd, solve_batched
+from ..utils.logging import vprint
+from ..utils.timing import time_fn
+from .single import _linear_init, dcg_stages, resolve_device, torch_dtype
+
+__all__ = ["batch_sim", "batch_sim_3phase", "solve_image_group",
+           "solve_image_group_3phase"]
+
+
+def _check_supported(cfg: SimulationConfig) -> None:
+    """Refuse the batch settings whose engines are not ported yet."""
+    if not (cfg.devices == 1 and cfg.sp == 1 and cfg.dp in (0, 1)):
+        raise NotImplementedError(
+            f"Devices: {cfg.devices}, DP: {cfg.dp}, SP: {cfg.sp}: the "
+            "multi-device batch paths are not ported to the torch package "
+            "yet (ROADMAP slice 6); use Devices: 1")
+    if cfg.compact_batches and cfg.solver in ("cg", "mgcg"):
+        raise NotImplementedError(
+            "Compact: 1 (the compacting batch solve) is not ported to the "
+            "torch package yet (ROADMAP slice 3)")
+    if cfg.solver == "mgcg" and cfg.pallas in ("off", "interpret"):
+        raise NotImplementedError(
+            f"Pallas: {cfg.pallas} selects an engine of the JAX package that "
+            "the torch package does not have; use auto or force (the CUDA "
+            "kernels)")
+
+
+def _solver_kwargs(cfg: SimulationConfig, tol: float, max_iter: int) -> dict:
+    kw = dict(omega=cfg.omega, tol=tol, max_iter=max_iter,
+              check_every=cfg.check_every, criterion=cfg.criterion)
+    if cfg.solver == "mgcg":
+        kw["first_window"] = cfg.first_window
+    return kw
+
+
+def _group_by_shape(imgs: Sequence[np.ndarray], indices: Sequence[int],
+                    max_group: int) -> List[List[int]]:
+    """Bucket image indices by (H, W); split buckets larger than max_group."""
+    buckets: Dict[Tuple[int, int], List[int]] = defaultdict(list)
+    for i in indices:
+        buckets[imgs[i].shape].append(i)
+    groups: List[List[int]] = []
+    for _, idxs in sorted(buckets.items()):
+        if max_group <= 0:
+            groups.append(idxs)
+        else:
+            groups.extend(idxs[k:k + max_group] for k in range(0, len(idxs), max_group))
+    return groups
+
+
+def solve_image_group(cfg: SimulationConfig, imgs_np: np.ndarray,
+                      device="cuda"):
+    """2-phase batched solve of one same-shape group.
+
+    Args:
+      imgs_np: (B, H, W) uint8 pixels.
+    Returns:
+      (deff, conv, iters, x_fields, time_s) with leading batch dim (numpy).
+    """
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+    classes = np.stack([
+        phases.amplify(phases.two_phase_classes(im), cfg.mesh_amp_y, cfg.mesh_amp_x)
+        for im in imgs_np
+    ])
+    bsz, ny, nx = classes.shape
+    d_field = torch.as_tensor(
+        phases.d_field_from_classes(classes, cfg.d_fluid, cfg.d_solid,
+                                    dtype=cfg.np_dtype), device=dev)
+    coeffs = fvm.fvm_coefficients(d_field, cfg.c_left, cfg.c_right)
+    spec = make_flux_spec(d_field, cfg.c_left, cfg.c_right)
+    x0 = _linear_init(ny, nx, cfg.c_left, cfg.c_right, dtype, dev).expand(
+        bsz, ny, nx)
+    res, dt = time_fn(solve_batched, cfg.solver, coeffs, spec, x0,
+                      **_solver_kwargs(cfg, cfg.convergence, cfg.max_iter))
+    deff = res.deff.cpu().numpy().astype(np.float64) / cfg.d_fluid  # Deff2D.cuh:2017
+    return (deff, res.conv.cpu().numpy(), res.iters.cpu().numpy(),
+            res.x.cpu().numpy(), dt)
+
+
+def solve_image_group_3phase(cfg: SimulationConfig, imgs_np: np.ndarray,
+                             device="cuda"):
+    """3-phase batched solve of one same-shape group, DCG homotopy included
+    (stage ladder depends only on the global DCG, so all images share it)."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+    class_list, mask_list = [], []
+    for im in imgs_np:
+        ff = floodfill.flood_fill(im > 200)
+        class_list.append(
+            phases.amplify(phases.three_phase_classes(im), cfg.mesh_amp_y, cfg.mesh_amp_x)
+        )
+        mask_list.append(
+            phases.amplify((im > 200) | ff.isolated, cfg.mesh_amp_y, cfg.mesh_amp_x)
+        )
+    classes = np.stack(class_list)
+    mask = torch.as_tensor(np.stack(mask_list), device=dev)
+    bsz, ny, nx = classes.shape
+
+    def build(dcg_val):
+        d_field = torch.as_tensor(
+            phases.d_field_from_classes(
+                classes, cfg.d_fluid, cfg.d_solid, dcg_val,
+                dtype=cfg.np_dtype), device=dev)
+        return (
+            fvm.fvm_coefficients(d_field, cfg.c_left, cfg.c_right, mask=mask,
+                                 symmetric=needs_spd(cfg.solver)),
+            make_flux_spec(d_field, cfg.c_left, cfg.c_right),
+        )
+
+    x = _linear_init(ny, nx, cfg.c_left, cfg.c_right, dtype, dev).expand(
+        bsz, ny, nx)
+    stage_max_iter = (1_000_000 if cfg.solver in ("jacobi", "rbsor", "jacobi_pallas")
+                      else cfg.max_iter)
+    for stage_num, dcg_t in enumerate(dcg_stages(cfg.d_gas), start=1):
+        vprint(cfg.verbose, f"Pre-Cond Stage {stage_num}: DCG = {dcg_t:1.3e}")
+        coeffs, spec = build(dcg_t)
+        res = solve_batched(
+            cfg.solver, coeffs, spec, x,
+            **_solver_kwargs(cfg, cfg.convergence * 10, stage_max_iter))
+        x = res.x
+
+    coeffs, spec = build(cfg.d_gas)
+    res, dt = time_fn(solve_batched, cfg.solver, coeffs, spec, x,
+                      **_solver_kwargs(cfg, cfg.convergence, cfg.max_iter))
+    deff = res.deff.cpu().numpy().astype(np.float64) / cfg.d_fluid
+    fr = [phases.phase_fractions(c) for c in classes]
+    svf = np.asarray([f[0] for f in fr])
+    lvf = np.asarray([f[1] for f in fr])
+    return (deff, res.conv.cpu().numpy(), res.iters.cpu().numpy(),
+            res.x.cpu().numpy(), dt, svf, lvf)
+
+
+def _prefetched(groups, prepare):
+    """Yield ``(group, prepare(group))`` with the next group's host
+    preprocessing overlapped with the caller's device work on the current
+    one (single worker thread)."""
+    if not groups:
+        return
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(prepare, groups[0])
+        for i, group in enumerate(groups):
+            data = fut.result()
+            if i + 1 < len(groups):
+                fut = pool.submit(prepare, groups[i + 1])
+            yield group, data
+
+
+def _attribute_time(total_s: float, iters: np.ndarray) -> np.ndarray:
+    """Per-image Time attribution for a group solve: proportional to each
+    image's sweep count (the reference reports true per-image GPU time; a
+    batch has one wall-clock, split by work done)."""
+    tot = float(np.sum(iters))
+    if tot <= 0:
+        return np.full(iters.shape, total_s / max(len(iters), 1))
+    return total_s * np.asarray(iters, np.float64) / tot
+
+
+def batch_sim(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]] = None,
+              device="cuda") -> np.ndarray:
+    """2-phase batch pipeline (reference BatchSim, Deff2D.cuh:1843).
+
+    Returns the (NumImg, 9) output table:
+    imgNum, porosity, PathFlag, Deff, Time, nElements, converge, ds, df.
+    """
+    cfg.validate()
+    _check_supported(cfg)
+    resolve_device(device)
+    if imgs is None:
+        imgs = img_io.load_batch(cfg.num_images, cfg.image_dir)
+    n = len(imgs)
+    out = np.zeros((n, 9))
+
+    inc = writers.IncrementalBatchWriter(cfg.output_name) if cfg.incremental_output else None
+    done = inc.completed() if inc else set()
+    pending = [i for i in range(n) if i not in done]
+    if done:
+        vprint(cfg.verbose, f"Resuming batch: {len(done)} images already completed")
+
+    groups = _group_by_shape(imgs, pending, cfg.batch_size)
+
+    def prepare(group):
+        stack = np.stack([imgs[i] for i in group])
+        stats = [(phases.porosity(imgs[i]),
+                  floodfill.flood_fill(imgs[i] > 150).path_flag) for i in group]
+        return stack, stats
+
+    for group, (stack, stats) in _prefetched(groups, prepare):
+        deff, conv, iters, _, dt = solve_image_group(cfg, stack, device)
+        times = _attribute_time(dt, iters)
+        for k, i in enumerate(group):
+            im = imgs[i]
+            poro, pf = stats[k]
+            ne = im.shape[0] * cfg.mesh_amp_y * im.shape[1] * cfg.mesh_amp_x
+            row = (i, poro, int(pf), float(deff[k]), float(times[k]),
+                   ne, float(conv[k]), cfg.d_solid, cfg.d_fluid)
+            out[i] = row
+            if inc:
+                inc.write_row(row)
+            vprint(cfg.verbose, f"Number {i} DCF = {cfg.d_fluid}, Deff {float(deff[k])}")
+
+    if not cfg.incremental_output:
+        writers.write_batch(cfg.output_name, [tuple(r) for r in out])
+    return out
+
+
+def batch_sim_3phase(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]] = None,
+                     device="cuda") -> np.ndarray:
+    """3-phase batch pipeline (reference BatchSim3Phase, Deff2D.cuh:2056).
+
+    Returns the (NumImg, 11) output table:
+    imgNum, SVF, LVF, PathFlag, Deff, Time, nElements, converge, ds, df, dg.
+    """
+    cfg.validate()
+    _check_supported(cfg)
+    resolve_device(device)
+    if imgs is None:
+        imgs = img_io.load_batch(cfg.num_images, cfg.image_dir)
+    n = len(imgs)
+    out = np.zeros((n, 11))
+
+    inc = (writers.IncrementalBatchWriter(cfg.output_name, three_phase=True)
+           if cfg.incremental_output else None)
+    done = inc.completed() if inc else set()
+    pending = [i for i in range(n) if i not in done]
+
+    groups = _group_by_shape(imgs, pending, cfg.batch_size)
+
+    def prepare(group):
+        stack = np.stack([imgs[i] for i in group])
+        flags = [floodfill.flood_fill(imgs[i] > 200).path_flag for i in group]
+        return stack, flags
+
+    for group, (stack, flags) in _prefetched(groups, prepare):
+        deff, conv, iters, x, dt, svf, lvf = solve_image_group_3phase(
+            cfg, stack, device)
+        times = _attribute_time(dt, iters)
+        for k, i in enumerate(group):
+            im = imgs[i]
+            ne = im.shape[0] * cfg.mesh_amp_y * im.shape[1] * cfg.mesh_amp_x
+            row = (i, float(svf[k]), float(lvf[k]), int(flags[k]),
+                   float(deff[k]), float(times[k]), ne, float(conv[k]),
+                   cfg.d_solid, cfg.d_fluid, cfg.d_gas)
+            out[i] = row
+            if inc:
+                inc.write_row(row)
+            if cfg.print_cmap:
+                writers.write_cmap(f"CMAP_{i:05d}.csv", x[k])
+
+    if not cfg.incremental_output:
+        writers.write_batch_3phase(cfg.output_name, [tuple(r) for r in out])
+    return out

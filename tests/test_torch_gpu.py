@@ -11,7 +11,7 @@ float64 runs the kernels' double instantiation.  The kernels are built
 without FMA contraction and follow their plain versions operation for
 operation, so the only differences left are the order of the (double)
 reductions: 1e-9 of max-abs in float64, and chip_smoke.py's 1e-4 in
-float32.
+float32.  K3 (the Jacobi sweeps) has no reductions and must match exactly.
 """
 
 import numpy as np
@@ -20,8 +20,11 @@ import torch
 
 from effectivediffusivityfvm_tpu_torch.ops import fvm
 from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
+from effectivediffusivityfvm_tpu_torch.ops.kernels import _build
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
     cg_steps, cg_steps_reference)
+from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
+    jacobi_sweeps, jacobi_sweeps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
     v_cycle, v_cycle_reference)
 from effectivediffusivityfvm_tpu_torch.solvers import multigrid
@@ -121,3 +124,39 @@ def test_wrappers_reject_bad_input(cuda):
         v_cycle(levels, r[:, :, :-1], **MG)
     with pytest.raises(ValueError):
         v_cycle(levels, r.transpose(1, 2).contiguous().transpose(1, 2), **MG)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [(24, 20), (96, 160), (33, 7)])
+@pytest.mark.parametrize("k", [0, 1, 2, 9])
+def test_jacobi_kernel_matches_plain(cuda, dtype, shape, k):
+    """K3 equals its plain version bit for bit (same order of sums, no FMA
+    contraction), on non-square grids and a batch of 5 that fills no
+    tile; image 3 is frozen and comes back unchanged."""
+    d, c, _, _ = _problem(cuda, dtype, 5, *shape, seed=3)
+    x = torch.rand(d.shape, dtype=dtype, device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(4))
+    active = torch.tensor([1, 1, 1, 0, 1], dtype=torch.int32, device=cuda)
+    lib = _build.load_library()
+    before, n0 = jacobi_sweeps.launches, lib.deff_launch_count()
+    got = jacobi_sweeps(c, x, k, active=active)
+    torch.cuda.synchronize()
+    assert jacobi_sweeps.launches - before == k
+    assert lib.deff_launch_count() - n0 == k
+    assert torch.equal(got, jacobi_sweeps_reference(c, x, k, active=active))
+    assert torch.equal(got[3], x[3])
+    assert got.data_ptr() != x.data_ptr()
+    assert torch.equal(jacobi_sweeps(c, x, k), jacobi_sweeps_reference(c, x, k))
+
+
+def test_jacobi_kernel_rejects_bad_input(cuda):
+    _, c, _, _ = _problem(cuda, torch.float32, 2, 16, 24)
+    x = torch.zeros((2, 16, 24), device=cuda)
+    with pytest.raises(ValueError):
+        jacobi_sweeps(c, x.to(torch.float64), 3)
+    with pytest.raises(ValueError):
+        jacobi_sweeps(c, x[:, :, :-1], 3)
+    with pytest.raises(ValueError):
+        jacobi_sweeps(c, x, -1)
+    with pytest.raises(ValueError):
+        jacobi_sweeps(c, x, 3, active=torch.ones(3, device=cuda))

@@ -34,7 +34,24 @@ non-zero):
 10. ``batch_sim`` with ``Solver: mgcg`` on 64 of phase 5's images, which
     reaches K1/K2 through the CLI path, against the same solve called
     directly with the pipeline's settings;
-11. K3 times (CUDA events) at B=256 x 128^2 fp32 and B=1 x 128^2 fp64.
+11. K3 times (CUDA events) at B=256 x 128^2 fp32 and B=1 x 128^2 fp64;
+12. K4 (the banded V-cycle) against its plain version on the card: B=2 at
+    2048^2 and at 2007x1002 (padded to 2048x1024) in fp32, B=2 at 256x320
+    in fp64;
+13. K5 (the banded CG steps) against its plain version on the card, B=4 x
+    2048^2, k=5, stored and matrix-free, with a frozen image, one that
+    exits at iteration 0 and one tripped by its divergence threshold;
+14. BASELINE config 3 (one 2048^2 image, contrast 1e-6, fp32, relresidual
+    1e-4) through ``solve_mgcg`` with the engine left to the auto rule,
+    stored and matrix-free, each against the same solve on the plain
+    versions, then one warm-up and three timed solves per leg;
+15. the CLI route to the banded engine: ``single_sim`` with ``Solver:
+    mgcg`` on the config-3 image, and ``batch_sim`` on two 2048^2 images
+    with ``Pallas: auto`` (K4/K5) and ``Pallas: force`` (K1/K2);
+16. K4/K5 times (CUDA events) at B=1 and B=4 x 2048^2 fp32;
+17. one config-3 solve per leg under ``torch.profiler``: device busy time,
+    the span of its kernels and the idle share, and device time by kernel
+    group.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -59,6 +76,15 @@ JAC_BATCH, JAC_SIZE = 256, 128        # phase 8: the datagen batch
 JAC_TOL, JAC_MAX = 1e-5, 500_000      # the reference protocol
 JAC_CAP = 20_001                      # re-solve cap against the plain version
 K3_TIME_K = 1000                      # sweeps per timed K3 call
+# BASELINE config 3 (benchmarks/bench_configs.py: 2048^2, rng seed 3,
+# porosity 0.65, sigma 8, D = 1 on pixels 0 and 1e-6 elsewhere)
+C3_SIZE, C3_SEED, C3_SIGMA = 2048, 3, 8.0
+C3_KW = dict(tol=1e-4, max_iter=400, check_every=10, criterion="relresidual",
+             min_size=32, coarse_iters=64, nu1=2, nu2=2, over=1.8,
+             mg_omega=0.8)
+MG3 = dict(omega=0.8, nu=2, coarse_iters=64, over=1.8)
+C15_TOL = 1e-7                        # mean|r| for the CLI runs (~relres 2e-4)
+K5_TIME_K = 10                        # iterations per timed K5 call
 
 # Least-time reckoning (bound_ms): the larger of the bytes a call must move
 # (each input read once, each output written once) over the card's memory
@@ -94,6 +120,16 @@ def bench_images(batch, ny, nx=None, seed=7):
                                         sigma=4.0)
         imgs[i] = (noise >= np.quantile(noise, POROSITY)) * 255
     return imgs
+
+
+def correlated_binary(rng, ny, nx, porosity=POROSITY, sigma=C3_SIGMA):
+    """bench_configs.py's config-3 generator, for any shape: Gaussian-
+    smoothed noise thresholded at the porosity quantile, solid = 255."""
+    from scipy import ndimage
+
+    noise = ndimage.gaussian_filter(rng.standard_normal((ny, nx)),
+                                    sigma=sigma)
+    return ((noise >= np.quantile(noise, porosity)) * 255).astype(np.uint8)
 
 
 def build_problem(imgs, dev, dtype=None):
@@ -152,6 +188,382 @@ def cycle_work(levels, bsz, itemsize, nu):
 
 def phase(n, t0, text):
     print(f"phase {n} {text} [{time.perf_counter() - t0:.1f} s]", flush=True)
+
+def c3_problem(imgs, dev, dtype=None):
+    """Config 3's system for pixel arrays ``(..., ny, nx)``: D, coefficients,
+    flux spec and the linear x0."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.ops import fvm
+    from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
+
+    dtype = dtype or torch.float32
+    d = torch.tensor(np.where(imgs == 0, 1.0, CONTRAST), dtype=dtype,
+                     device=dev)
+    nx = imgs.shape[-1]
+    x0 = (torch.arange(nx, dtype=dtype, device=dev) / nx).expand(imgs.shape)
+    return (d, fvm.fvm_coefficients(d, 0.0, 1.0),
+            make_flux_spec(d, 0.0, 1.0), x0)
+
+
+def tiled_setup(d, coeffs, x0, min_size):
+    """The banded engine's hierarchy and matrix-free arguments (as the
+    solver builds them) and x0 padded to level 0."""
+    import torch.nn.functional as F
+
+    from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+
+    levels, mf = multigrid.tiled_system(coeffs, d, min_size=min_size)
+    py, px = levels[0].diag.shape[-2:]
+    x = F.pad(x0, (0, px - x0.shape[-1], 0, py - x0.shape[-2])).contiguous()
+    return levels, x, mf
+
+
+def tiled_work(levels, bsz, itemsize, nu, k=None, mf=False):
+    """Bytes and operations of one banded cycle (``k=None``), or of a K5
+    call of ``k`` iterations with every image live: the cycle's reckoning
+    (cycle_work) per iteration, 22 operations a cell for the CG updates,
+    products and sums, and when matrix-free 25 a cell in each of the three
+    passes to rebuild the coefficients; a K5 call reads the hierarchy (level
+    0 as D when matrix-free), x, r and p once and writes x, r and p."""
+    nbytes, ops, cells = cycle_work(levels, bsz, itemsize, nu)
+    if k is None:
+        return nbytes, ops
+    n0 = bsz * cells[0]
+    nbytes += itemsize * n0 * (6 - 2 - (2 if mf else 0))
+    return nbytes, k * (ops + n0 * (22 + (75 if mf else 0)))
+
+
+# kernel-name fragments -> the group a profile reports them under
+PROFILE_GROUPS = (
+    ("K5 pass A", "pass_a_kernel"), ("K5 pass B", "pass_b_kernel"),
+    ("K5 pass C", "pass_c_kernel"),
+    ("K5 scalars", ("fin_", "abs_parts", "pin_kernel", "copy_back")),
+    ("K4 T1/T2", ("tiled_pre", "tiled_post")),
+    ("K2 levels", ("pre_first", "smooth_kernel", "resid_restrict",
+                   "coarse_solve", "post_first")),
+)
+
+
+def profile_solve(fn):
+    """Run ``fn`` once under ``torch.profiler``; returns ``(busy_ms,
+    span_ms, wall_ms, groups)`` with the device time of every kernel and
+    copy summed by PROFILE_GROUPS (the rest: "torch ops"), or None where
+    the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev)) / 1e3
+    groups = {}
+    for e in dev:
+        name = next((g for g, frag in PROFILE_GROUPS
+                     if any(f in e.name for f in (
+                         frag if isinstance(frag, tuple) else (frag,)))),
+                    "torch ops")
+        groups[name] = groups.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return busy, span, wall_ms, groups
+
+
+def large_grid_phases(dev, card, lib):
+    """Phases 12-16 (the banded engine); returns the rows of the kernels'
+    JSON line for K4 and K5."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.config import (SimulationConfig,
+                                                          parse_input_file)
+    from effectivediffusivityfvm_tpu_torch.ops import fvm
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
+        batch_sum, cg_steps)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
+        cg_steps_tiled, cg_steps_tiled_reference)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import (
+        v_cycle_tiled, v_cycle_tiled_reference)
+    from effectivediffusivityfvm_tpu_torch.pipeline import batch, single
+    from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+
+    wrappers = (v_cycle_tiled, cg_steps_tiled, v_cycle, cg_steps)
+
+    def zero_counts():
+        for w in wrappers:
+            w.launches = 0
+        return lib.deff_cycle_count()
+
+    def counts(cyc0):
+        return {"K4": v_cycle_tiled.launches, "K5": cg_steps_tiled.launches,
+                "K2": v_cycle.launches, "K1": cg_steps.launches,
+                "K2 cycles in the library": lib.deff_cycle_count() - cyc0}
+
+    # -- 12: K4 against its plain version
+    t0 = time.perf_counter()
+    k4_err, lines = 0.0, []
+    for ny, nx, dtype, seed in ((C3_SIZE, C3_SIZE, torch.float32, 3),
+                                (2007, 1002, torch.float32, 4),
+                                (256, 320, torch.float64, 5)):
+        rng = np.random.default_rng(seed)
+        imgs = np.stack([correlated_binary(rng, ny, nx) for _ in range(2)])
+        d, c, _, x0 = c3_problem(imgs, dev, dtype)
+        levels, x, _ = tiled_setup(d, c, x0, 32)
+        r = levels[0].b - fvm.apply_operator(levels[0], x)
+        n_k4, n_k2, n_lib = (v_cycle_tiled.launches, v_cycle.launches,
+                             lib.deff_launch_count())
+        z = v_cycle_tiled(levels, r, **MG3)
+        torch.cuda.synchronize()
+        n_k4, n_k2, n_lib = (v_cycle_tiled.launches - n_k4,
+                             v_cycle.launches - n_k2,
+                             lib.deff_launch_count() - n_lib)
+        check(n_k4 == 1 and n_k2 == 1, f"K4 launches {n_k4}, K2 {n_k2}")
+        zp = v_cycle_tiled_reference(levels, r, **MG3)
+        err = float((z - zp).abs().max())
+        scale = float(zp.abs().max())
+        check(err <= 1e-6 * scale, f"K4 {ny}x{nx}: max|z - z_plain| {err} "
+              f"> 1e-6 * {scale}")
+        k4_err = max(k4_err, err)
+        lines.append(f"{ny}x{nx} {str(dtype)[-7:]} padded to "
+                     f"{tuple(r.shape[-2:])}, {len(levels)} levels: max abs "
+                     f"err {err:.3e} (max|z| {scale:.3e}); T1 1, T2 1, K2 1 "
+                     f"call, {n_lib} library launches")
+        del d, c, levels, x, r, z, zp
+    phase(12, t0, "K4 vs plain, B=2: " + "; ".join(lines))
+
+    # -- 13: K5 against its plain version, B=4 x 2048^2, k=5
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(C3_SEED)
+    imgs4 = np.stack([correlated_binary(rng, C3_SIZE, C3_SIZE)
+                      for _ in range(4)])
+    d4, c4, _, x04 = c3_problem(imgs4, dev)
+    levels4, x4, mf4 = tiled_setup(d4, c4, x04, C3_KW["min_size"])
+    r4 = levels4[0].b - fvm.apply_operator(levels4[0], x4)
+    p4 = v_cycle_tiled(levels4, r4, **MG3)
+    rz = batch_sum(r4 * p4)
+    sr0 = batch_sum(r4.abs())
+    active = torch.ones(4, device=dev)
+    active[1] = 0.0                              # frozen
+    stop = torch.zeros(4, device=dev)
+    stop[2] = 10.0 * sr0[2]                      # exits at iteration 0
+    hi = torch.full((4,), float("inf"), device=dev)
+    rz[3] *= 1e3                                 # overshoots ...
+    hi[3] = 2.0 * sr0[3]                         # ... and trips its hi
+    state = (x4, r4, p4, rz, active, stop, hi)
+    k5_err, lines = 0.0, []
+    for mode, extra in (("stored", {}), ("matrix-free", mf4)):
+        got = cg_steps_tiled(levels4, *(t.clone() for t in state), 5, **MG3,
+                             **extra)
+        ref = cg_steps_tiled_reference(levels4, *(t.clone() for t in state),
+                                       5, **MG3, **extra)
+        torch.cuda.synchronize()
+        kd = got[4].tolist()
+        check(kd == ref[4].tolist(), f"K5 {mode} k_done {kd} != plain "
+              f"{ref[4].tolist()}")
+        check(kd[:3] == [5, 0, 0] and kd[3] >= 1, f"K5 {mode} k_done {kd}")
+        err_m = 0.0
+        for nm, g, e in zip("xrp", got[:3], ref[:3]):
+            for b in range(4):
+                err = float((g[b] - e[b]).abs().max())
+                scale = float(e[b].abs().max())
+                check(err <= 1e-4 * scale,
+                      f"K5 {mode} {nm}[{b}] err {err} > 1e-4*{scale}")
+                err_m = max(err_m, err)
+        rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
+        check(rz_err <= 1e-3, f"K5 {mode} rz rel err {rz_err}")
+        for g, e in zip(got[:4], ref[:4]):
+            check(bool(torch.equal(g[1], e[1])), f"K5 {mode} frozen image")
+        k5_err = max(k5_err, err_m)
+        lines.append(f"{mode}: k_done {kd}, max abs err x/r/p {err_m:.3e}, "
+                     f"rz max rel err {rz_err:.3e}")
+    phase(13, t0, "K5 vs plain, B=4 x 2048^2, k=5: " + "; ".join(lines))
+    del got, ref, state, levels4, x4, mf4, r4, p4
+
+    # -- 14: BASELINE config 3 through solve_mgcg, engine by the auto rule
+    t0 = time.perf_counter()
+    check(multigrid._engine_auto(C3_SIZE, C3_SIZE, torch.float32) == "tiled",
+          "the auto rule does not pick the banded engine at 2048^2 fp32")
+    img3 = imgs4[0]
+    d1, c1, s1, x01 = c3_problem(img3, dev)
+    legs, main_launches = {}, None
+    for name, extra in (("stored", dict(first_window=0)),
+                        ("matrix-free", dict(d_field=d1, first_window=1))):
+        torch.cuda.synchronize()
+        cyc0 = zero_counts()
+        t1 = time.perf_counter()
+        res = multigrid.solve_mgcg(c1, s1, x01, **C3_KW, **extra)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t1
+        launched = counts(cyc0)
+        if main_launches is None:
+            main_launches = launched
+        check(launched["K4"] > 0 and launched["K5"] > 0
+              and launched["K2"] > 0 and launched["K1"] == 0,
+              f"config 3 {name} launches {launched}")
+        conv, deff, iters = float(res.conv), float(res.deff), int(res.iters)
+        check(np.isfinite(deff) and conv <= C3_KW["tol"],
+              f"config 3 {name}: relres {conv}, Deff {deff}")
+        plain = multigrid._mgcg_core(c1, s1, x01, batched=False, plain=True,
+                                     **C3_KW, **extra)
+        p_deff, p_iters = float(plain.deff), int(plain.iters)
+        rel = abs(deff - p_deff) / abs(p_deff)
+        check(rel <= 1e-4 and abs(iters - p_iters) <= 2,
+              f"config 3 {name} vs plain: Deff {deff} / {p_deff}, "
+              f"iterations {iters} / {p_iters}")
+        multigrid.solve_mgcg(c1, s1, x01, **C3_KW, **extra)     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            res = multigrid.solve_mgcg(c1, s1, x01, **C3_KW, **extra)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        legs[name] = deff
+        phase(14, t0, f"BASELINE config 3 {name} {card}: 2048^2 fp32, "
+              f"{iters} iterations (plain {p_iters}), relres {conv:.3e}, "
+              f"Deff {deff:.6f} (plain {p_deff:.6f}, rel err {rel:.3e}), "
+              f"first run {t_first:.4f} s, timed "
+              f"{', '.join(f'{t:.4f}' for t in times)} s, "
+              f"{min(times) / iters * 1e3:.4f} ms/iteration, peak memory "
+              f"{peak / 2**30:.3f} GiB, launches {launched}")
+        t0 = time.perf_counter()
+        del res, plain
+    rel_sm = abs(legs["stored"] - legs["matrix-free"]) / abs(legs["stored"])
+    check(rel_sm <= 1e-3, f"stored vs matrix-free Deff rel err {rel_sm}")
+    phase(14, t0, f"stored vs matrix-free Deff rel err {rel_sm:.3e}")
+
+    # -- 15: the CLI route to the banded engine
+    t0 = time.perf_counter()
+    cyc0 = zero_counts()
+    r15 = single.single_sim(
+        SimulationConfig(n_phase=2, d_fluid=1.0, d_solid=CONTRAST,
+                         solver="mgcg", criterion="residual",
+                         convergence=C15_TOL, max_iter=400),
+        img=img3, write_output=False, device="cuda")
+    torch.cuda.synchronize()
+    l_single = counts(cyc0)
+    check(l_single["K4"] > 0 and l_single["K5"] > 0 and l_single["K1"] == 0,
+          f"single_sim mgcg launches {l_single}")
+    check(np.isfinite(r15.deff) and 0 < r15.deff <= 1, f"Deff {r15.deff}")
+    results = [f"single_sim Deff {r15.deff:.6f}, conv {r15.conv:.3e}, "
+               f"{r15.iters} iterations, launches {l_single}"]
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    for mode, want, absent in (("auto", ("K4", "K5"), "K1"),
+                               ("force", ("K1",), "K5")):
+        csv = WORK_DIR / f"batch_c3_{mode}.csv"
+        csv.unlink(missing_ok=True)
+        inp = WORK_DIR / f"input_c3_{mode}.txt"
+        inp.write_text(f"Phases: 2\nRunBatch: 1\nNumImages: 2\n"
+                       f"Ds: {CONTRAST}\nDf: 1\nSolver: mgcg\n"
+                       f"Criterion: residual\nConvergence: {C15_TOL}\n"
+                       f"MaxIter: 400\nPallas: {mode}\nOutputName: {csv}\n")
+        cyc0 = zero_counts()
+        table = batch.batch_sim(parse_input_file(str(inp)),
+                                imgs=list(imgs4[:2]), device="cuda")
+        torch.cuda.synchronize()
+        launched = counts(cyc0)
+        check(all(launched[k] > 0 for k in want) and launched[absent] == 0,
+              f"batch_sim Pallas: {mode} launches {launched}")
+        check(bool(np.all(np.isfinite(table[:, 3]))), "batch Deff not finite")
+        results.append(f"batch_sim Pallas: {mode} Deff "
+                       f"{', '.join(f'{v:.6f}' for v in table[:, 3])}, conv "
+                       f"{table[:, 6].max():.3e}, solve "
+                       f"{table[:, 4].sum():.3f} s, launches {launched}")
+    phase(15, t0, "CLI route: " + "; ".join(results))
+
+    # -- 16: K4/K5 times (CUDA events)
+    t0 = time.perf_counter()
+    times, lines = {}, []
+    for bsz in (1, 4):
+        sub = slice(0, bsz)
+        levels, x, mf = tiled_setup(d4[sub], type(c4)(*(a[sub] for a in c4)),
+                                    x04[sub], C3_KW["min_size"])
+        r = levels[0].b - fvm.apply_operator(levels[0], x)
+        item = x.element_size()
+        ms = cuda_ms(lambda: v_cycle_tiled(levels, r, **MG3), 10, warm=2)
+        ms_p = cuda_ms(lambda: v_cycle_tiled_reference(levels, r, **MG3), 3)
+        n0 = lib.deff_launch_count()
+        v_cycle_tiled(levels, r, **MG3)
+        per_cycle = lib.deff_launch_count() - n0
+        times[("K4", bsz)] = (ms, ms_p, bound(*tiled_work(levels, bsz, item,
+                                                          MG3["nu"]), item))
+        lines.append(f"B={bsz} K4 cycle {ms:.4f} ms (plain {ms_p:.4f} ms, "
+                     f"bound {times[('K4', bsz)][2][0]:.4f} ms by "
+                     f"{times[('K4', bsz)][2][1]}, {per_cycle} launches)")
+        p = v_cycle_tiled(levels, r, **MG3)
+        rz = batch_sum(r * p)
+        ones = torch.ones(bsz, device=dev)
+        zero = torch.zeros(bsz, device=dev)
+        inf = torch.full((bsz,), float("inf"), device=dev)
+        for mode, extra in (("stored", {}), ("matrix-free", mf)):
+            def k5(fn, k=K5_TIME_K, reps=4):
+                states = [(x.clone(), r.clone(), p.clone())
+                          for _ in range(reps)]
+                return lambda: fn(levels, *states.pop(), rz, ones, zero, inf,
+                                  k, **MG3, **extra)
+
+            n0 = lib.deff_launch_count()
+            k5(cg_steps_tiled, 0, 1)()
+            n1 = lib.deff_launch_count()
+            k5(cg_steps_tiled, K5_TIME_K, 1)()
+            per_iter = (lib.deff_launch_count() - n1 - (n1 - n0)) / K5_TIME_K
+            ms = cuda_ms(k5(cg_steps_tiled), 3)
+            ms_p = cuda_ms(k5(cg_steps_tiled_reference, reps=2), 1)
+            bd = bound(*tiled_work(levels, bsz, item, MG3["nu"], K5_TIME_K,
+                                   mf=bool(extra)), item)
+            times[(mode, bsz)] = (ms, ms_p, bd)
+            lines.append(f"B={bsz} K5 {mode} k={K5_TIME_K} {ms:.4f} ms "
+                         f"({ms / K5_TIME_K:.4f} ms/iteration; plain "
+                         f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
+                         f"{per_iter:g} launches/iteration)")
+        del levels, x, mf, r, p
+    phase(16, t0, f"K4/K5 times {card}, 2048^2 fp32: " + "; ".join(lines))
+
+    # -- 17: one config-3 solve per leg under the profiler
+    t0 = time.perf_counter()
+    lines = []
+    for name, extra in (("stored", dict(first_window=0)),
+                        ("matrix-free", dict(d_field=d1, first_window=1))):
+        prof = profile_solve(
+            lambda: multigrid.solve_mgcg(c1, s1, x01, **C3_KW, **extra))
+        if prof is None:
+            lines.append(f"{name}: the profiler saw no device time")
+            continue
+        busy, span, wall, groups = prof
+        lines.append(
+            f"{name}: device busy {busy:.3f} ms of a {span:.3f} ms kernel "
+            f"span (idle share {1 - busy / span:.1%}; wall {wall:.3f} ms "
+            "under the profiler), by group " + ", ".join(
+                f"{g} {ms:.3f} ms ({ms / busy:.0%})" for g, ms in
+                sorted(groups.items(), key=lambda kv: -kv[1])))
+    phase(17, t0, f"config 3 profile {card}: " + "; ".join(lines))
+
+    k4_ms, k4_ms_p, k4_bound = times[("K4", 1)]
+    k5_ms, k5_ms_p, k5_bound = times[("stored", 1)]
+    return [
+        {"name": "v_cycle_tiled", "route": "cuda",
+         "source": "effectivediffusivityfvm_tpu_torch/csrc/vcycle_tiled.cu",
+         "replaces": "effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py:205",
+         "launches": main_launches["K4"], "max_abs_err": k4_err,
+         "ms": k4_ms, "plain_ms": k4_ms_p, "bound_ms": k4_bound[0],
+         "bound_by": k4_bound[1], "library_ms": None},
+        {"name": "cg_steps_tiled", "route": "cuda",
+         "source": "effectivediffusivityfvm_tpu_torch/csrc/cgstep_tiled.cu",
+         "replaces": "effectivediffusivityfvm_tpu/ops/kernels/cgstep_tiled.py:386",
+         "launches": main_launches["K5"], "max_abs_err": k5_err,
+         "ms": k5_ms, "plain_ms": k5_ms_p, "bound_ms": k5_bound[0],
+         "bound_by": k5_bound[1], "library_ms": None},
+    ]
 
 
 def main():
@@ -281,7 +693,7 @@ def main():
     plain = multigrid._mgcg_core(
         type(coeffs)(*(a[sub] for a in coeffs)),
         type(spec)(*(a[sub] for a in spec)), x0[sub], batched=True,
-        kernels=(cg_steps_reference, v_cycle_reference), **SOLVE_KW)
+        plain=True, **SOLVE_KW)
     p_deff = plain.deff.cpu().numpy()
     p_iters = plain.iters.cpu().numpy()
     rel = np.abs(deff5[sub] - p_deff) / np.abs(p_deff)
@@ -568,6 +980,9 @@ def main():
         f"{mp / K3_TIME_K * 1e3:.2f} us/sweep; a {K3_TIME_K}-sweep call "
         f"{ms:.3f} ms vs bound {bd[0]:.3f} ms by {bd[1]})"
         for lb, (ms, mp, bd) in k3_times.items()))
+    del c, xk
+    torch.cuda.empty_cache()
+    tiled_rows = large_grid_phases(dev, card, lib)
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
     k3_ms, k3_ms_p, k3_bound = next(iter(k3_times.values()))
@@ -590,7 +1005,7 @@ def main():
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_ms_p, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
-    ]
+    ] + tiled_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

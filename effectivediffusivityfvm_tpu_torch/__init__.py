@@ -14,7 +14,8 @@ Ported so far:
 * the solvers ``jacobi`` (plain PyTorch sweeps), ``jacobi_pallas`` (the
   hand-written CUDA Jacobi kernel) and ``mgcg`` (multigrid-preconditioned
   CG, whose V-cycle and fused CG iterations run as hand-written CUDA
-  kernels);
+  kernels; float32 grids from 1280² up take the banded engine, with an
+  optional matrix-free level 0);
 * the image → diffusivity field → 5-point FVM assembly → boundary-flux Deff
   chain under them.
 

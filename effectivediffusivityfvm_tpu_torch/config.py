@@ -74,9 +74,11 @@ class SimulationConfig:
     dp: int = 0                       # data-parallel extent; 0 = devices//sp
     sp: int = 1                       # spatial (row-sharded) extent
     pallas: str = "auto"              # fused-kernel selection for solver=mgcg:
-                                      #   "auto"/"force" run the hand-written
-                                      #   kernels; "off" and "interpret" name
-                                      #   JAX engines the port does not have
+                                      #   "auto" picks by size (K4/K5 past
+                                      #   the whole-cycle size), "force" is
+                                      #   K1/K2 (batch pipelines); "off" and
+                                      #   "interpret" name JAX engines the
+                                      #   port does not have
     first_window: int = 0             # "FirstWindow:" — iterations in the FIRST
                                       #   fused-mgcg window.  0 = auto:
                                       #   check_every for the residual/

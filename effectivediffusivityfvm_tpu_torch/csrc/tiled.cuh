@@ -1,0 +1,288 @@
+// Device code shared by the banded (large-grid) engine: K4, the tiled
+// V-cycle (vcycle_tiled.cu), and K5, the three-pass CG iteration
+// (cgstep_tiled.cu).
+//
+// The TPU engine (effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py,
+// cgstep_tiled.py) streamed the fine level in row bands of full width with
+// HALO = 8 overlapping rows, because a band had to fit VMEM.  Here each
+// block owns a 2D tile of TY x TX output cells and stages a window of the
+// tile plus a halo of h = nu + 2 cells on all four sides in shared memory.
+// Every stencil step is then computed over the whole window from values in
+// shared memory; a step reads one neighbour, so each step leaves one more
+// ring at the window's edge invalid, and h rings cover the deepest chain a
+// pass runs (pass B: q, then nu - 1 sweeps, then the residual: nu + 1).
+// That is the TPU kernel's own idea -- all nu sweeps of a leg in one pass
+// over device memory -- carried to a 2D tile.
+//
+// Bounds on an H100: memory bandwidth.  A pass reads its input planes once
+// (plus the halo, (1 + 2h/32)^2 - 1 ~ 56% at nu = 2, mostly served by L2)
+// and writes its outputs once; the sweeps run out of shared memory.
+//
+// Cells outside the padded plane read as 0 in every window (coefficients
+// included), which is what the whole-plane plain versions see through their
+// zero-padded shifts: the boundary couplings are 0, so the window sums equal
+// the plain version's bit for bit on the valid region.  Arithmetic follows
+// the plain versions (ops/kernels/vcycle_tiled.py, cgstep_tiled.py) operation
+// for operation; the build turns FMA contraction off.
+#pragma once
+
+#include "vcycle.cuh"
+
+namespace deff {
+
+constexpr int TY = 32;                  // output rows of a tile
+constexpr int TX = 32;                  // output columns of a tile
+constexpr int TILE_THREADS = 256;       // = (TY / 2) * (TX / 2): one thread
+                                        //   per coarse cell in the restriction
+constexpr int MAX_NU = 8;               // the TPU engine's HALO
+
+// Damping factors of one V(nu, nu) leg, by value into the kernels.
+struct Weights {
+  double w[MAX_NU];
+  int nu;
+};
+
+inline Weights make_weights(const double* ws, int nu) {
+  Weights out{};
+  out.nu = nu;
+  for (int s = 0; s < nu && s < MAX_NU; ++s) out.w[s] = ws[s];
+  return out;
+}
+
+// Level 0 of a (B, py, px) batch: the stored planes, or (d != nullptr) the
+// diffusivity field from which the kernels rebuild them (matrix-free).
+template <typename T>
+struct Fine {
+  const T* aw;
+  const T* an;
+  const T* dinv;
+  const T* d;
+  T fx, fy, bcf;   // assembly factors of the unpadded grid
+  int nxr;         // unpadded width: the Dirichlet columns are 0 and nxr - 1
+  int py, px;
+};
+
+struct Tile {
+  int py, px;      // the plane
+  int ty0, tx0;    // first output cell
+  int h;           // halo
+  int wy, wx;      // window: (TY + 2h) x (TX + 2h)
+  int i0, j0;      // plane coordinates of window cell (0, 0)
+};
+
+inline int tiles_for(int py, int px) {
+  return ((py + TY - 1) / TY) * ((px + TX - 1) / TX);
+}
+
+inline size_t win_cells(int h) { return (size_t)(TY + 2 * h) * (TX + 2 * h); }
+
+// Dynamic shared memory of a kernel holding `planes` windows, plus the
+// one-cell-wider D window when matrix-free.
+inline size_t tile_smem(int planes, int h, bool mf, size_t item) {
+  size_t cells = planes * win_cells(h);
+  if (mf) cells += (size_t)(TY + 2 * h + 2) * (TX + 2 * h + 2);
+  return cells * item;
+}
+
+__device__ __forceinline__ Tile make_tile(int py, int px, int h) {
+  Tile t;
+  t.py = py;
+  t.px = px;
+  t.h = h;
+  const int ntx = (px + TX - 1) / TX;
+  t.ty0 = (blockIdx.x / ntx) * TY;
+  t.tx0 = (blockIdx.x % ntx) * TX;
+  t.wy = TY + 2 * h;
+  t.wx = TX + 2 * h;
+  t.i0 = t.ty0 - h;
+  t.j0 = t.tx0 - h;
+  return t;
+}
+
+// The window of plane `g` widened by m extra cells a side; 0 off the plane.
+template <typename T>
+__device__ void load_window(T* s, const T* __restrict__ g, const Tile& t,
+                            int m) {
+  const int wx = t.wx + 2 * m;
+  const int n = (t.wy + 2 * m) * wx;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int wi = c / wx, wj = c - wi * wx;
+    const int gi = t.i0 - m + wi, gj = t.j0 - m + wj;
+    s[c] = (gi >= 0 && gi < t.py && gj >= 0 && gj < t.px)
+               ? g[(size_t)gi * t.px + gj]
+               : T(0);
+  }
+}
+
+// Guarded product-form harmonic mean (2a) b / (a + b), 0 where a + b <= 0.
+template <typename T>
+__device__ __forceinline__ T hmean(T a, T b) {
+  const T s = a + b;
+  return s > T(0) ? ((T(2) * a) * b) / s : T(0);
+}
+
+// Level-0 windows AW, AN, DI: loaded (stored), or rebuilt from D term for
+// term as coeffs_from_d does (matrix-free; Dw is the D window's scratch).
+// The caller synchronises before reading them.
+template <typename T>
+__device__ void coeff_windows(const Fine<T>& f, size_t off, const Tile& t,
+                              T* AW, T* AN, T* DI, T* Dw) {
+  if (f.d == nullptr) {
+    load_window(AW, f.aw + off, t, 0);
+    load_window(AN, f.an + off, t, 0);
+    load_window(DI, f.dinv + off, t, 0);
+    return;
+  }
+  load_window(Dw, f.d + off, t, 1);
+  __syncthreads();
+  const int dx = t.wx + 2;
+  const int n = t.wy * t.wx;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int wi = c / t.wx, wj = c - wi * t.wx;
+    const int dc = (wi + 1) * dx + wj + 1;
+    const T dcc = Dw[dc];
+    const T aw = hmean(Dw[dc - 1], dcc) * f.fx;
+    const T ae = hmean(dcc, Dw[dc + 1]) * f.fx;
+    const T an = hmean(Dw[dc - dx], dcc) * f.fy;
+    const T as = hmean(dcc, Dw[dc + dx]) * f.fy;
+    T diag = ((aw + ae) + an) + as;
+    const int gj = t.j0 + wj;
+    diag = diag + ((gj == 0 || gj == f.nxr - 1) ? dcc * f.bcf : T(0));
+    AW[c] = aw;
+    AN[c] = an;
+    DI[c] = diag > T(0) ? T(1) / diag : T(0);
+  }
+}
+
+// Neighbour sum of the symmetric stencil inside the window, in the plain
+// version's order (west, east, north, south); a neighbour off the window
+// is skipped (that cell is in the invalid margin).
+template <typename T>
+__device__ __forceinline__ T wnbsum(const T* aw, const T* an, const T* v,
+                                    int c, int wi, int wj, int wy, int wx) {
+  T s = (wj > 0) ? aw[c] * v[c - 1] : T(0);
+  if (wj + 1 < wx) s = s + aw[c + 1] * v[c + 1];
+  if (wi > 0) s = s + an[c] * v[c - wx];
+  if (wi + 1 < wy) s = s + an[c + wx] * v[c + wx];
+  return s;
+}
+
+// dst = (1 - w) src + (w (rhs + nbsum(src))) dinv over the window.
+template <typename T>
+__device__ void sweep_window(const T* AW, const T* AN, const T* DI,
+                             const T* rhs, const T* src, T* dst, T w, T omw,
+                             const Tile& t) {
+  const int n = t.wy * t.wx;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int wi = c / t.wx, wj = c - wi * t.wx;
+    const T nb = wnbsum(AW, AN, src, c, wi, wj, t.wy, t.wx);
+    dst[c] = omw * src[c] + (w * (rhs[c] + nb)) * DI[c];
+  }
+}
+
+// T1's smoothing: e = (w0 dinv) r, then the sweeps at ws[1:]; R must be
+// complete (synchronised).  Returns the plane that holds e, synchronised.
+template <typename T>
+__device__ T* pre_smooth(const T* AW, const T* AN, const T* DI, const T* R,
+                         T* E0, T* E1, const Weights& ws, const Tile& t) {
+  const int n = t.wy * t.wx;
+  const T w0 = (T)ws.w[0];
+  for (int c = threadIdx.x; c < n; c += blockDim.x)
+    E0[c] = (w0 * DI[c]) * R[c];
+  __syncthreads();
+  T* cur = E0;
+  T* oth = E1;
+  for (int s = 1; s < ws.nu; ++s) {
+    sweep_window(AW, AN, DI, R, cur, oth, (T)ws.w[s], (T)(1.0 - ws.w[s]), t);
+    __syncthreads();
+    T* tmp = cur; cur = oth; oth = tmp;
+  }
+  return cur;
+}
+
+// T1's tail: res = r - (diag e - nbsum(e)) with diag = 1/dinv, summed over
+// each 2x2 block of the tile (row pairs, then column pairs) into the
+// image's coarse plane (py/2, px/2).
+template <typename T>
+__device__ void restrict_tile(const T* AW, const T* AN, const T* DI,
+                              const T* R, const T* E, const Tile& t,
+                              T* __restrict__ rc) {
+  const int pxc = t.px / 2;
+  for (int cc = threadIdx.x; cc < (TY / 2) * (TX / 2); cc += blockDim.x) {
+    const int I = cc / (TX / 2), J = cc - I * (TX / 2);
+    const int gi = t.ty0 + 2 * I, gj = t.tx0 + 2 * J;
+    if (gi >= t.py || gj >= t.px) continue;
+    auto res = [&](int a, int b) {
+      const int wi = 2 * I + a + t.h, wj = 2 * J + b + t.h;
+      const int c = wi * t.wx + wj;
+      return R[c] - (diag_of(DI[c]) * E[c] -
+                     wnbsum(AW, AN, E, c, wi, wj, t.wy, t.wx));
+    };
+    rc[(size_t)(gi / 2) * pxc + gj / 2] =
+        (res(0, 0) + res(1, 0)) + (res(0, 1) + res(1, 1));
+  }
+}
+
+// T2: e = e_pre + over ec[i/2, j/2] on the window (0 off the plane), then
+// the sweeps in reverse order; R must be complete.  Returns the plane that
+// holds z, synchronised.
+template <typename T>
+__device__ T* post_smooth(const T* AW, const T* AN, const T* DI, const T* R,
+                          T* E0, T* E1, const T* __restrict__ e_pre,
+                          const T* __restrict__ ec, T over, const Weights& ws,
+                          const Tile& t) {
+  const int pxc = t.px / 2;
+  const int n = t.wy * t.wx;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int wi = c / t.wx, wj = c - wi * t.wx;
+    const int gi = t.i0 + wi, gj = t.j0 + wj;
+    E0[c] = (gi >= 0 && gi < t.py && gj >= 0 && gj < t.px)
+                ? e_pre[(size_t)gi * t.px + gj] +
+                      over * ec[(size_t)(gi >> 1) * pxc + (gj >> 1)]
+                : T(0);
+  }
+  __syncthreads();
+  T* cur = E0;
+  T* oth = E1;
+  for (int s = ws.nu - 1; s >= 0; --s) {
+    sweep_window(AW, AN, DI, R, cur, oth, (T)ws.w[s], (T)(1.0 - ws.w[s]), t);
+    __syncthreads();
+    T* tmp = cur; cur = oth; oth = tmp;
+  }
+  return cur;
+}
+
+// Copy the tile's output cells of window plane S to the image plane g.
+template <typename T>
+__device__ void store_interior(T* __restrict__ g, const T* S, const Tile& t) {
+  for (int c = threadIdx.x; c < TY * TX; c += blockDim.x) {
+    const int ti = c / TX, tj = c - ti * TX;
+    const int gi = t.ty0 + ti, gj = t.tx0 + tj;
+    if (gi < t.py && gj < t.px)
+      g[(size_t)gi * t.px + gj] = S[(ti + t.h) * t.wx + tj + t.h];
+  }
+}
+
+// Sum of one value per thread, in double, in a fixed order.
+__device__ __forceinline__ double tile_block_sum(double v, double* sh) {
+  sh[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = TILE_THREADS / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
+    __syncthreads();
+  }
+  const double out = sh[0];
+  __syncthreads();
+  return out;
+}
+
+// Raise the dynamic shared memory limit of `kernel` to `bytes` if needed.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
+}
+
+}  // namespace deff

@@ -6,6 +6,7 @@
 
 namespace deff {
 long long g_launches = 0;
+long long g_cycles = 0;
 }
 
 namespace {
@@ -34,6 +35,8 @@ long long deff_cycle_scratch_elems(int L, const int* ny, const int* nx) {
 }
 
 long long deff_launch_count() { return deff::g_launches; }
+
+long long deff_cycle_count() { return deff::g_cycles; }
 
 int deff_v_cycle_f32(int B, int L, const int* ny, const int* nx,
                      const void* const* aw, const void* const* an,

@@ -39,8 +39,10 @@ constexpr int CPT = 4;                  // cells per thread
 constexpr int TILE = THREADS * CPT;     // cells per block
 constexpr int MAX_LEVELS = 32;
 
-// Host-side count of kernel launches made by this library.
+// Host-side counts of kernel launches made by this library, and of the
+// V-cycles it ran (each run_cycle call, whoever made it).
 extern long long g_launches;
+extern long long g_cycles;
 
 #define DEFF_LAUNCH(...)                                   \
   do {                                                     \
@@ -244,6 +246,7 @@ cudaError_t run_cycle(int B, int L, const Level<T>* lv, const T* r, T* z,
                       double over, const int* flag, cudaStream_t st) {
   if (L < 1 || L > MAX_LEVELS || nu < 1 || coarse_iters < 0 || B < 1)
     return cudaErrorInvalidValue;
+  ++g_cycles;
   T* R[MAX_LEVELS];
   T* E[MAX_LEVELS];
   T* P[MAX_LEVELS];

@@ -3,8 +3,10 @@
 The ``.cu`` files under ``effectivediffusivityfvm_tpu_torch/csrc/`` expose a
 plain C interface (no PyTorch headers, so a build takes seconds).  They are
 compiled for ``sm_90a`` into ``<checkout>/build/kernels/`` the first time a
-wrapper needs them; the library's file name carries a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+wrapper needs them, one ``nvcc -c`` per source, all started together, then
+linked into one shared library; the library's file name carries a hash of
+the sources and flags, so an edited source is rebuilt and an unchanged one
+is reused.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 # a contrast-1e6 medium moved by 4e-4 of max|z| in fp32; the passes are
 # bandwidth-bound, so the lost FMAs cost no time.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo"]
 
 _P = ctypes.c_void_p
@@ -42,7 +44,9 @@ _D = ctypes.c_double
 _ENTRIES = {
     "deff_cycle_scratch_elems": ([_I, _P, _P], ctypes.c_longlong),
     "deff_cg_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
+    "deff_cg_tiled_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
     "deff_launch_count": ([], ctypes.c_longlong),
+    "deff_cycle_count": ([], ctypes.c_longlong),
 }
 for _t in ("f32", "f64"):
     _ENTRIES[f"deff_v_cycle_{_t}"] = (
@@ -51,6 +55,24 @@ for _t in ("f32", "f64"):
          _P, _P, _P,                # r, z, scratch
          _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
          _P], _I)                   # stream
+    _ENTRIES[f"deff_tiled_pre_{_t}"] = (
+        [_I, _I, _I,                # B, py, px
+         _P, _P, _P,                # aw, an, dinv (level 0)
+         _P, _P, _P,                # r, e, coarse residual
+         _P, _I, _P], _I)           # ws[], nu, stream
+    _ENTRIES[f"deff_tiled_post_{_t}"] = (
+        [_I, _I, _I,                # B, py, px
+         _P, _P, _P,                # aw, an, dinv (level 0)
+         _P, _P, _P, _P,            # e, r, e_c, z
+         _P, _I, _D, _P], _I)       # ws[], nu, over, stream
+    _ENTRIES[f"deff_cg_steps_tiled_{_t}"] = (
+        [_I, _I, _P, _P,            # B, L, ny[], nx[]
+         _P, _P, _P,                # aw[], an[], dinv[] (pointer arrays)
+         _P, _D, _D, _D, _I,        # D (or null), fx, fy, bcf, nxr
+         _P, _P, _P, _P,            # x, r, p, rz
+         _P, _P, _P, _I, _P,        # active, stop, hi, k, k_done
+         _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
+         _P, _P, _P], _I)           # scratch, int scratch, stream
     _ENTRIES[f"deff_cg_steps_{_t}"] = (
         [_I, _I, _P, _P,            # B, L, ny[], nx[]
          _P, _P, _P, _P,            # aw[], an[], dinv[], b
@@ -99,14 +121,29 @@ def load_library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{h.hexdigest()[:16]}.tmp{os.getpid()}"
+        objs, procs = [], []
+        for src in (s for s in srcs if s.suffix == ".cu"):
+            obj = BUILD_DIR / f"{src.stem}_{tag}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        failed = [p.returncode for p in procs if p.returncode != 0]
         tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in srcs if s.suffix == ".cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        if not failed:
+            link = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                 *map(str, objs)], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            failed = [link.returncode] if link.returncode != 0 else []
+        log_path.write_text("".join(logs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
+                               f"{''.join(logs)[-4000:]}")
         os.replace(tmp, lib_path)
     _INFO["seconds"] = time.perf_counter() - t0
     _INFO["path"] = str(lib_path)

@@ -24,7 +24,10 @@ flood fill) runs on a worker thread while the device solves group k
 Not ported yet: the multi-device paths (``Devices``/``DP``/``SP`` other
 than 1, ROADMAP slice 6), the compacting batch solve (``Compact: 1`` with
 mgcg, slice 3), and ``Pallas: off|interpret`` (the JAX package's XLA and
-interpreter engines; ``auto`` and ``force`` both run the CUDA kernels).
+interpreter engines).  ``Pallas:`` maps as the JAX package maps it:
+``force`` runs the "cgstep" engine (K1/K2) at every size, ``auto`` lets the
+solver choose (the banded K4/K5 engine for float32 grids past the
+whole-cycle size).
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ def _solver_kwargs(cfg: SimulationConfig, tol: float, max_iter: int) -> dict:
               check_every=cfg.check_every, criterion=cfg.criterion)
     if cfg.solver == "mgcg":
         kw["first_window"] = cfg.first_window
+        if cfg.pallas == "force":
+            kw["use_pallas"] = "cgstep"
     return kw
 
 

@@ -2,9 +2,9 @@
 (torch port of ``effectivediffusivityfvm_tpu.solvers.dispatch``).
 
 Ported: ``jacobi`` (plain PyTorch sweeps), ``jacobi_pallas`` (the K3 CUDA
-kernel) and ``mgcg`` (the K1/K2 CUDA kernels).  The JAX package's other
-solver names are accepted by the configuration and refused here, naming the
-ROADMAP slice that ports them.
+kernel) and ``mgcg`` (the K1/K2 CUDA kernels, or K4/K5 on the banded
+engine).  The JAX package's other solver names are accepted by the
+configuration and refused here, naming the ROADMAP slice that ports them.
 """
 
 from __future__ import annotations

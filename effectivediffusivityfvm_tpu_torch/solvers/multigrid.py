@@ -9,12 +9,14 @@ it; coarse diagonal = sum of fine diagonals - 2 x internal conductances).
 Odd dimensions are padded with decoupled identity cells (diag 1, couplings
 0, b 0).
 
-The solve runs PCG with one V(nu, nu) cycle as the preconditioner, as the
-JAX package's fused "cgstep" engine does: each window of up to
-``check_every`` iterations is one call of the K1 kernel
-(:func:`~..ops.kernels.cgstep.cg_steps`), which also refreshes and restarts
-CG from the true residual at the window's end.  Masked systems must use the
-symmetric assembly (``fvm_coefficients(..., symmetric=True)``).
+The solve runs PCG with one V(nu, nu) cycle as the preconditioner on one of
+the JAX package's two fused engines: "cgstep" (K1/K2), where each window of
+up to ``check_every`` iterations is one K1 call that also refreshes and
+restarts CG from the true residual at the window's end, and, for float32
+grids past the whole-cycle size, the banded "tiled" engine (K4/K5, with an
+optional matrix-free level 0), whose driver refreshes between windows.
+Masked systems must use the symmetric assembly
+(``fvm_coefficients(..., symmetric=True)``).
 """
 
 from __future__ import annotations
@@ -26,12 +28,17 @@ import torch.nn.functional as F
 
 from ..ops import fvm
 from ..ops.flux import BoundaryFluxSpec, boundary_deff
-from ..ops.kernels.cgstep import batch_sum, cg_steps
-from ..ops.kernels.vcycle import v_cycle
+from ..ops.kernels.cgstep import batch_sum, cg_steps, cg_steps_reference
+from ..ops.kernels.cgstep_tiled import (cg_steps_tiled,
+                                        cg_steps_tiled_reference)
+from ..ops.kernels.vcycle import v_cycle, v_cycle_reference
+from ..ops.kernels.vcycle_tiled import (fits_whole_cycle, tiled_band,
+                                        tiled_pad_shape, v_cycle_tiled,
+                                        v_cycle_tiled_reference)
 from .driver import SolveResult, resolve_check_every, resolve_first_window
 
-__all__ = ["restrict", "prolong", "coarsen", "build_hierarchy", "solve_mgcg",
-           "solve_mgcg_batched"]
+__all__ = ["restrict", "prolong", "coarsen", "build_hierarchy",
+           "tiled_system", "solve_mgcg", "solve_mgcg_batched"]
 
 
 def _pad_op(c: fvm.StencilCoeffs, py: int, px: int) -> fvm.StencilCoeffs:
@@ -113,10 +120,53 @@ def build_hierarchy(c: fvm.StencilCoeffs, min_size: int = 8,
     return levels
 
 
+def _engine_auto(ny: int, nx: int, dtype) -> str:
+    """The fused engine for an ``(ny, nx)`` solve, chosen as the JAX package
+    chooses on a TPU (``_pallas_auto``): the banded ``"tiled"`` engine for
+    float32 past the whole-cycle size (even-padded), else ``"cgstep"``.  It
+    reads the shape and the type only, never the device, so the CPU path
+    runs the algorithm the card runs."""
+    if dtype == torch.float32 and not fits_whole_cycle(ny + ny % 2,
+                                                       nx + nx % 2):
+        return "tiled"
+    return "cgstep"
+
+
+def tiled_system(coeffs, d_field=None, *, min_size: int):
+    """The banded engine's system for a ``(B, ny, nx)`` batch: the hierarchy
+    of the operator padded to ``tiled_pad_shape``, and the matrix-free
+    arguments of K5 (``{}`` without ``d_field``; else the padded D, zero in
+    the pads, and ``geom = (dy/dx, dx/dy, dy/(dx/2), nx)`` of the unpadded
+    grid)."""
+    ny, nx = coeffs.diag.shape[-2], coeffs.diag.shape[-1]
+    py, px = tiled_pad_shape(ny, nx,
+                             tiled_band(ny, nx, coeffs.diag.element_size()))
+    levels = build_hierarchy(_pad_op(coeffs, py - ny, px - nx),
+                             min_size=min_size, pad_levels=True)
+    if d_field is None:
+        return levels, {}
+    dx, dy = 1.0 / nx, 1.0 / ny
+    d_pad = F.pad(d_field.to(coeffs.diag.dtype), (0, px - nx, 0, py - ny))
+    return levels, dict(d_field=d_pad,
+                        geom=(dy / dx, dx / dy, dy / (dx / 2.0), nx))
+
+
 def _run_mgcg_fused(coeffs, spec, x0, *, tol, max_iter, check_every,
                     criterion, nu, mg_omega, coarse_iters, min_size, over,
-                    first_window, kernels=(cg_steps, v_cycle)) -> SolveResult:
-    """Batched MGCG, ``k`` whole PCG iterations per K1 call.
+                    first_window, engine="cgstep", d_field=None,
+                    plain=False) -> SolveResult:
+    """Batched MGCG, ``k`` whole PCG iterations per kernel call.
+
+    ``engine="cgstep"``: K1 (:func:`~..ops.kernels.cgstep.cg_steps`) runs a
+    window and refreshes and restarts CG from the true residual in its
+    tail.  ``engine="tiled"`` (grids past the whole-cycle size): the
+    hierarchy is built on the operator padded to ``tiled_pad_shape``, K5
+    (:func:`~..ops.kernels.cgstep_tiled.cg_steps_tiled`) runs a window, and
+    the driver refreshes every active image at every check with the stored
+    level 0 and K4's cycle (``r = b - A x``, ``p = z = M r``, ``rz =
+    <r, z>``).  With ``d_field`` K5 rebuilds level 0 from D (matrix-free)
+    while the refresh stays stored -- the JAX engine's own small stencil
+    mismatch, kept as it is.
 
     Check, restart, divergence and freeze semantics follow the JAX fused
     driver: a window is ``first_window`` iterations first, then
@@ -126,18 +176,24 @@ def _run_mgcg_fused(coeffs, spec, x0, *, tol, max_iter, check_every,
     iterate is kept and returned for an image whose divergence net fired.
     The loop reads ``any(active)`` back to the host once per window.
 
-    ``kernels`` is ``(cg_steps, v_cycle)``; passing their plain versions
-    runs the same solve without the CUDA kernels (for comparisons).
+    ``plain=True`` runs the same solve on the kernels' plain versions (for
+    comparisons on the card).
     """
-    cg_fn, cycle_fn = kernels
     bsz, ny, nx = coeffs.b.shape
     dtype = x0.dtype
     dev = x0.device
     tol_ = torch.tensor(tol, dtype=dtype, device=dev)
-    levels = build_hierarchy(coeffs, min_size=min_size, pad_levels=True)
+    mg = dict(omega=mg_omega, nu=nu, coarse_iters=coarse_iters, over=over)
+    if engine == "tiled":
+        levels, tiled_kw = tiled_system(coeffs, d_field, min_size=min_size)
+        cg_fn = cg_steps_tiled_reference if plain else cg_steps_tiled
+        cycle_fn = v_cycle_tiled_reference if plain else v_cycle_tiled
+    else:
+        levels = build_hierarchy(coeffs, min_size=min_size, pad_levels=True)
+        cg_fn = cg_steps_reference if plain else cg_steps
+        cycle_fn = v_cycle_reference if plain else v_cycle
     lvl0 = levels[0]
     py, px = lvl0.diag.shape[-2], lvl0.diag.shape[-1]
-    mg = dict(omega=mg_omega, nu=nu, coarse_iters=coarse_iters, over=over)
 
     def unpad(a):
         return a[..., :ny, :nx]
@@ -147,6 +203,11 @@ def _run_mgcg_fused(coeffs, spec, x0, *, tol, max_iter, check_every,
 
     def where3(m, a, b):
         return torch.where(m[:, None, None], a, b)
+
+    def fresh(xp):
+        r = lvl0.b - fvm.apply_operator(lvl0, xp)
+        z = cycle_fn(levels, r, **mg)
+        return r, z, batch_sum(r * z)
 
     bscale = mean_abs(lvl0.b) if criterion == "relresidual" else None
     npts = torch.tensor(ny * nx, dtype=dtype, device=dev)
@@ -160,12 +221,10 @@ def _run_mgcg_fused(coeffs, spec, x0, *, tol, max_iter, check_every,
     def deff_fn(xp):
         return boundary_deff(spec, unpad(xp))
 
-    # x is updated in place by K1: start from a private copy
+    # x is updated in place by the kernels: start from a private copy
     x = F.pad(x0, (0, px - nx, 0, py - ny)).clone(
         memory_format=torch.contiguous_format)
-    r = lvl0.b - fvm.apply_operator(lvl0, x)
-    p = cycle_fn(levels, r, **mg)
-    rz = batch_sum(r * p)
+    r, p, rz = fresh(x)
 
     def scal(v):
         return torch.full((bsz,), v, dtype=dtype, device=dev)
@@ -183,14 +242,27 @@ def _run_mgcg_fused(coeffs, spec, x0, *, tol, max_iter, check_every,
         k = (min(first_window, max_iter) if it == 0
              else min(check_every, max_iter - it))
         hi_sum = 1e3 * best * npts
-        x, r, p, rz, kdone, sr_true = cg_fn(
-            levels, x, r, p, rz, active.to(dtype), stop_sum, hi_sum, k, **mg)
+        if engine == "tiled":
+            x, r, p, rz, kdone = cg_fn(
+                levels, x, r, p, rz, active.to(dtype), stop_sum, hi_sum, k,
+                **mg, **tiled_kw)
+        else:
+            x, r, p, rz, kdone, sr_true = cg_fn(
+                levels, x, r, p, rz, active.to(dtype), stop_sum, hi_sum, k,
+                **mg)
         it += k
         iters = iters + torch.where(active, kdone, 0)
         # a window cut by max_iter lands a check all the same
         do_check = ((it - first_window) % check_every == 0) or it >= max_iter
         upd = active & do_check
-        r_mean = sr_true / npts
+        if engine == "tiled":
+            r_true, z_true, rz_true = fresh(x)
+            r = where3(upd, r_true, r)
+            p = where3(upd, z_true, p)
+            rz = torch.where(upd, rz_true, rz)
+            r_mean = mean_abs(r_true)
+        else:
+            r_mean = sr_true / npts
         improved = upd & (r_mean < best)
         x_best = where3(improved, x, x_best)
         best = torch.where(improved, r_mean, best)
@@ -220,21 +292,49 @@ def _run_mgcg_fused(coeffs, spec, x0, *, tol, max_iter, check_every,
     return SolveResult(x=unpad(x_out), deff=deff_out, conv=conv, iters=iters)
 
 
+# use_pallas values of the JAX package that select engines the port leaves
+# out (ROADMAP, "Do not port")
+_NOT_PORTED_ENGINES = {
+    False: "the XLA cycle + run_pcg engine",
+    True: "the cycle-only PCG engine",
+    "tiledcycle": "the banded cycle as a cycle-only PCG preconditioner",
+}
+
+
 def _mgcg_core(coeffs, spec, x0, *, tol, max_iter, check_every, criterion,
                batched, nu1, nu2, mg_omega, coarse_iters, min_size, over,
-               first_window, kernels=(cg_steps, v_cycle)) -> SolveResult:
-    first_window = resolve_first_window(first_window, check_every, criterion)
+               first_window, use_pallas=None, d_field=None,
+               plain=False) -> SolveResult:
+    first_window = resolve_first_window(first_window, check_every, criterion,
+                                        matrix_free=d_field is not None)
     if nu1 != nu2:
-        raise ValueError("the fused CG engine implements V(nu, nu)")
+        raise ValueError("the fused CG engines implement V(nu, nu)")
+    if use_pallas is None:
+        engine = _engine_auto(coeffs.diag.shape[-2], coeffs.diag.shape[-1],
+                              coeffs.diag.dtype)
+    elif use_pallas in ("cgstep", "tiled"):
+        engine = use_pallas
+    elif (use_pallas is False or use_pallas is True
+          or use_pallas == "tiledcycle"):
+        raise NotImplementedError(
+            f"use_pallas={use_pallas!r} selects "
+            f"{_NOT_PORTED_ENGINES[use_pallas]} of the JAX package, which the "
+            "torch package does not port (ROADMAP, 'Do not port'); use None "
+            "(auto), 'cgstep' or 'tiled'")
+    else:
+        raise ValueError(f"unknown use_pallas {use_pallas!r}")
     if not batched:
         coeffs = fvm.StencilCoeffs(*(a[None] for a in coeffs))
         spec = BoundaryFluxSpec(*(a[None] for a in spec))
         x0 = x0[None]
+        if d_field is not None:
+            d_field = d_field[None]
     res = _run_mgcg_fused(
         coeffs, spec, x0, tol=tol, max_iter=max_iter,
         check_every=check_every, criterion=criterion, nu=nu1,
         mg_omega=mg_omega, coarse_iters=coarse_iters, min_size=min_size,
-        over=over, first_window=first_window, kernels=kernels)
+        over=over, first_window=first_window, engine=engine,
+        d_field=d_field if engine == "tiled" else None, plain=plain)
     if not batched:
         res = SolveResult(*(a[0] for a in res))
     return res
@@ -244,22 +344,34 @@ def solve_mgcg(coeffs, spec, x0, *, tol: float = 1e-8, max_iter: int = 10_000,
                check_every: int = 0, criterion: str = "residual",
                nu1: int = 1, nu2: int = 1, mg_omega=0.8,
                coarse_iters: int = 32, min_size: int = 8, over: float = 1.8,
+               use_pallas=None, d_field=None,
                first_window: int = 1) -> SolveResult:
     """Multigrid-preconditioned CG on one ``(ny, nx)`` image.
 
     ``criterion``: "residual" (mean |b - A x|), "relresidual" (divided by
     mean |b|) or "deff" (relative Deff change).  ``mg_omega`` is a scalar
     damping or a per-sweep tuple of ``nu1`` factors.  ``first_window`` is
-    the length of the first K1 window (``0`` = auto, see
-    :func:`~.driver.resolve_first_window`).  The V-cycle and the CG
-    iterations run as CUDA kernels on a CUDA tensor and as their plain
-    PyTorch versions on a CPU tensor.
+    the length of the first kernel window (``0`` = auto, see
+    :func:`~.driver.resolve_first_window`).
+
+    ``use_pallas`` picks the engine, with the JAX signature: ``None`` =
+    auto (``"tiled"`` for float32 grids past the whole-cycle size, else
+    ``"cgstep"``), ``"cgstep"`` = K1/K2, ``"tiled"`` = the banded engine
+    K4/K5; the JAX package's other engines raise ``NotImplementedError``.
+    ``d_field``: the diffusivity field behind ``coeffs``, which must then be
+    exactly the plain unmasked ``fvm_coefficients(d_field, cl, cr)``; the
+    banded engine rebuilds its level 0 from it (matrix-free), the others
+    ignore it.  Keep ``first_window=1`` with it (auto picks 1).
+
+    The kernels run on a CUDA tensor and their plain PyTorch versions on a
+    CPU tensor.
     """
     return _mgcg_core(coeffs, spec, x0, tol=tol, max_iter=max_iter,
                       check_every=resolve_check_every(check_every, 10),
                       criterion=criterion, batched=False, nu1=nu1, nu2=nu2,
                       mg_omega=mg_omega, coarse_iters=coarse_iters,
-                      min_size=min_size, over=over, first_window=first_window)
+                      min_size=min_size, over=over, first_window=first_window,
+                      use_pallas=use_pallas, d_field=d_field)
 
 
 def solve_mgcg_batched(coeffs, spec, x0, *, tol: float = 1e-8,
@@ -267,11 +379,13 @@ def solve_mgcg_batched(coeffs, spec, x0, *, tol: float = 1e-8,
                        criterion: str = "residual", nu1: int = 1,
                        nu2: int = 1, mg_omega=0.8, coarse_iters: int = 32,
                        min_size: int = 8, over: float = 1.8,
+                       use_pallas=None, d_field=None,
                        first_window: int = 1) -> SolveResult:
-    """Batched :func:`solve_mgcg` on ``(B, ny, nx)``; converged images are
-    frozen while the rest iterate."""
+    """Batched :func:`solve_mgcg` on ``(B, ny, nx)`` (``d_field`` too);
+    converged images are frozen while the rest iterate."""
     return _mgcg_core(coeffs, spec, x0, tol=tol, max_iter=max_iter,
                       check_every=resolve_check_every(check_every, 10),
                       criterion=criterion, batched=True, nu1=nu1, nu2=nu2,
                       mg_omega=mg_omega, coarse_iters=coarse_iters,
-                      min_size=min_size, over=over, first_window=first_window)
+                      min_size=min_size, over=over, first_window=first_window,
+                      use_pallas=use_pallas, d_field=d_field)

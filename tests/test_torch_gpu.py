@@ -11,7 +11,8 @@ float64 runs the kernels' double instantiation.  The kernels are built
 without FMA contraction and follow their plain versions operation for
 operation, so the only differences left are the order of the (double)
 reductions: 1e-9 of max-abs in float64, and chip_smoke.py's 1e-4 in
-float32.  K3 (the Jacobi sweeps) has no reductions and must match exactly.
+float32.  K3 (the Jacobi sweeps) and K4 (the banded cycle) have no
+reductions and must match exactly.
 """
 
 import numpy as np
@@ -21,8 +22,11 @@ import torch
 from effectivediffusivityfvm_tpu_torch.ops import fvm
 from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
 from effectivediffusivityfvm_tpu_torch.ops.kernels import _build
+from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_tiled as vt
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
     cg_steps, cg_steps_reference)
+from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
+    cg_steps_tiled, cg_steps_tiled_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
     jacobi_sweeps, jacobi_sweeps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
@@ -160,3 +164,92 @@ def test_jacobi_kernel_rejects_bad_input(cuda):
         jacobi_sweeps(c, x, -1)
     with pytest.raises(ValueError):
         jacobi_sweeps(c, x, 3, active=torch.ones(3, device=cuda))
+
+
+def _tiled_problem(dev, dtype, bsz, ny, nx, seed=0, contrast=1e4):
+    """The banded engine's padded hierarchy and x0, and its matrix-free
+    arguments."""
+    d, c, _, _ = _problem(dev, dtype, bsz, ny, nx, seed, contrast)
+    levels, mf = multigrid.tiled_system(c, d, min_size=4)
+    py, px = levels[0].diag.shape[-2:]
+    x = torch.zeros((bsz, py, px), dtype=dtype, device=dev)
+    x[:, :ny, :nx] = torch.arange(nx, dtype=dtype, device=dev).div(nx)
+    return levels, x, mf
+
+
+# (32, 24): one tile row, padded in x; (37, 300): padded on both axes;
+# (100, 520): several tiles, the last row of tiles partial
+TILED_SHAPES = [(32, 24), (37, 300), (100, 520)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_v_cycle_tiled_kernel_matches_plain(cuda, dtype, shape):
+    levels, x, _ = _tiled_problem(cuda, dtype, 3, *shape)
+    r = levels[0].b - fvm.apply_operator(levels[0], x)
+    lib = _build.load_library()
+    before, k2, n0 = vt.v_cycle_tiled.launches, v_cycle.launches, \
+        lib.deff_launch_count()
+    z = vt.v_cycle_tiled(levels, r, **MG)
+    torch.cuda.synchronize()
+    assert vt.v_cycle_tiled.launches == before + 1
+    assert v_cycle.launches == k2 + 1                 # the coarse tail
+    assert lib.deff_launch_count() - n0 >= 3          # T1, K2's, T2
+    assert torch.equal(z, vt.v_cycle_tiled_reference(levels, r, **MG))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
+@pytest.mark.parametrize("shape", TILED_SHAPES[1:])
+def test_cg_steps_tiled_kernel_matches_plain(cuda, dtype, mf, shape):
+    """Image 0 runs the window, 1 is frozen, 2 exits at iteration 0 on its
+    stop, 3 overshoots (rz inflated) and trips its hi after one step."""
+    levels, x, mf_kw = _tiled_problem(cuda, dtype, 4, *shape, seed=1)
+    r = levels[0].b - fvm.apply_operator(levels[0], x)
+    p = vt.v_cycle_tiled_reference(levels, r, **MG)
+    rz = torch.sum(r * p, dim=(-2, -1))
+    sr0 = torch.sum(r.abs(), dim=(-2, -1))
+    rz[3] *= 1e3
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=dtype, device=cuda)
+    stop = torch.zeros_like(sr0)
+    stop[2] = 10 * sr0[2]
+    hi = torch.full_like(sr0, float("inf"))
+    hi[3] = 2 * sr0[3]
+    extra = mf_kw if mf else {}
+    state = (x, r, p, rz, active, stop, hi)
+    before = cg_steps_tiled.launches
+    got = cg_steps_tiled(levels, *(t.clone() for t in state), 4, **MG,
+                         **extra)
+    ref = cg_steps_tiled_reference(levels, *(t.clone() for t in state), 4,
+                                   **MG, **extra)
+    torch.cuda.synchronize()
+    assert cg_steps_tiled.launches == before + 1
+    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
+    for g, e in zip(got[:3], ref[:3]):
+        for b in range(4):
+            assert _rel_err(g[b], e[b]) <= TOL[dtype]
+    torch.testing.assert_close(got[3], ref[3], rtol=10 * TOL[dtype], atol=0)
+    for g, e in zip(got[:4], ref[:4]):
+        assert torch.equal(g[1], e[1])          # frozen: as the plain version
+    if not mf:
+        for g, s in zip(got[:4], state[:4]):
+            assert torch.equal(g[1], s[1])      # stored: bit-unchanged
+
+
+@pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
+def test_tiled_solve_on_gpu_matches_plain_on_cpu(cuda, mf):
+    d, c, _, _ = _problem(cuda, torch.float64, 3, 40, 300, seed=2)
+    spec = make_flux_spec(d, 0.0, 1.0)
+    x0 = torch.arange(300, dtype=torch.float64, device=cuda).div(300)
+    x0 = x0.expand(3, 40, 300)
+    kw = dict(tol=1e-5, max_iter=200, check_every=10, first_window=1,
+              criterion="relresidual", nu1=2, nu2=2, mg_omega=MG["omega"],
+              min_size=4, coarse_iters=8, use_pallas="tiled")
+    got = multigrid.solve_mgcg_batched(c, spec, x0, d_field=d if mf else None,
+                                       **kw)
+    ref = multigrid.solve_mgcg_batched(
+        fvm.StencilCoeffs(*(a.cpu() for a in c)),
+        type(spec)(*(a.cpu() for a in spec)), x0.cpu(),
+        d_field=d.cpu() if mf else None, **kw)
+    assert got.iters.cpu().tolist() == ref.iters.tolist()
+    torch.testing.assert_close(got.deff.cpu(), ref.deff, rtol=1e-9, atol=0)

@@ -322,3 +322,17 @@ def test_three_phase_parallel_slab_analytic(solver):
     np.testing.assert_allclose(res.deff, 0.5 * 1.0 + 0.25 * 200.0, rtol=1e-5)
     assert res.svf == pytest.approx(0.25)
     assert res.lvf == pytest.approx(0.5)
+
+
+@pytest.mark.parametrize("pallas", ["auto", "force"])
+@pytest.mark.parametrize("solver", ["mgcg", "jacobi"])
+def test_pallas_key_maps_as_jax(solver, pallas):
+    """``Pallas: force`` pins mgcg to the "cgstep" engine and ``auto``
+    leaves the choice to the solver, as the JAX batch pipeline maps them;
+    other solvers get no engine argument."""
+    jcfg = jconfig.SimulationConfig(solver=solver, pallas=pallas)
+    cfg = config_from_fields(dataclasses.asdict(jcfg))
+    got = batch._solver_kwargs(cfg, 1e-6, 100)
+    want = jbatch._pallas_kwargs(jcfg)
+    for key in ("use_pallas", "first_window"):
+        assert got.get(key) == want.get(key)

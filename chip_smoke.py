@@ -51,7 +51,27 @@ non-zero):
 16. K4/K5 times (CUDA events) at B=1 and B=4 x 2048^2 fp32;
 17. one config-3 solve per leg under ``torch.profiler``: device busy time,
     the span of its kernels and the idle share, and device time by kernel
-    group.
+    group;
+18. K6 (the 3D V-cycle) whole against its plain version on the card: B=2
+    x 64^3 fp32 with nu=2, B=2 x 40x36x52 fp64 with nu=1 (bit for bit);
+19. K6 banded against its plain version: B=1 x 256^3 fp32 nu=2, B=2 x
+    100x64x90 fp32 (padded by ``pad_shape_3d``), B=1 x 48^3 fp64 nu=3;
+20. K7 (the three-pass 3D CG steps) against its plain version, B=4 x
+    256^3 fp32, k=5, stored and matrix-free, with a frozen volume, one that
+    exits at iteration 0 and one tripped by its divergence threshold;
+21. BASELINE config 5 (``benchmarks/bench3d.py``'s problem: one 256^3
+    volume, contrast 1e-6, fp32, relresidual 1e-4, V(2,2)) through
+    ``solve_mgcg_3d`` with the engine left to the auto rule, matrix-free
+    and stored, each against the same solve on the plain versions, then
+    one warm-up and three timed solves per leg;
+22. the CLI route: an ``input.txt`` with ``InputName: vol.npy`` (the
+    config-5 medium) through ``cli.main`` into ``volume_sim``, against the
+    direct solve with the same settings; the 2- and 3-phase parallel slabs
+    against their analytic Deff; ``RunBatch: 1`` on ``ImageDir/00000.npy``
+    ... ``00003.npy`` (4 x 64^3) against the four single solves;
+23. K6/K7 times (CUDA events) at B=1 and B=4 x 256^3 fp32, stored and
+    matrix-free;
+24. one config-5 solve per leg under ``torch.profiler``.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -85,6 +105,15 @@ C3_KW = dict(tol=1e-4, max_iter=400, check_every=10, criterion="relresidual",
 MG3 = dict(omega=0.8, nu=2, coarse_iters=64, over=1.8)
 C15_TOL = 1e-7                        # mean|r| for the CLI runs (~relres 2e-4)
 K5_TIME_K = 10                        # iterations per timed K5 call
+# BASELINE config 5 (benchmarks/bench3d.py: 256^3, rng seed 11, sigma 3,
+# porosity 0.65, D = 1 on fluid and 1e-6 elsewhere, fp32, x0 linear in x)
+C5_SIZE, C5_SEED, C5_SIGMA = 256, 11, 3.0
+C5_KW = dict(tol=1e-4, max_iter=2000, check_every=10,
+             criterion="relresidual", nu1=2, nu2=2, mg_omega=0.8,
+             coarse_iters=8, min_size=4, over=1.8, first_window=0)
+MG5 = dict(omega=0.8, nu=2, coarse_iters=8, over=1.8)
+C5_JAX_ITERS = 10                     # docs/PERFORMANCE.md:66 (algorithmic)
+K7_TIME_K = 5                         # iterations per timed K7 call
 
 # Least-time reckoning (bound_ms): the larger of the bytes a call must move
 # (each input read once, each output written once) over the card's memory
@@ -245,10 +274,10 @@ PROFILE_GROUPS = (
 )
 
 
-def profile_solve(fn):
+def profile_solve(fn, group_table=PROFILE_GROUPS):
     """Run ``fn`` once under ``torch.profiler``; returns ``(busy_ms,
     span_ms, wall_ms, groups)`` with the device time of every kernel and
-    copy summed by PROFILE_GROUPS (the rest: "torch ops"), or None where
+    copy summed by ``group_table`` (the rest: "torch ops"), or None where
     the profiler saw no device activity."""
     import torch
     from torch.autograd import DeviceType
@@ -269,7 +298,7 @@ def profile_solve(fn):
             - min(e.time_range.start for e in dev)) / 1e3
     groups = {}
     for e in dev:
-        name = next((g for g, frag in PROFILE_GROUPS
+        name = next((g for g, frag in group_table
                      if any(f in e.name for f in (
                          frag if isinstance(frag, tuple) else (frag,)))),
                     "torch ops")
@@ -564,6 +593,483 @@ def large_grid_phases(dev, card, lib):
          "ms": k5_ms, "plain_ms": k5_ms_p, "bound_ms": k5_bound[0],
          "bound_by": k5_bound[1], "library_ms": None},
     ]
+
+
+# kernel-name fragments -> the group a 3D profile reports them under
+PROFILE_GROUPS_3D = (
+    ("K7 pass A", "pass_a3_kernel"), ("K7 x/r update", "update_xr3_kernel"),
+    ("3D pre-smooth (T1, tails)", "pre_first3_kernel"),
+    ("3D residual + restriction (T1, tails)", "resid_restrict3_kernel"),
+    ("3D prolong + post-smooth (T2, tails)", "post_first3_kernel"),
+    ("3D sweeps (T1, T2, tails)", "smooth3_kernel"),
+    ("3D coarsest level", "coarse_solve3_kernel"),
+    ("K7 scalars", ("fin_", "abs_parts3", "pin_kernel", "copy_back")),
+)
+
+
+def c5_fluid(shape, seed, sigma=C5_SIGMA):
+    """bench3d.py's config-5 medium, for any shape: Gaussian-smoothed noise
+    (``default_rng(seed)``), fluid below the porosity quantile."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    noise = ndimage.gaussian_filter(rng.standard_normal(shape), sigma=sigma)
+    return noise < np.quantile(noise, POROSITY)
+
+
+def c5_problem(fluid, dev, dtype=None):
+    """Config 5's system for fluid masks ``(..., nz, ny, nx)``: D (1 on
+    fluid, CONTRAST elsewhere), coefficients, flux spec and the linear x0."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.ops import fvm3d
+
+    dtype = dtype or torch.float32
+    d = torch.tensor(np.where(fluid, 1.0, CONTRAST), dtype=dtype, device=dev)
+    nx = fluid.shape[-1]
+    x0 = (torch.arange(nx, dtype=dtype, device=dev) / nx).expand(fluid.shape)
+    return (d, fvm3d.fvm_coefficients_3d(d, 0.0, 1.0),
+            fvm3d.make_flux_spec_3d(d, 0.0, 1.0), x0)
+
+
+def tiled3d_setup(d, coeffs, x0, min_size=4):
+    """The banded 3D engine's hierarchy and matrix-free arguments (as the
+    solver builds them), and x0 padded to level 0."""
+    import torch.nn.functional as F
+
+    from effectivediffusivityfvm_tpu_torch.solvers import solvers3d
+
+    levels, mf = solvers3d.tiled3d_system(coeffs, d, min_size=min_size)
+    pz, py, px = levels[0].diag.shape[-3:]
+    nz, ny, nx = x0.shape[-3:]
+    x = F.pad(x0, (0, px - nx, 0, py - ny, 0, pz - nz)).contiguous()
+    return levels, x, mf
+
+
+def cycle3_work(levels, bsz, itemsize, nu):
+    """Bytes and operations of one 3D V(nu, nu) cycle: reads a_w, a_n, a_u
+    and diag_inv of every level and r, writes z; per cell of a level
+    4 + 32 nu operations (first pre-smooth 2, each further sweep 16,
+    residual and restriction 16, prolongation 2, post-sweeps 16 each)."""
+    cells = [c.diag[0].numel() for c in levels]
+    nbytes = itemsize * bsz * (4 * sum(cells) + 2 * cells[0])
+    ops = bsz * (4 + 32 * nu) * sum(cells)
+    return nbytes, ops, cells
+
+
+def cg3_work(levels, bsz, itemsize, nu, k, mf=False):
+    """Bytes and operations of a K7 call of ``k`` iterations with every
+    volume live: the cycle's reckoning per iteration, 40 operations a cell
+    for the CG updates, products and sums, and when matrix-free 30 a cell
+    in each of the three passes to rebuild the coefficients; a call reads
+    the hierarchy (level 0 as D when matrix-free), x, r and p once and
+    writes x, r and p."""
+    nbytes, ops, cells = cycle3_work(levels, bsz, itemsize, nu)
+    n0 = bsz * cells[0]
+    nbytes += itemsize * n0 * (6 - 2 - (3 if mf else 0))
+    return nbytes, k * (ops + n0 * (40 + (90 if mf else 0)))
+
+
+def volume_phases(dev, card, lib):
+    """Phases 18-24 (the 3D voxel path); returns the rows of the kernels'
+    JSON line for K6 (whole and banded) and K7."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch import cli
+    from effectivediffusivityfvm_tpu_torch.config import SimulationConfig
+    from effectivediffusivityfvm_tpu_torch.ops import fvm3d
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle3d as v3
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import \
+        batch_sum
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep3d import (
+        cg_steps3d, cg_steps3d_reference)
+    from effectivediffusivityfvm_tpu_torch.pipeline import volume as pvol
+    from effectivediffusivityfvm_tpu_torch.solvers import solvers3d
+
+    wrappers = (v3.v_cycle3d, v3.v_cycle3d_tiled, cg_steps3d)
+
+    def zero_counts():
+        for w in wrappers:
+            w.launches = 0
+        return lib.deff_cycle3_count()
+
+    def counts(cyc0):
+        return {"K6 whole": v3.v_cycle3d.launches,
+                "K6 banded": v3.v_cycle3d_tiled.launches,
+                "K7": cg_steps3d.launches,
+                "3D cycles in the library": lib.deff_cycle3_count() - cyc0}
+
+    def resid(levels, x):
+        return levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
+
+    # -- 18: K6's whole cycle against its plain version
+    t0 = time.perf_counter()
+    k6w_err, lines = 0.0, []
+    for shape, dtype, nu, seed in (((64, 64, 64), torch.float32, 2, 41),
+                                   ((40, 36, 52), torch.float64, 1, 42)):
+        fluid = np.stack([c5_fluid(shape, seed + 10 * i) for i in range(2)])
+        d, c, _, x0 = c5_problem(fluid, dev, dtype)
+        levels = solvers3d.build_hierarchy_3d(c, min_size=4, pad_levels=True)
+        x = torch.nn.functional.pad(
+            x0, (0, levels[0].diag.shape[-1] - shape[2],
+                 0, levels[0].diag.shape[-2] - shape[1],
+                 0, levels[0].diag.shape[-3] - shape[0])).contiguous()
+        r = resid(levels, x)
+        mg = dict(MG5, nu=nu)
+        n0 = v3.v_cycle3d.launches
+        z = v3.v_cycle3d(levels, r, **mg)
+        torch.cuda.synchronize()
+        check(v3.v_cycle3d.launches == n0 + 1, "K6 whole launches")
+        zp = v3.v_cycle3d_reference(levels, r, **mg)
+        err = float((z - zp).abs().max())
+        check(bool(torch.equal(z, zp)), f"K6 whole {shape} {dtype}: max abs "
+              f"err {err}, not bit-identical")
+        k6w_err = max(k6w_err, err)
+        lines.append(f"B=2 x {shape} {str(dtype)[-7:]} nu={nu}, "
+                     f"{len(levels)} levels: max abs err {err:.3e} (max|z| "
+                     f"{float(zp.abs().max()):.3e})")
+        del d, c, levels, x, r, z, zp
+    phase(18, t0, "K6 whole cycle vs plain: " + "; ".join(lines))
+
+    # -- 19: K6's banded cycle against its plain version
+    t0 = time.perf_counter()
+    fluid5 = c5_fluid((C5_SIZE,) * 3, C5_SEED)
+    k6b_err, lines = 0.0, []
+    cases = ((fluid5[None], torch.float32, 2),
+             (np.stack([c5_fluid((100, 64, 90), 43 + i) for i in range(2)]),
+              torch.float32, 2),
+             (c5_fluid((48, 48, 48), 45)[None], torch.float64, 3))
+    for fluid, dtype, nu in cases:
+        d, c, _, x0 = c5_problem(fluid, dev, dtype)
+        levels, x, _ = tiled3d_setup(d, c, x0)
+        r = resid(levels, x)
+        mg = dict(MG5, nu=nu)
+        n6, n6w = v3.v_cycle3d_tiled.launches, v3.v_cycle3d.launches
+        z = v3.v_cycle3d_tiled(levels, r, **mg)
+        torch.cuda.synchronize()
+        check(v3.v_cycle3d_tiled.launches == n6 + 1
+              and v3.v_cycle3d.launches == n6w + 1, "K6 banded launches")
+        zp = v3.v_cycle3d_tiled_reference(levels, r, **mg)
+        err = float((z - zp).abs().max())
+        check(bool(torch.equal(z, zp)), f"K6 banded {tuple(fluid.shape)}: "
+              f"max abs err {err}, not bit-identical")
+        k6b_err = max(k6b_err, err)
+        lines.append(f"B={fluid.shape[0]} x {tuple(fluid.shape[1:])} "
+                     f"{str(dtype)[-7:]} nu={nu} padded to "
+                     f"{tuple(r.shape[1:])}, {len(levels)} levels: max abs "
+                     f"err {err:.3e}")
+        del d, c, levels, x, r, z, zp
+    phase(19, t0, "K6 banded cycle vs plain: " + "; ".join(lines))
+
+    # -- 20: K7 against its plain version, B=4 x 256^3, k=5
+    t0 = time.perf_counter()
+    fluid4 = np.stack([fluid5] + [c5_fluid((C5_SIZE,) * 3, C5_SEED + i)
+                                  for i in (1, 2, 3)])
+    d4, c4, _, x04 = c5_problem(fluid4, dev)
+    levels4, x4, mf4 = tiled3d_setup(d4, c4, x04)
+    r4 = resid(levels4, x4)
+    p4 = v3.v_cycle3d_tiled(levels4, r4, **MG5)
+    rz = batch_sum(r4 * p4)
+    sr0 = batch_sum(r4.abs())
+    active = torch.ones(4, device=dev)
+    active[1] = 0.0                              # frozen
+    stop = torch.zeros(4, device=dev)
+    stop[2] = 10.0 * sr0[2]                      # exits at iteration 0
+    hi = torch.full((4,), float("inf"), device=dev)
+    rz[3] *= 1e3                                 # overshoots ...
+    hi[3] = 2.0 * sr0[3]                         # ... and trips its hi
+    state = (x4, r4, p4, rz, active, stop, hi)
+    k7_err, lines = 0.0, []
+    for mode, extra in (("stored", {}), ("matrix-free", mf4)):
+        got = cg_steps3d(levels4, *(t.clone() for t in state), 5, **MG5,
+                         **extra)
+        ref = cg_steps3d_reference(levels4, *(t.clone() for t in state), 5,
+                                   **MG5, **extra)
+        torch.cuda.synchronize()
+        kd = got[4].tolist()
+        check(kd == ref[4].tolist(), f"K7 {mode} k_done {kd} != plain "
+              f"{ref[4].tolist()}")
+        check(kd[:3] == [5, 0, 0] and kd[3] >= 1, f"K7 {mode} k_done {kd}")
+        err_m = 0.0
+        for nm, g, e in zip("xrp", got[:3], ref[:3]):
+            for b in range(4):
+                err = float((g[b] - e[b]).abs().max())
+                scale = float(e[b].abs().max())
+                check(err <= 1e-4 * scale,
+                      f"K7 {mode} {nm}[{b}] err {err} > 1e-4*{scale}")
+                err_m = max(err_m, err)
+        rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
+        check(rz_err <= 1e-3, f"K7 {mode} rz rel err {rz_err}")
+        for g, e in zip(got[:4], ref[:4]):
+            check(bool(torch.equal(g[1], e[1])), f"K7 {mode} frozen volume")
+        k7_err = max(k7_err, err_m)
+        lines.append(f"{mode}: k_done {kd}, max abs err x/r/p {err_m:.3e}, "
+                     f"rz max rel err {rz_err:.3e}")
+        del got, ref
+    phase(20, t0, "K7 vs plain, B=4 x 256^3 fp32, k=5: " + "; ".join(lines))
+    del state, levels4, x4, mf4, r4, p4
+    torch.cuda.empty_cache()
+
+    # -- 21: BASELINE config 5 through solve_mgcg_3d, engine by the auto rule
+    t0 = time.perf_counter()
+    d1, c1, s1, x01 = c5_problem(fluid5, dev)
+    legs, main_launches = {}, None
+    for name, extra in (("matrix-free", dict(d_field=d1)), ("stored", {})):
+        torch.cuda.synchronize()
+        cyc0 = zero_counts()
+        t1 = time.perf_counter()
+        res = solvers3d.solve_mgcg_3d(c1, s1, x01, **C5_KW, **extra)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t1
+        launched = counts(cyc0)
+        if main_launches is None:
+            main_launches = launched
+        check(launched["K6 banded"] > 0 and launched["K6 whole"] > 0
+              and launched["K7"] > 0, f"config 5 {name} launches {launched}")
+        conv, deff, iters = float(res.conv), float(res.deff), int(res.iters)
+        check(np.isfinite(deff) and conv <= C5_KW["tol"],
+              f"config 5 {name}: relres {conv}, Deff {deff}")
+        plain = solvers3d._mgcg3_core(c1, s1, x01, batched=False, plain=True,
+                                      **C5_KW, **extra)
+        p_deff, p_iters = float(plain.deff), int(plain.iters)
+        rel = abs(deff - p_deff) / abs(p_deff)
+        check(rel <= 1e-4 and abs(iters - p_iters) <= 2,
+              f"config 5 {name} vs plain: Deff {deff} / {p_deff}, "
+              f"iterations {iters} / {p_iters}")
+        solvers3d.solve_mgcg_3d(c1, s1, x01, **C5_KW, **extra)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            res = solvers3d.solve_mgcg_3d(c1, s1, x01, **C5_KW, **extra)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        legs[name] = deff
+        phase(21, t0, f"BASELINE config 5 {name} {card}: 256^3 fp32, "
+              f"{iters} iterations (plain {p_iters}; the JAX package's "
+              f"record {C5_JAX_ITERS}), relres {conv:.3e}, Deff {deff:.6f} "
+              f"(plain {p_deff:.6f}, rel err {rel:.3e}), first run "
+              f"{t_first:.4f} s, timed "
+              f"{', '.join(f'{t:.4f}' for t in times)} s, "
+              f"{min(times) / iters * 1e3:.4f} ms/iteration, peak memory "
+              f"{peak / 2**30:.3f} GiB, launches {launched}")
+        t0 = time.perf_counter()
+        del res, plain
+    rel_sm = abs(legs["stored"] - legs["matrix-free"]) / abs(legs["stored"])
+    check(rel_sm <= 1e-3, f"stored vs matrix-free Deff rel err {rel_sm}")
+    phase(21, t0, f"stored vs matrix-free Deff rel err {rel_sm:.3e}")
+
+    # -- 22: the CLI route
+    t0 = time.perf_counter()
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    results = []
+    vol5 = np.where(fluid5, 0, 255).astype(np.uint8)
+    np.save(WORK_DIR / "vol.npy", vol5)
+    # mean|r| <= 2e-4 mean|b| (off the fp32 floor), at most 400 iterations
+    tol5 = float(f"{2e-4 * float(fvm3d.residual_3d(c1, 0 * x01)):.3e}")
+    csv = WORK_DIR / "volume.csv"
+    csv.unlink(missing_ok=True)
+    inp = WORK_DIR / "input_volume.txt"
+    inp.write_text(f"Phases: 2\nInputName: {WORK_DIR / 'vol.npy'}\n"
+                   f"Ds: {CONTRAST}\nDf: 1\nSolver: mgcg\n"
+                   f"Criterion: residual\nConvergence: {tol5}\n"
+                   f"MaxIter: 400\nOutputName: {csv}\n")
+    seen = []
+    volume_sim = pvol.volume_sim
+
+    def observed(*a, **kw):
+        out = volume_sim(*a, **kw)
+        seen.append(out)
+        return out
+
+    pvol.volume_sim = observed               # to read the pipeline's result
+    try:
+        cyc0 = zero_counts()
+        rc = cli.main([str(inp)])
+        torch.cuda.synchronize()
+    finally:
+        pvol.volume_sim = volume_sim
+    l_cli = counts(cyc0)
+    check(rc == 0 and len(seen) == 1, f"cli.main returned {rc}")
+    check(l_cli["K7"] > 0 and l_cli["K6 banded"] > 0,
+          f"CLI volume launches {l_cli}")
+    v_res = seen[0]
+    cfg = SimulationConfig(n_phase=2, d_fluid=1.0, d_solid=CONTRAST,
+                           solver="mgcg", criterion="residual",
+                           convergence=tol5, max_iter=400)
+    direct = solvers3d.solve_mgcg_3d(
+        c1, s1, x01, tol=cfg.convergence, max_iter=cfg.max_iter,
+        check_every=cfg.check_every, criterion=cfg.criterion,
+        first_window=cfg.first_window, d_field=d1)
+    rel_cli = abs(v_res.deff - float(direct.deff)) / abs(float(direct.deff))
+    check(rel_cli <= 1e-6 and v_res.iters == int(direct.iters),
+          f"CLI volume Deff {v_res.deff} vs direct {float(direct.deff)}")
+    rows = csv.read_text().splitlines()
+    check(len(rows) == 2 and abs(float(rows[1].split(",")[3]) - v_res.deff)
+          <= 1e-6, f"CLI CSV {rows}")
+    results.append(f"vol.npy (256^3, V(1,1) defaults, mean|r| <= {tol5:.3e})"
+                   f": Deff {v_res.deff:.6f}, {v_res.iters} iterations, "
+                   f"solve {v_res.time_s:.3f} s, vs the direct solve rel err "
+                   f"{rel_cli:.3e}, launches {l_cli}")
+    del direct, seen
+
+    slabs = []
+    for n_phase, want in ((2, 0.5 + 0.5 * CONTRAST), (3, 0.5 + 0.25 * 200.0)):
+        vol = np.full((32, 32, 48), 255, np.uint8)
+        vol[:, :16, :] = 0 if n_phase == 2 else 100
+        if n_phase == 3:
+            vol[:, 16:24, :] = 0
+        cfg_s = SimulationConfig(n_phase=n_phase, d_fluid=1.0,
+                                 d_solid=CONTRAST if n_phase == 2 else 0.0,
+                                 d_gas=200.0, dtype="float64", solver="mgcg",
+                                 criterion="relresidual", convergence=1e-10,
+                                 max_iter=400)
+        run = pvol.volume_sim if n_phase == 2 else pvol.volume_sim_3phase
+        got_s = run(cfg_s, vol, device="cuda").deff
+        check(abs(got_s - want) <= 1e-5 * abs(want),
+              f"{n_phase}-phase slab Deff {got_s} vs {want}")
+        slabs.append(abs(got_s - want) / abs(want))
+    results.append(f"32x32x48 fp64 slabs vs analytic Deff: rel err 2-phase "
+                   f"{slabs[0]:.3e}, 3-phase {slabs[1]:.3e}")
+
+    vdir = WORK_DIR / "volumes"
+    vdir.mkdir(parents=True, exist_ok=True)
+    vols = [np.where(c5_fluid((64, 64, 64), 51 + i), 0, 255).astype(np.uint8)
+            for i in range(4)]
+    for i, v in enumerate(vols):
+        np.save(vdir / f"{i:05d}.npy", v)
+    _, cb, _, xb = c5_problem(vols[0] < 150, dev)
+    tol64 = float(f"{2e-4 * float(fvm3d.residual_3d(cb, 0 * xb)):.3e}")
+    csvb = WORK_DIR / "volume_batch.csv"
+    csvb.unlink(missing_ok=True)             # a stale file would be resumed
+    inpb = WORK_DIR / "input_volume_batch.txt"
+    inpb.write_text(f"Phases: 2\nRunBatch: 1\nNumImages: 4\n"
+                    f"ImageDir: {vdir}\nDs: {CONTRAST}\nDf: 1\n"
+                    f"Solver: mgcg\nCriterion: residual\n"
+                    f"Convergence: {tol64}\nMaxIter: 400\n"
+                    f"OutputName: {csvb}\n")
+    cyc0 = zero_counts()
+    check(cli.main([str(inpb)]) == 0, "cli.main on the volume batch")
+    torch.cuda.synchronize()
+    l_batch = counts(cyc0)
+    check(l_batch["K7"] > 0, f"CLI volume batch launches {l_batch}")
+    brows = [ln.split(",") for ln in csvb.read_text().splitlines()
+             if ln.split(",")[0].isdigit()]
+    check([int(r[0]) for r in brows] == [0, 1, 2, 3], f"batch rows {brows}")
+    cfg_b = SimulationConfig(n_phase=2, d_fluid=1.0, d_solid=CONTRAST,
+                             solver="mgcg", criterion="residual",
+                             convergence=tol64, max_iter=400)
+    diffs = []
+    for r_b, v in zip(brows, vols):
+        single = pvol.volume_sim(cfg_b, v, device="cuda")
+        diffs.append(abs(float(r_b[3]) - single.deff))
+        check(diffs[-1] <= 2e-6 and int(r_b[5]) == v.size,
+              f"batch row {r_b} vs single Deff {single.deff}")
+    results.append(f"RunBatch 4 x 64^3 (mean|r| <= {tol64:.3e}): Deff "
+                   f"{', '.join(r_b[3] for r_b in brows)}, max |batch - "
+                   f"single| {max(diffs):.1e} (CSV %f), launches {l_batch}")
+    phase(22, t0, "CLI route: " + "; ".join(results))
+
+    # -- 23: K6/K7 times (CUDA events)
+    t0 = time.perf_counter()
+    times, lines = {}, []
+    for bsz in (1, 4):
+        sub = slice(0, bsz)
+        levels, x, mf = tiled3d_setup(d4[sub],
+                                      type(c4)(*(a[sub] for a in c4)),
+                                      x04[sub])
+        r = resid(levels, x)
+        item = x.element_size()
+        ms = cuda_ms(lambda: v3.v_cycle3d_tiled(levels, r, **MG5), 5, warm=1)
+        ms_p = cuda_ms(lambda: v3.v_cycle3d_tiled_reference(levels, r,
+                                                            **MG5), 1)
+        n0 = lib.deff_launch_count()
+        v3.v_cycle3d_tiled(levels, r, **MG5)
+        per_cycle = lib.deff_launch_count() - n0
+        bd = bound(*cycle3_work(levels, bsz, item, MG5["nu"])[:2], item)
+        times[("K6 banded", bsz)] = (ms, ms_p, bd)
+        lines.append(f"B={bsz} K6 banded cycle {ms:.4f} ms (plain "
+                     f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
+                     f"{per_cycle} launches)")
+        # the whole cycle as the main path calls it: the tail on levels[1:]
+        r1 = torch.randn(levels[1].diag.shape, dtype=r.dtype, device=dev)
+        ms = cuda_ms(lambda: v3.v_cycle3d(levels[1:], r1, **MG5), 5, warm=1)
+        ms_p = cuda_ms(lambda: v3.v_cycle3d_reference(levels[1:], r1,
+                                                      **MG5), 1)
+        bd = bound(*cycle3_work(levels[1:], bsz, item, MG5["nu"])[:2], item)
+        times[("K6 whole", bsz)] = (ms, ms_p, bd)
+        lines.append(f"B={bsz} K6 whole cycle on levels[1:] {ms:.4f} ms "
+                     f"(plain {ms_p:.4f} ms, bound {bd[0]:.4f} ms by "
+                     f"{bd[1]})")
+        p = v3.v_cycle3d_tiled(levels, r, **MG5)
+        rz = batch_sum(r * p)
+        ones = torch.ones(bsz, device=dev)
+        zero = torch.zeros(bsz, device=dev)
+        inf = torch.full((bsz,), float("inf"), device=dev)
+        for mode, extra in (("stored", {}), ("matrix-free", mf)):
+            def k7(fn, k=K7_TIME_K, reps=3):
+                states = [(x.clone(), r.clone(), p.clone())
+                          for _ in range(reps)]
+                return lambda: fn(levels, *states.pop(), rz, ones, zero, inf,
+                                  k, **MG5, **extra)
+
+            n0 = lib.deff_launch_count()
+            k7(cg_steps3d, 0, 1)()
+            n1 = lib.deff_launch_count()
+            k7(cg_steps3d, K7_TIME_K, 1)()
+            per_iter = (lib.deff_launch_count() - n1 - (n1 - n0)) / K7_TIME_K
+            ms = cuda_ms(k7(cg_steps3d), 2)
+            ms_p = cuda_ms(k7(cg_steps3d_reference, reps=2), 1)
+            bd = bound(*cg3_work(levels, bsz, item, MG5["nu"], K7_TIME_K,
+                                 mf=bool(extra)), item)
+            times[(mode, bsz)] = (ms, ms_p, bd)
+            lines.append(f"B={bsz} K7 {mode} k={K7_TIME_K} {ms:.4f} ms "
+                         f"({ms / K7_TIME_K:.4f} ms/iteration; plain "
+                         f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
+                         f"{per_iter:g} launches/iteration)")
+        del levels, x, mf, r, r1, p
+        torch.cuda.empty_cache()
+    phase(23, t0, f"K6/K7 times {card}, 256^3 fp32: " + "; ".join(lines))
+    del d4, c4, x04
+
+    # -- 24: one config-5 solve per leg under the profiler
+    t0 = time.perf_counter()
+    lines = []
+    for name, extra in (("matrix-free", dict(d_field=d1)), ("stored", {})):
+        prof = profile_solve(
+            lambda: solvers3d.solve_mgcg_3d(c1, s1, x01, **C5_KW, **extra),
+            PROFILE_GROUPS_3D)
+        if prof is None:
+            lines.append(f"{name}: the profiler saw no device time")
+            continue
+        busy, span, wall, groups = prof
+        lines.append(
+            f"{name}: device busy {busy:.3f} ms of a {span:.3f} ms kernel "
+            f"span (idle share {1 - busy / span:.1%}; wall {wall:.3f} ms "
+            "under the profiler), by group " + ", ".join(
+                f"{g} {ms:.3f} ms ({ms / busy:.0%})" for g, ms in
+                sorted(groups.items(), key=lambda kv: -kv[1])))
+    phase(24, t0, f"config 5 profile {card}: " + "; ".join(lines))
+
+    rows = []
+    for name, key, src, rep, err in (
+            ("v_cycle3d", "K6 whole", "vcycle3d.cuh", "vcycle3d.py:202",
+             k6w_err),
+            ("v_cycle3d_tiled", "K6 banded", "vcycle3d.cu", "vcycle3d.py:567",
+             k6b_err),
+            ("cg_steps3d", "matrix-free", "cgstep3d.cu", "cgstep3d.py:199",
+             k7_err)):
+        ms, ms_p, bd = times[(key, 1)]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"effectivediffusivityfvm_tpu_torch/csrc/{src}",
+            "replaces": f"effectivediffusivityfvm_tpu/ops/kernels/{rep}",
+            "launches": main_launches["K7" if key == "matrix-free" else key],
+            "max_abs_err": err, "ms": ms, "plain_ms": ms_p,
+            "bound_ms": bd[0], "bound_by": bd[1], "library_ms": None})
+    return rows
 
 
 def main():
@@ -983,6 +1489,8 @@ def main():
     del c, xk
     torch.cuda.empty_cache()
     tiled_rows = large_grid_phases(dev, card, lib)
+    torch.cuda.empty_cache()
+    volume_rows = volume_phases(dev, card, lib)
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
     k3_ms, k3_ms_p, k3_bound = next(iter(k3_times.values()))
@@ -1005,7 +1513,7 @@ def main():
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_ms_p, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
-    ] + tiled_rows
+    ] + tiled_rows + volume_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

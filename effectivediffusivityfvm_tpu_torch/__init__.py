@@ -17,7 +17,11 @@ Ported so far:
   kernels; float32 grids from 1280² up take the banded engine, with an
   optional matrix-free level 0);
 * the image → diffusivity field → 5-point FVM assembly → boundary-flux Deff
-  chain under them.
+  chain under them;
+* the 3D voxel path: ``.npy``/``.npz`` volumes through the CLI into the
+  volume pipelines, the 7-point assembly and ``solve_mgcg_3d*`` on the
+  banded fused 3D engine, whose V-cycle and CG iterations run as
+  hand-written CUDA kernels.
 
 Everything runs on the CUDA device by default; pass ``device="cpu"`` to the
 pipelines (or CPU tensors to the solvers) to run the kernels' plain PyTorch
@@ -30,9 +34,12 @@ from .ops.flux import BoundaryFluxSpec, boundary_deff, make_flux_spec
 from .ops.fvm import StencilCoeffs, fvm_coefficients, jacobi_sweep, residual
 from .pipeline.batch import batch_sim, batch_sim_3phase
 from .pipeline.single import single_sim, single_sim_3phase
+from .pipeline.volume import (volume_batch_sim, volume_batch_sim_3phase,
+                              volume_sim, volume_sim_3phase)
 from .solvers.driver import SolveResult
 from .solvers.jacobi import solve_jacobi, solve_jacobi_batched
 from .solvers.multigrid import solve_mgcg, solve_mgcg_batched
+from .solvers.solvers3d import solve_mgcg_3d, solve_mgcg_3d_batched
 
 __version__ = "0.1.0"
 
@@ -57,5 +64,11 @@ __all__ = [
     "single_sim_3phase",
     "batch_sim",
     "batch_sim_3phase",
+    "solve_mgcg_3d",
+    "solve_mgcg_3d_batched",
+    "volume_sim",
+    "volume_sim_3phase",
+    "volume_batch_sim",
+    "volume_batch_sim_3phase",
     "__version__",
 ]

@@ -4,8 +4,10 @@
 Reference: ``main`` (Deff2D.cu:3-54) reads a hardcoded ``input.txt`` and
 dispatches on nPhase x BatchFlag.  Here the file path is an optional argv
 (defaulting to ``input.txt`` for parity) and the same four pipelines are
-dispatched.  The solve runs on the CUDA device unless ``main`` is called
-with ``device="cpu"``.
+dispatched; an ``InputName`` ending in ``.npy``/``.npz``, or a batch whose
+``ImageDir`` holds ``00000.npy``, takes the 3D voxel pipelines instead.
+The solve runs on the CUDA device unless ``main`` is called with
+``device="cpu"``.
 
 Usage:
     python -m effectivediffusivityfvm_tpu_torch.cli [input.txt]
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 import os
 import sys
+
+import numpy as np
 
 from .config import format_options, parse_input_file
 from .pipeline.batch import batch_sim, batch_sim_3phase
@@ -51,13 +55,28 @@ def main(argv=None, device="cuda") -> int:
 
 
 def _dispatch(cfg, device) -> int:
-    volume = (cfg.input_name.endswith((".npy", ".npz")) and not cfg.batch_flag
-              or cfg.batch_flag
-              and os.path.exists(os.path.join(cfg.image_dir, "00000.npy")))
-    if volume:
-        raise NotImplementedError(
-            "3D volumes (.npy/.npz inputs) are not ported to the torch "
-            "package yet (ROADMAP slice 5)")
+    if cfg.input_name.endswith((".npy", ".npz")) and not cfg.batch_flag:
+        # 3D voxel volume (no reference equivalent; BASELINE config 5)
+        from .pipeline.volume import volume_sim, volume_sim_3phase
+
+        vol = np.load(cfg.input_name)
+        if hasattr(vol, "files"):
+            vol = vol[vol.files[0]]
+        if cfg.n_phase == 2:
+            volume_sim(cfg, vol, write_output=True, device=device)
+        else:
+            volume_sim_3phase(cfg, vol, write_output=True, device=device)
+        return 0
+    if cfg.batch_flag and os.path.exists(os.path.join(cfg.image_dir,
+                                                      "00000.npy")):
+        # 3D voxel batch (%05d.npy in ImageDir)
+        from .pipeline.volume import volume_batch_sim, volume_batch_sim_3phase
+
+        vols = [np.load(os.path.join(cfg.image_dir, f"{i:05d}.npy"))
+                for i in range(cfg.num_images)]
+        run = volume_batch_sim if cfg.n_phase == 2 else volume_batch_sim_3phase
+        run(cfg, vols, device=device)
+        return 0
     if cfg.n_phase == 2:
         if not cfg.batch_flag:
             single_sim(cfg, device=device)

@@ -35,7 +35,7 @@ class SimulationConfig:
     mesh_amp_x: int = 1               # "MeshAmpX:"   (opts.MeshIncreaseX)
     mesh_amp_y: int = 1               # "MeshAmpY:"   (opts.MeshIncreaseY)
     mesh_amp_z: int = 1               # "MeshAmpZ:"   voxel-depth amplification
-                                      #   (3D pipelines, not ported yet)
+                                      #   (3D pipelines)
     input_name: str = "00000.jpg"     # "InputName:"  (opts.inputFilename)
     c_right: float = 1.0              # "CR:"         (opts.CRight)
     c_left: float = 0.0               # "CL:"         (opts.CLeft)

@@ -17,8 +17,10 @@ import torch
 from .config import SimulationConfig
 from .ops.flux import BoundaryFluxSpec
 from .ops.fvm import StencilCoeffs
+from .ops.fvm3d import FluxSpec3D, StencilCoeffs3D
 
 __all__ = ["coeffs_from_numpy", "spec_from_numpy", "levels_from_numpy",
+           "coeffs3d_from_numpy", "spec3d_from_numpy", "levels3d_from_numpy",
            "config_from_fields"]
 
 
@@ -50,3 +52,22 @@ def levels_from_numpy(levels: Sequence, device, dtype) -> List[StencilCoeffs]:
     """A hierarchy built by ``build_hierarchy(..., pad_levels=True)`` →
     a list of :class:`StencilCoeffs`, fine to coarse."""
     return [coeffs_from_numpy(c, device, dtype) for c in levels]
+
+
+def coeffs3d_from_numpy(c, device, dtype) -> StencilCoeffs3D:
+    """A ``StencilCoeffs3D``-like structure → :class:`StencilCoeffs3D`."""
+    return StencilCoeffs3D(*(_tensor(getattr(c, f), device, dtype)
+                             for f in StencilCoeffs3D._fields))
+
+
+def spec3d_from_numpy(s, device, dtype) -> FluxSpec3D:
+    """A ``FluxSpec3D``-like structure → :class:`FluxSpec3D`."""
+    return FluxSpec3D(*(_tensor(getattr(s, f), device, dtype)
+                        for f in FluxSpec3D._fields))
+
+
+def levels3d_from_numpy(levels: Sequence, device,
+                        dtype) -> List[StencilCoeffs3D]:
+    """A hierarchy built by ``build_hierarchy_3d(..., pad_levels=True)`` →
+    a list of :class:`StencilCoeffs3D`, fine to coarse."""
+    return [coeffs3d_from_numpy(c, device, dtype) for c in levels]

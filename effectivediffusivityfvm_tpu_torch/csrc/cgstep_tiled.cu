@@ -37,46 +37,15 @@
 // writes z (29 B).  Matrix-free, the three coefficient planes become one D
 // plane (and C reads D once more for the pin).  Halos add up to ~56% of the
 // reads at nu = 2, mostly from L2.
+#include "cgscalars.cuh"
 #include "tiled.cuh"
 
 namespace deff {
 namespace {
 
-template <typename T>
-struct CgState {
-  T* rz;            // rz of the current iteration (the caller's rz array)
-  T* rz_prev;
-  T* alpha;
-  const T* stop;
-  const T* hi;
-  int* live;
-  int* par;         // 1 where the current p and r are the scratch planes
-  int* k_done;      // the caller's k_done array
-  double* part_a;   // (B, ntiles) partials of <p, q>
-  double* part_b;   // sum|r|
-  double* part_c;   // <r, z>
-  int ntiles;
-};
-
-__device__ __forceinline__ double sum_tiles(const double* part, int nt,
-                                            double* sh) {
-  double acc = 0.0;
-  for (int j = threadIdx.x; j < nt; j += TILE_THREADS) acc += part[j];
-  return tile_block_sum(acc, sh);
-}
-
-// x, r, p *= (D > 0) for every image (matrix-free entry pin).
-template <typename T>
-__global__ void pin_kernel(const T* __restrict__ d, T* x, T* r, T* p,
-                           long long n) {
-  for (long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x; c < n;
-       c += (long long)gridDim.x * blockDim.x) {
-    const T ind = d[c] > T(0) ? T(1) : T(0);
-    x[c] = x[c] * ind;
-    r[c] = r[c] * ind;
-    p[c] = p[c] * ind;
-  }
-}
+// The partials' block sums (cgscalars.cuh) assume one thread per cell of a
+// THREADS-wide block.
+static_assert(TILE_THREADS == THREADS, "tile blocks are THREADS wide");
 
 // Per-tile partials of sum|r| over the padded plane.
 template <typename T>
@@ -94,21 +63,8 @@ abs_parts_kernel(const T* __restrict__ r, int py, int px, double* part,
       acc += (double)(v < T(0) ? -v : v);
     }
   }
-  const double s = tile_block_sum(acc, sh);
+  const double s = block_sum_fixed(acc, sh);
   if (threadIdx.x == 0) part[(size_t)blockIdx.y * nt + blockIdx.x] = s;
-}
-
-template <typename T>
-__global__ void fin_init_kernel(CgState<T> s, const T* active) {
-  __shared__ double sh[TILE_THREADS];
-  const int b = blockIdx.y;
-  const T sr = (T)sum_tiles(s.part_b + (size_t)b * s.ntiles, s.ntiles, sh);
-  if (threadIdx.x == 0) {
-    s.live[b] = (active[b] > T(0) && sr > s.stop[b] && sr < s.hi[b]);
-    s.rz_prev[b] = s.rz[b];
-    s.par[b] = 0;
-    s.k_done[b] = 0;
-  }
 }
 
 // Pass A: p = z + beta p_old, q = A p, partials of <p, q>.
@@ -156,17 +112,8 @@ pass_a_kernel(Fine<T> f, T* p0, T* p1, const T* zbuf, int first,
     const T prod = pc * q;
     acc += (double)prod;
   }
-  const double sum = tile_block_sum(acc, sh);
+  const double sum = block_sum_fixed(acc, sh);
   if (threadIdx.x == 0) s.part_a[(size_t)b * s.ntiles + blockIdx.x] = sum;
-}
-
-template <typename T>
-__global__ void fin_alpha_kernel(CgState<T> s) {
-  __shared__ double sh[TILE_THREADS];
-  const int b = blockIdx.y;
-  if (!s.live[b]) return;
-  const T pap = (T)sum_tiles(s.part_a + (size_t)b * s.ntiles, s.ntiles, sh);
-  if (threadIdx.x == 0) s.alpha[b] = pap > T(0) ? s.rz[b] / pap : T(0);
 }
 
 // Pass B: x += alpha p, r -= alpha q, partials of sum|r|, then T1 on r.
@@ -214,7 +161,7 @@ pass_b_kernel(Fine<T> f, T* __restrict__ x, const T* p0, const T* p1,
     rnew[g] = rv;
     acc += (double)(rv < T(0) ? -rv : rv);
   }
-  const double sum = tile_block_sum(acc, sh);
+  const double sum = block_sum_fixed(acc, sh);
   if (threadIdx.x == 0) s.part_b[(size_t)b * s.ntiles + blockIdx.x] = sum;
   const T* E = pre_smooth(AW, AN, DI, R, E0, E1, ws, t);
   store_interior(e + off, E, t);
@@ -257,38 +204,8 @@ pass_c_kernel(Fine<T> f, const T* r0, const T* r1, const T* __restrict__ e,
     const T prod = R[wc] * zv;
     acc += (double)prod;
   }
-  const double sum = tile_block_sum(acc, sh);
+  const double sum = block_sum_fixed(acc, sh);
   if (threadIdx.x == 0) s.part_c[(size_t)b * s.ntiles + blockIdx.x] = sum;
-}
-
-template <typename T>
-__global__ void fin_live_kernel(CgState<T> s) {
-  __shared__ double sh[TILE_THREADS];
-  const int b = blockIdx.y;
-  if (!s.live[b]) return;
-  const T sr = (T)sum_tiles(s.part_b + (size_t)b * s.ntiles, s.ntiles, sh);
-  const T rzn = (T)sum_tiles(s.part_c + (size_t)b * s.ntiles, s.ntiles, sh);
-  if (threadIdx.x == 0) {
-    s.rz_prev[b] = s.rz[b];
-    s.rz[b] = rzn;
-    s.k_done[b] += 1;
-    s.par[b] ^= 1;
-    s.live[b] = (sr > s.stop[b] && sr < s.hi[b]);
-  }
-}
-
-// dst = src for the images whose flag is set.
-template <typename T>
-__global__ void copy_back_kernel(T* dst_r, const T* src_r, T* dst_p,
-                                 const T* src_p, int n, const int* flag) {
-  if (gated_off(flag)) return;
-  const size_t off = (size_t)blockIdx.y * n;
-  for (int k = 0; k < CPT; ++k) {
-    const int c = blockIdx.x * TILE + k * THREADS + threadIdx.x;
-    if (c >= n) break;
-    dst_r[off + c] = src_r[off + c];
-    dst_p[off + c] = src_p[off + c];
-  }
 }
 
 // Scratch per image, in elements of `elem_bytes` (4 or 8): the three double

@@ -263,19 +263,6 @@ __device__ void store_interior(T* __restrict__ g, const T* S, const Tile& t) {
   }
 }
 
-// Sum of one value per thread, in double, in a fixed order.
-__device__ __forceinline__ double tile_block_sum(double v, double* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = TILE_THREADS / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  const double out = sh[0];
-  __syncthreads();
-  return out;
-}
-
 // Raise the dynamic shared memory limit of `kernel` to `bytes` if needed.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {

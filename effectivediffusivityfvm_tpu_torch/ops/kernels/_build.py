@@ -47,6 +47,9 @@ _ENTRIES = {
     "deff_cg_tiled_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
     "deff_launch_count": ([], ctypes.c_longlong),
     "deff_cycle_count": ([], ctypes.c_longlong),
+    "deff_cycle3_count": ([], ctypes.c_longlong),
+    "deff_cycle3_scratch_elems": ([_I, _P, _P, _P], ctypes.c_longlong),
+    "deff_cg3d_scratch_elems": ([_I, _P, _P, _P, _I], ctypes.c_longlong),
 }
 for _t in ("f32", "f64"):
     _ENTRIES[f"deff_v_cycle_{_t}"] = (
@@ -79,6 +82,32 @@ for _t in ("f32", "f64"):
          _P, _P, _P, _P,            # x, r, p, rz
          _P, _P, _P, _I,            # active, stop, hi, k
          _P, _P,                    # k_done, sum|r_true|
+         _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
+         _P, _P, _P], _I)           # scratch, int scratch, stream
+    _ENTRIES[f"deff_v_cycle3d_{_t}"] = (
+        [_I, _I, _P, _P, _P,        # B, L, nz[], ny[], nx[]
+         _P, _P, _P, _P,            # aw[], an[], au[], dinv[] (pointer arrays)
+         _P, _P, _P,                # r, z, scratch
+         _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
+         _P], _I)                   # stream
+    _ENTRIES[f"deff_t1_3d_{_t}"] = (
+        [_I, _I, _I, _I,            # B, nz, ny, nx
+         _I, _I, _I,                # nz1, ny1, nx1 (levels[1])
+         _P, _P, _P, _P,            # aw, an, au, dinv (level 0)
+         _P, _P, _P, _P,            # r, e, spare, coarse residual
+         _P, _I, _P], _I)           # ws[], nu, stream
+    _ENTRIES[f"deff_t2_3d_{_t}"] = (
+        [_I, _I, _I, _I,            # B, nz, ny, nx
+         _I, _I, _I,                # nz1, ny1, nx1 (levels[1])
+         _P, _P, _P, _P,            # aw, an, au, dinv (level 0)
+         _P, _P, _P, _P, _P,        # e, e_c, r, z, spare
+         _P, _I, _D, _P], _I)       # ws[], nu, over, stream
+    _ENTRIES[f"deff_cg_steps3d_{_t}"] = (
+        [_I, _I, _P, _P, _P,        # B, L, nz[], ny[], nx[]
+         _P, _P, _P, _P,            # aw[], an[], au[], dinv[] (pointer arrays)
+         _P, _D, _D, _D, _D, _I,    # D (or null), fx, fy, fz, bcf, nxr
+         _P, _P, _P, _P,            # x, r, p, rz
+         _P, _P, _P, _I, _P,        # active, stop, hi, k, k_done
          _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
          _P, _P, _P], _I)           # scratch, int scratch, stream
     _ENTRIES[f"deff_jacobi_sweeps_{_t}"] = (

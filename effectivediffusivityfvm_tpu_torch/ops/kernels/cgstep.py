@@ -36,9 +36,11 @@ __all__ = ["cg_steps_reference", "cg_steps"]
 
 
 def batch_sum(v):
-    """Per-image sum over the grid, accumulated in float64 and rounded to
-    ``v``'s dtype once (as the kernel's reductions are)."""
-    return torch.sum(v, dim=(-2, -1), dtype=torch.float64).to(v.dtype)
+    """Per-image sum over the grid (every dim but the batch dim, so 2D and
+    3D alike), accumulated in float64 and rounded to ``v``'s dtype once (as
+    the kernels' reductions are)."""
+    return torch.sum(v, dim=tuple(range(1, v.dim())),
+                     dtype=torch.float64).to(v.dtype)
 
 
 def cg_steps_reference(levels: Sequence[StencilCoeffs], x, r, p, rz, active,

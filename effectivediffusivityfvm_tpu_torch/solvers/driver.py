@@ -82,16 +82,22 @@ def _window(it: int, end: int, check_every: int) -> int:
     return min(check_every - ((it - 1) % check_every), end - it)
 
 
-def _monitor(criterion, coeffs, spec, x, deff_old, bscale):
+def _monitor(criterion, x, deff_old, bscale, deff_fn, resid_fn):
     """``(deff_new, pc_new)`` of the field ``x``."""
-    deff_new = boundary_deff(spec, x)
+    deff_new = deff_fn(x)
     if criterion == "deff":
         pc_new = (deff_old - deff_new) / deff_old
     elif criterion == "relresidual":
-        pc_new = fvm.residual(coeffs, x) / bscale
+        pc_new = resid_fn(x) / bscale
     else:
-        pc_new = fvm.residual(coeffs, x)
+        pc_new = resid_fn(x)
     return deff_new, pc_new
+
+
+def _monitor_fns(coeffs, spec, deff_fn, resid_fn):
+    """The Deff and residual monitors: the 2D ones unless given."""
+    return (deff_fn or (lambda x: boundary_deff(spec, x)),
+            resid_fn or (lambda x: fvm.residual(coeffs, x)))
 
 
 def run_single(
@@ -107,6 +113,8 @@ def run_single(
     it0: int = 0,
     deff0: float = 1.0,
     deff_old0: float = 5.0,
+    deff_fn=None,
+    resid_fn=None,
 ) -> SolveResult:
     """Solve one ``(ny, nx)`` image; ``sweeps(x, k)`` runs ``k`` sweeps.
 
@@ -116,9 +124,11 @@ def run_single(
     state of the previous segment, so a run split into segments stops at
     exactly the sweep where one continuous reference-protocol run would.
     Valid when each segment ends on a check boundary; ``max_iter`` is this
-    call's sweep budget.
+    call's sweep budget.  ``deff_fn``/``resid_fn`` replace the monitors
+    (the 3D solvers pass the voxel ones).
     """
     _check_criterion(criterion)
+    deff_fn, resid_fn = _monitor_fns(coeffs, spec, deff_fn, resid_fn)
     dtype, dev = x0.dtype, x0.device
     tol_ = torch.tensor(tol, dtype=dtype, device=dev)
     bscale = (torch.mean(torch.abs(coeffs.b)) if criterion == "relresidual"
@@ -135,7 +145,8 @@ def run_single(
         x = sweeps(x, k)
         it += k
         if (it - 1) % check_every == 0:
-            deff, pc = _monitor(criterion, coeffs, spec, x, deff_old, bscale)
+            deff, pc = _monitor(criterion, x, deff_old, bscale, deff_fn,
+                                resid_fn)
             if criterion == "deff":
                 deff_old = deff
             conv = pc
@@ -157,13 +168,16 @@ def run_batched(
     it0: int = 0,
     deff0=1.0,
     deff_old0=5.0,
+    deff_fn=None,
+    resid_fn=None,
 ) -> SolveResult:
     """Solve a ``(B, ny, nx)`` batch with per-image freezing;
     ``sweeps(x, k, active)`` runs ``k`` sweeps and leaves the images whose
     ``active`` flag is False unchanged.  ``it0``/``deff0``/``deff_old0`` are
     the segmented-solve carry of :func:`run_single` (``deff0``/``deff_old0``
-    may be ``(B,)`` tensors)."""
+    may be ``(B,)`` tensors), ``deff_fn``/``resid_fn`` as there."""
     _check_criterion(criterion)
+    deff_fn, resid_fn = _monitor_fns(coeffs, spec, deff_fn, resid_fn)
     dtype, dev = x0.dtype, x0.device
     tol_ = torch.tensor(tol, dtype=dtype, device=dev)
     bsz = x0.shape[0]
@@ -189,8 +203,8 @@ def run_batched(
         it += k
         iters += active.to(torch.int32) * k
         if (it - 1) % check_every == 0:
-            deff_new, pc_new = _monitor(criterion, coeffs, spec, x, deff_old,
-                                        bscale)
+            deff_new, pc_new = _monitor(criterion, x, deff_old, bscale,
+                                        deff_fn, resid_fn)
             deff = torch.where(active, deff_new, deff)
             if criterion == "deff":
                 deff_old = torch.where(active, deff_new, deff_old)

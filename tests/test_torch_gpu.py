@@ -11,27 +11,30 @@ float64 runs the kernels' double instantiation.  The kernels are built
 without FMA contraction and follow their plain versions operation for
 operation, so the only differences left are the order of the (double)
 reductions: 1e-9 of max-abs in float64, and chip_smoke.py's 1e-4 in
-float32.  K3 (the Jacobi sweeps) and K4 (the banded cycle) have no
-reductions and must match exactly.
+float32.  K3 (the Jacobi sweeps), K4 (the banded cycle) and K6 (the 3D
+cycles) have no reductions and must match exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from effectivediffusivityfvm_tpu_torch.ops import fvm
+from effectivediffusivityfvm_tpu_torch.ops import fvm, fvm3d
 from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
 from effectivediffusivityfvm_tpu_torch.ops.kernels import _build
+from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle3d as v3
 from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_tiled as vt
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
     cg_steps, cg_steps_reference)
+from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep3d import (
+    cg_steps3d, cg_steps3d_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
     cg_steps_tiled, cg_steps_tiled_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
     jacobi_sweeps, jacobi_sweeps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
     v_cycle, v_cycle_reference)
-from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+from effectivediffusivityfvm_tpu_torch.solvers import multigrid, solvers3d
 
 pytestmark = pytest.mark.gpu
 
@@ -253,3 +256,110 @@ def test_tiled_solve_on_gpu_matches_plain_on_cpu(cuda, mf):
         d_field=d.cpu() if mf else None, **kw)
     assert got.iters.cpu().tolist() == ref.iters.tolist()
     torch.testing.assert_close(got.deff.cpu(), ref.deff, rtol=1e-9, atol=0)
+
+
+def _problem3d(dev, dtype, bsz, nz, ny, nx, seed=0, contrast=1e4):
+    """The banded 3D engine's padded hierarchy, x0 and matrix-free
+    arguments (``solvers3d.tiled3d_system``)."""
+    rng = np.random.default_rng(seed)
+    d = torch.tensor(np.exp(rng.uniform(0, np.log(contrast),
+                                        (bsz, nz, ny, nx))),
+                     dtype=dtype, device=dev)
+    c = fvm3d.fvm_coefficients_3d(d, 0.0, 1.0)
+    levels, mf = solvers3d.tiled3d_system(c, d, min_size=4)
+    pz, py, px = levels[0].diag.shape[-3:]
+    x = torch.zeros((bsz, pz, py, px), dtype=dtype, device=dev)
+    x[:, :nz, :ny, :nx] = torch.arange(nx, dtype=dtype, device=dev).div(nx)
+    return d, c, levels, x, mf
+
+
+# (16, 10, 12): even, one band; (13, 9, 22): odd dims, padded; (40, 36, 52):
+# several coarse levels
+SHAPES_3D = [(16, 10, 12), (13, 9, 22), (40, 36, 52)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nu", [1, 2, 3])
+@pytest.mark.parametrize("shape", SHAPES_3D)
+def test_v_cycle3d_kernels_match_plain(cuda, dtype, nu, shape):
+    """K6, the whole cycle and the banded one, bit for bit."""
+    _, _, levels, x, _ = _problem3d(cuda, dtype, 2, *shape)
+    r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
+    mg = dict(omega=0.8, nu=nu, coarse_iters=8, over=1.8)
+    before, tiled = v3.v_cycle3d.launches, v3.v_cycle3d_tiled.launches
+    z = v3.v_cycle3d(levels, r, **mg)
+    zt = v3.v_cycle3d_tiled(levels, r, **mg)
+    torch.cuda.synchronize()
+    assert v3.v_cycle3d.launches == before + 2        # + the banded tail
+    assert v3.v_cycle3d_tiled.launches == tiled + 1
+    assert torch.equal(z, v3.v_cycle3d_reference(levels, r, **mg))
+    assert torch.equal(zt, v3.v_cycle3d_tiled_reference(levels, r, **mg))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
+@pytest.mark.parametrize("shape", SHAPES_3D[1:])
+def test_cg_steps3d_kernel_matches_plain(cuda, dtype, mf, shape):
+    """K7: volume 0 runs the window, 1 is frozen, 2 exits at iteration 0 on
+    its stop, 3 overshoots (rz inflated) and trips its hi after one step."""
+    _, _, levels, x, mf_kw = _problem3d(cuda, dtype, 4, *shape, seed=1)
+    mg = dict(omega=0.8, nu=2, coarse_iters=8, over=1.8)
+    r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
+    p = v3.v_cycle3d_tiled_reference(levels, r, **mg)
+    rz = torch.sum(r * p, dim=(-3, -2, -1))
+    sr0 = torch.sum(r.abs(), dim=(-3, -2, -1))
+    rz[3] *= 1e3
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=dtype, device=cuda)
+    stop = torch.zeros_like(sr0)
+    stop[2] = 10 * sr0[2]
+    hi = torch.full_like(sr0, float("inf"))
+    hi[3] = 2 * sr0[3]
+    extra = mf_kw if mf else {}
+    state = (x, r, p, rz, active, stop, hi)
+    before = cg_steps3d.launches
+    got = cg_steps3d(levels, *(t.clone() for t in state), 4, **mg, **extra)
+    ref = cg_steps3d_reference(levels, *(t.clone() for t in state), 4, **mg,
+                               **extra)
+    torch.cuda.synchronize()
+    assert cg_steps3d.launches == before + 1
+    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
+    for g, e in zip(got[:3], ref[:3]):
+        for b in range(4):
+            assert _rel_err(g[b], e[b]) <= TOL[dtype]
+    torch.testing.assert_close(got[3], ref[3], rtol=10 * TOL[dtype], atol=0)
+    for g, e in zip(got[:4], ref[:4]):
+        assert torch.equal(g[1], e[1])          # frozen: as the plain version
+
+
+@pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
+def test_solve_mgcg_3d_on_gpu_matches_plain_on_cpu(cuda, mf):
+    d, c, _, _, _ = _problem3d(cuda, torch.float64, 2, 13, 9, 22, seed=2)
+    spec = fvm3d.make_flux_spec_3d(d, 0.0, 1.0)
+    x0 = torch.arange(22, dtype=torch.float64, device=cuda).div(22)
+    x0 = x0.expand(2, 13, 9, 22)
+    kw = dict(tol=1e-6, max_iter=200, check_every=5, first_window=1,
+              criterion="relresidual", nu1=2, nu2=2, min_size=4,
+              coarse_iters=8)
+    got = solvers3d.solve_mgcg_3d_batched(c, spec, x0,
+                                          d_field=d if mf else None, **kw)
+    ref = solvers3d.solve_mgcg_3d_batched(
+        fvm3d.StencilCoeffs3D(*(a.cpu() for a in c)),
+        type(spec)(*(a.cpu() for a in spec)), x0.cpu(),
+        d_field=d.cpu() if mf else None, **kw)
+    assert got.iters.cpu().tolist() == ref.iters.tolist()
+    torch.testing.assert_close(got.deff.cpu(), ref.deff, rtol=1e-9, atol=0)
+
+
+def test_3d_wrappers_reject_bad_input(cuda):
+    _, _, levels, x, _ = _problem3d(cuda, torch.float32, 2, 16, 10, 12)
+    r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
+    with pytest.raises(ValueError):
+        v3.v_cycle3d(levels, r.to(torch.float64))
+    with pytest.raises(ValueError):
+        v3.v_cycle3d(levels, r[:, :, :, :-1])
+    with pytest.raises(ValueError):
+        v3.v_cycle3d_tiled(levels, r, nu=4)
+    one = torch.ones(2, device=cuda)
+    with pytest.raises(ValueError):
+        cg_steps3d(levels, x.clone(), r.clone(), r.clone(), one, one, 0 * one,
+                   one, 2, nu=4)

@@ -271,7 +271,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     np.save(tmp_path / "vol.npy", np.zeros((4, 4, 4), np.uint8))
     _write_png(tmp_path / "00000.jpg", _img2(1, 8))
-    for text, word in (("InputName: vol.npy\n", "slice 5"),
+    for text, word in (("InputName: vol.npy\nSolver: dmg\nDtype: float64\n",
+                        "slice 3"),
+                       ("InputName: vol.npy\nSolver: rbsor\n", "slice 3"),
                        ("Solver: dmg\nDtype: float64\n", "slice 3"),
                        ("RunBatch: 1\nNumImages: 1\nDevices: 2\n", "slice 6"),
                        ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"

@@ -71,7 +71,29 @@ non-zero):
     ... ``00003.npy`` (4 x 64^3) against the four single solves;
 23. K6/K7 times (CUDA events) at B=1 and B=4 x 256^3 fp32, stored and
     matrix-free;
-24. one config-5 solve per leg under ``torch.profiler``.
+24. one config-5 solve per leg under ``torch.profiler``;
+25. K8 (the row-sharded cycle: per-shard T1/T2 around the gathered K2
+    tail) against its plain version on the card, one application of
+    ``v_cycle_sharded_fused``: config 3's 2048^2 fp32 at SP=4 on four shards
+    of ``cuda:0``, B=2; the same at SP=1 (empty strips); 4096^2 at SP=4 (a
+    sharded level 1 too); B=2 x 256x320 fp64 at SP=4;
+26. K9 (the sharded three-pass CG steps) against its plain version, B=4 x
+    2048^2, SP=4, k=5, with a frozen image, one that exits at iteration 0
+    and one tripped by its divergence threshold;
+27. BASELINE config 3's image (phase 14's problem) through
+    ``sharded_solve_mgcg`` on four shards of the card and on one, each
+    against the same solve on the plain versions and against phase 14's
+    unsharded stored solve, then config 3's generator at 4096^2 at SP=4:
+    one float32 solve of the sharded and the unsharded banded engine (the
+    float32 relres floor lies above 1e-4 there), and a float64 leg against
+    the unsharded banded solve; one warm-up and three timed solves a leg,
+    peak memory;
+28. the pipeline routes: ``batch_sim`` with ``Devices: 4, DP: 1, SP: 4``
+    (mgcg) on two 2048^2 images against ``Devices: 1``, ``Devices: 2, DP:
+    2`` on phase 10's 64 images against phase 10's table, and the dry-run
+    twin (``parallel/dryrun.py``) on four shards;
+29. K8/K9 times (CUDA events) at B=1 and B=4 x 2048^2, SP=4 and SP=1, then
+    one sharded config-3 solve under ``torch.profiler``.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -422,7 +444,7 @@ def large_grid_phases(dev, card, lib):
           "the auto rule does not pick the banded engine at 2048^2 fp32")
     img3 = imgs4[0]
     d1, c1, s1, x01 = c3_problem(img3, dev)
-    legs, main_launches = {}, None
+    legs, main_launches, c3_ref = {}, None, {}
     for name, extra in (("stored", dict(first_window=0)),
                         ("matrix-free", dict(d_field=d1, first_window=1))):
         torch.cuda.synchronize()
@@ -458,6 +480,7 @@ def large_grid_phases(dev, card, lib):
             times.append(time.perf_counter() - t1)
         peak = torch.cuda.max_memory_allocated()
         legs[name] = deff
+        c3_ref[name] = (deff, iters)
         phase(14, t0, f"BASELINE config 3 {name} {card}: 2048^2 fp32, "
               f"{iters} iterations (plain {p_iters}), relres {conv:.3e}, "
               f"Deff {deff:.6f} (plain {p_deff:.6f}, rel err {rel:.3e}), "
@@ -579,7 +602,7 @@ def large_grid_phases(dev, card, lib):
 
     k4_ms, k4_ms_p, k4_bound = times[("K4", 1)]
     k5_ms, k5_ms_p, k5_bound = times[("stored", 1)]
-    return [
+    return c3_ref, [
         {"name": "v_cycle_tiled", "route": "cuda",
          "source": "effectivediffusivityfvm_tpu_torch/csrc/vcycle_tiled.cu",
          "replaces": "effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py:205",
@@ -1072,6 +1095,431 @@ def volume_phases(dev, card, lib):
     return rows
 
 
+# kernel-name fragments -> the group a sharded profile reports them under
+PROFILE_GROUPS_SHARDED = (
+    ("K9 passes", ("shard_pass_a", "shard_pass_b", "shard_pass_c")),
+    ("K8 T1/T2", ("shard_t1", "shard_t2")),
+    ("K9 finalize", ("fin_init", "fin_alpha", "fin_live", "shard_abs_parts")),
+    ("K2 tail", ("pre_first", "smooth_kernel", "resid_restrict",
+                 "coarse_solve", "post_first")),
+    ("strip and gather copies", ("Memcpy", "copy_kernel", "CatArray")),
+)
+C4K_SIZE = 4096                       # phase 25/27: a sharded level 1 too
+K9_TIME_K = 10                        # iterations per timed K9 call
+
+
+def sharded_setup(c, sp, dev, min_size):
+    """One mesh row of ``sp`` shards of ``dev`` over the system ``c``: the
+    mesh, the sharded hierarchy, its coefficient strips and its tail."""
+    from effectivediffusivityfvm_tpu_torch.ops import fvm
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, halo, mesh
+
+    m = mesh.make_mesh(sp, devices=[dev] * sp)
+    sh = [mesh.shard_rows(m, a)[0] for a in c]
+    row = [fvm.StencilCoeffs(*(f[s] for f in sh)) for s in range(sp)]
+    hier = halo._build_sharded_hierarchy_2d(row, c.diag.shape[-2] // sp,
+                                            min_size=min_size)
+    return (m, hier, fused2d._coef_windows(hier.sharded),
+            fused2d.build_fused_tail(hier.sharded, min_size))
+
+
+def sharded_work(hier, tail, sp, bsz, itemsize, nu, k=None):
+    """Bytes and operations of one sharded cycle (``k=None``) or of a K9
+    call of ``k`` iterations with every image live, reckoned as
+    cycle_work/tiled_work do over the levels the cycle visits: the sharded
+    levels above the tail as whole grids, then the tail's hierarchy."""
+    stop = tail[0] if tail[0] is not None else len(hier.sharded)
+    rest = tail[1][0] if tail[0] is not None else hier.replicated[0]
+    cells = [c[0].diag.shape[-2] * sp * c[0].diag.shape[-1]
+             for c in hier.sharded[:stop]]
+    cells += [c.diag.shape[-2] * c.diag.shape[-1] for c in rest]
+    nbytes = itemsize * bsz * (3 * sum(cells) + 2 * cells[0])
+    ops = bsz * (5 + 24 * nu) * sum(cells)
+    if k is None:
+        return nbytes, ops
+    n0 = bsz * cells[0]
+    return nbytes + itemsize * n0 * 4, k * (ops + n0 * 22)
+
+
+def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
+    """Phases 25-29 (the row-sharded engine on shards of one card); returns
+    the rows of the kernels' JSON line for K8 and K9."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.config import parse_input_file
+    from effectivediffusivityfvm_tpu_torch.ops import fvm
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
+        batch_sum, cg_steps)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_sharded import (
+        cg_steps_sharded, cg_steps_sharded_reference)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import \
+        cg_steps_tiled
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_sharded import (
+        shard_t1, shard_t2)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import \
+        v_cycle_tiled
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, halo, mesh
+    from effectivediffusivityfvm_tpu_torch.parallel.dryrun import \
+        dryrun_multichip
+    from effectivediffusivityfvm_tpu_torch.pipeline import batch
+    from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+
+    wrappers = (shard_t1, shard_t2, cg_steps_sharded, v_cycle, cg_steps,
+                v_cycle_tiled, cg_steps_tiled)
+
+    def zero_counts():
+        for w in wrappers:
+            w.launches = 0
+
+    def counts():
+        return {"K8 T1": shard_t1.launches, "K8 T2": shard_t2.launches,
+                "K9": cg_steps_sharded.launches, "K2": v_cycle.launches,
+                "K1": cg_steps.launches, "K4": v_cycle_tiled.launches,
+                "K5": cg_steps_tiled.launches}
+
+    def joined(shards):
+        return torch.cat(list(shards), dim=-2)
+
+    # -- 25: K8 against its plain version, one application of the cycle
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(C3_SEED)
+    imgs2 = np.stack([correlated_binary(rng, C3_SIZE, C3_SIZE)
+                      for _ in range(2)])
+    rng = np.random.default_rng(C3_SEED)
+    img4k = correlated_binary(rng, C4K_SIZE, C4K_SIZE)
+    rng = np.random.default_rng(5)
+    imgs64f = np.stack([correlated_binary(rng, 256, 320) for _ in range(2)])
+    k8_err, lines = 0.0, []
+    for imgs_, sp, dtype in ((imgs2, 4, torch.float32),
+                             (imgs2, 1, torch.float32),
+                             (img4k[None], 4, torch.float32),
+                             (imgs64f, 4, torch.float64)):
+        d, c, _, x0 = c3_problem(imgs_, dev, dtype)
+        r = c.b - fvm.apply_operator(c, x0)
+        m, hier, cw, tail = sharded_setup(c, sp, dev, C3_KW["min_size"])
+        rs = mesh.shard_rows(m, r)[0]
+        zero_counts()
+        z = joined(fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
+                                                 **MG3))
+        torch.cuda.synchronize()
+        n = counts()
+        n_fused = sum(cw_l is not None for cw_l in cw[:tail[0]])
+        check(n["K8 T1"] == n["K8 T2"] == n_fused * sp and n["K2"] == 1,
+              f"K8 launches {n}")
+        zp = joined(fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
+                                                  plain=True, **MG3))
+        err = float((z - zp).abs().max())
+        scale = float(zp.abs().max())
+        check(err <= 1e-6 * scale, f"K8 {tuple(r.shape)} SP={sp}: "
+              f"max|z - z_plain| {err} > 1e-6 * {scale}")
+        k8_err = max(k8_err, err)
+        lines.append(f"B={r.shape[0]} x {r.shape[1]}x{r.shape[2]} "
+                     f"{str(dtype)[-7:]} SP={sp}: {len(hier.sharded)} "
+                     f"sharded levels, tail at level {tail[0]}: max abs err "
+                     f"{err:.3e} (max|z| {scale:.3e}); T1 {n['K8 T1']}, T2 "
+                     f"{n['K8 T2']}, K2 {n['K2']} calls")
+        del d, c, x0, r, rs, hier, cw, tail, z, zp
+    phase(25, t0, "K8 vs plain: " + "; ".join(lines))
+
+    # -- 26: K9 against its plain version, B=4 x 2048^2, SP=4, k=5
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(C3_SEED)
+    imgs4 = np.stack([correlated_binary(rng, C3_SIZE, C3_SIZE)
+                      for _ in range(4)])
+    d4, c4, _, x04 = c3_problem(imgs4, dev)
+    x4 = x04.contiguous()
+    m4, hier4, cw4, tail4 = sharded_setup(c4, 4, dev, C3_KW["min_size"])
+    r4 = c4.b - fvm.apply_operator(c4, x4)
+    p4 = joined(fused2d.v_cycle_sharded_fused(
+        hier4, cw4, mesh.shard_rows(m4, r4)[0], tail=tail4, **MG3))
+    rz = batch_sum(r4 * p4)
+    sr0 = batch_sum(r4.abs())
+    active = torch.ones(4, device=dev)
+    active[1] = 0.0                              # frozen
+    stop = torch.zeros(4, device=dev)
+    stop[2] = 10.0 * sr0[2]                      # exits at iteration 0
+    hi = torch.full((4,), float("inf"), device=dev)
+    rz[3] *= 1e3                                 # overshoots ...
+    hi[3] = 2.0 * sr0[3]                         # ... and trips its hi
+
+    def k9_run(fn, plain, k=5):
+        xs, rs, ps = (mesh.shard_rows(m4, t)[0] for t in (x4, r4, p4))
+        out = fn(cw4[0], xs, rs, ps, rz.clone(), active, stop, hi, k,
+                 coarse=lambda rc: fused2d.v_cycle_sharded_fused(
+                     hier4, cw4, rc, level=1, tail=tail4, plain=plain,
+                     **MG3), omega=MG3["omega"], nu=MG3["nu"],
+                 over=MG3["over"])
+        return [joined(out[i]) for i in range(3)] + list(out[3:])
+
+    got = k9_run(cg_steps_sharded, False)
+    ref = k9_run(cg_steps_sharded_reference, True)
+    torch.cuda.synchronize()
+    kd = got[4].tolist()
+    check(kd == ref[4].tolist(), f"K9 k_done {kd} != plain {ref[4].tolist()}")
+    check(kd[:3] == [5, 0, 0] and kd[3] >= 1, f"K9 k_done {kd}")
+    k9_err = 0.0
+    for nm, g, e in zip("xrp", got[:3], ref[:3]):
+        for b in range(4):
+            err = float((g[b] - e[b]).abs().max())
+            scale = float(e[b].abs().max())
+            check(err <= 1e-6 * scale,
+                  f"K9 {nm}[{b}] err {err} > 1e-6*{scale}")
+            k9_err = max(k9_err, err)
+    rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
+    check(rz_err <= 1e-6, f"K9 rz rel err {rz_err}")
+    for g, s0 in zip(got[:3], (x4, r4, p4)):
+        check(bool(torch.equal(g[1], s0[1])), "K9 frozen image changed")
+    phase(26, t0, f"K9 vs plain, B=4 x {C3_SIZE}^2 fp32, SP=4, k=5: k_done "
+          f"{kd}, "
+          f"max abs err x/r/p {k9_err:.3e}, rz max rel err {rz_err:.3e}")
+    del got, ref
+
+    # -- 27: BASELINE config 3 through sharded_solve_mgcg
+    t0 = time.perf_counter()
+    d1, c1, s1, x01 = c3_problem(imgs4[0], dev)
+    deff14, iters14 = c3_stored
+    kw = dict(C3_KW, first_window=0)
+    # At 4096^2 the float32 solves stop above relres 1e-4 (mean|b| halves
+    # with nx, the rounding floor of mean|b - A x| does not): one float32
+    # solve of each engine records where; the timed 4096^2 leg is float64.
+    _, c, s, x0 = c3_problem(img4k, dev)
+    floor32 = halo.sharded_solve_mgcg(c, s, x0, mesh.make_mesh(
+        4, devices=[dev] * 4), **kw)
+    floor32_u = multigrid.solve_mgcg(c, s, x0, use_pallas="tiled", **kw)
+    # the sharded solve again with the gathered tail forced at level 1, so
+    # that K2 runs every level under level 0, as in the unsharded engine
+    fits = fused2d.fits_whole_cycle
+    fused2d.fits_whole_cycle = lambda *a, **k: True
+    try:
+        floor32_t = halo.sharded_solve_mgcg(c, s, x0, mesh.make_mesh(
+            4, devices=[dev] * 4), **kw)
+    finally:
+        fused2d.fits_whole_cycle = fits
+    phase(27, t0, f"config 3 at {C4K_SIZE}^2 float32 {card}: " + "; ".join(
+        f"{nm} {int(r.iters)} iterations, relres {float(r.conv):.3e}, Deff "
+        f"{float(r.deff):.6f}" for nm, r in (
+            ("sharded SP=4", floor32), ("unsharded banded", floor32_u),
+            ("sharded SP=4 with the tail at level 1", floor32_t)))
+          + f" (the float32 floor; the timed {C4K_SIZE}^2 leg is float64)")
+    t0 = time.perf_counter()
+    del c, s, x0, floor32, floor32_u, floor32_t
+    main_launches = None
+    for name, sp, size in (("SP=4", 4, C3_SIZE), ("SP=1", 1, C3_SIZE),
+                           (f"{C4K_SIZE}^2 float64 SP=4", 4, C4K_SIZE)):
+        if size == C3_SIZE:
+            c, s, x0 = c1, s1, x01
+        else:
+            _, c, s, x0 = c3_problem(img4k, dev, torch.float64)
+        m = mesh.make_mesh(sp, devices=[dev] * sp)
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        res = halo.sharded_solve_mgcg(c, s, x0, m, **kw)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t1
+        launched = counts()
+        if main_launches is None:
+            main_launches = launched
+        check(launched["K9"] > 0 and launched["K8 T1"] > 0
+              and launched["K8 T2"] > 0 and launched["K2"] > 0
+              and launched["K1"] == launched["K4"] == launched["K5"] == 0,
+              f"config 3 {name} launches {launched}")
+        conv, deff, iters = float(res.conv), float(res.deff), int(res.iters)
+        check(np.isfinite(deff) and conv <= C3_KW["tol"],
+              f"config 3 {name}: relres {conv}, Deff {deff}")
+        if size == C3_SIZE:
+            plain = halo.sharded_solve_mgcg(c, s, x0, m, plain=True, **kw)
+            p_deff, p_iters = float(plain.deff), int(plain.iters)
+            rel_p = abs(deff - p_deff) / abs(p_deff)
+            check(rel_p <= 1e-4 and abs(iters - p_iters) <= 2,
+                  f"config 3 {name} vs plain: Deff {deff} / {p_deff}, "
+                  f"iterations {iters} / {p_iters}")
+            vs_plain = (f"plain {p_iters} iterations, Deff {p_deff:.6f}, "
+                        f"rel err {rel_p:.3e}; ")
+            u_deff, u_iters, u_name = deff14, iters14, "phase 14's stored"
+        else:
+            vs_plain = ""
+            u = multigrid.solve_mgcg(c, s, x0, use_pallas="tiled", **kw)
+            u_deff, u_iters, u_name = (float(u.deff), int(u.iters),
+                                       "the unsharded banded")
+        gap = abs(deff - u_deff) / abs(u_deff)
+        check(gap <= 1e-3, f"config 3 {name} vs {u_name}: Deff {deff} / "
+              f"{u_deff}")
+        halo.sharded_solve_mgcg(c, s, x0, m, **kw)              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            halo.sharded_solve_mgcg(c, s, x0, m, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        peak = torch.cuda.max_memory_allocated()
+        phase(27, t0, f"BASELINE config 3 sharded {name} {card}: "
+              f"{size}^2, {iters} iterations, relres {conv:.3e}, Deff "
+              f"{deff:.6f} ({vs_plain}{u_name} solve {u_iters} iterations, "
+              f"Deff {u_deff:.6f}, rel gap {gap:.3e}, iteration gap "
+              f"{iters - u_iters:+d}), first run {t_first:.4f} s, timed "
+              f"{', '.join(f'{t:.4f}' for t in times)} s, "
+              f"{min(times) / iters * 1e3:.4f} ms/iteration, peak memory "
+              f"{peak / 2**30:.3f} GiB, launches {launched}")
+        t0 = time.perf_counter()
+        del res
+    del c, s, x0
+
+    # -- 28: the pipeline routes on the card
+    t0 = time.perf_counter()
+    results = []
+    tables = {}
+    for devices in (1, 4):
+        csv = WORK_DIR / f"batch_sp_{devices}.csv"
+        csv.unlink(missing_ok=True)
+        inp = WORK_DIR / f"input_sp_{devices}.txt"
+        inp.write_text(f"Phases: 2\nRunBatch: 1\nNumImages: 2\n"
+                       f"Ds: {CONTRAST}\nDf: 1\nSolver: mgcg\n"
+                       f"Criterion: residual\nConvergence: {C15_TOL}\n"
+                       f"MaxIter: 400\nDevices: {devices}\nDP: 1\n"
+                       f"SP: {devices}\nOutputName: {csv}\n")
+        zero_counts()
+        tables[devices] = batch.batch_sim(
+            parse_input_file(str(inp)), imgs=list(imgs4[:2]), device="cuda",
+            mesh_devices=[dev] * devices)
+        torch.cuda.synchronize()
+        launched = counts()
+        check(bool(np.all(np.isfinite(tables[devices][:, 3]))),
+              f"Devices: {devices} Deff not finite")
+        if devices == 4:
+            check(launched["K9"] > 0 and launched["K5"] == 0,
+                  f"SP route launches {launched}")
+            sp_launches = launched
+    rel_sp = np.abs(tables[4][:, 3] - tables[1][:, 3]) / tables[1][:, 3]
+    check(bool(np.all(rel_sp <= 1e-3)), f"SP route Deff rel err {rel_sp}")
+    results.append(f"Devices: 4, DP: 1, SP: 4 on two {C3_SIZE}^2 images: Deff "
+                   f"{', '.join(f'{v:.6f}' for v in tables[4][:, 3])} vs "
+                   f"Devices: 1 {', '.join(f'{v:.6f}' for v in tables[1][:, 3])}"
+                   f" (max rel err {rel_sp.max():.3e}), solve "
+                   f"{tables[4][:, 4].sum():.3f} s vs "
+                   f"{tables[1][:, 4].sum():.3f} s, launches {sp_launches}")
+    csv = WORK_DIR / "batch_dp.csv"
+    csv.unlink(missing_ok=True)
+    inp = WORK_DIR / "input_dp.txt"
+    inp.write_text("".join(line + "\n" for line in inp10_text.splitlines()
+                           if not line.startswith("OutputName:"))
+                   + f"Devices: 2\nDP: 2\nOutputName: {csv}\n")
+    zero_counts()
+    table_dp = batch.batch_sim(parse_input_file(str(inp)), imgs=list(imgs64),
+                               device="cuda", mesh_devices=[dev] * 2)
+    torch.cuda.synchronize()
+    launched = counts()
+    check(launched["K1"] > 0, f"DP route launches {launched}")
+    cols = [0, 1, 2, 3, 5, 6, 7, 8]
+    rel_dp = np.abs(table_dp[:, cols] - table10[:, cols]) / np.maximum(
+        np.abs(table10[:, cols]), 1e-300)
+    check(bool(np.all(rel_dp <= 1e-6)), f"DP route vs Devices: 1 rel err "
+          f"{rel_dp.max()}")
+    results.append(f"Devices: 2, DP: 2 on 64 of phase 5's images: CSV "
+                   f"columns but Time vs phase 10's Devices: 1 max rel err "
+                   f"{rel_dp.max():.3e}, launches {launched}")
+    zero_counts()
+    dry = dryrun_multichip([dev] * 4, out_dir=str(WORK_DIR))
+    results.append("dryrun twin on 4 shards: " + " | ".join(dry))
+    phase(28, t0, "pipeline routes: " + "; ".join(results))
+
+    # -- 29: K8/K9 times (CUDA events), then one profiled sharded solve
+    t0 = time.perf_counter()
+    times, lines = {}, []
+    item = x4.element_size()
+    for bsz in (1, 4):
+        sub = slice(0, bsz)
+        cb = type(c4)(*(a[sub] for a in c4))
+        xb = x4[sub].contiguous()
+        rb = cb.b - fvm.apply_operator(cb, xb)
+        for sp in (4, 1):
+            m, hier, cw, tail = sharded_setup(cb, sp, dev, C3_KW["min_size"])
+            rs = mesh.shard_rows(m, rb)[0]
+
+            def cycle(plain=False):
+                return fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
+                                                     plain=plain, **MG3)
+
+            ms = cuda_ms(cycle, 10, warm=2)
+            ms_p = cuda_ms(lambda: cycle(True), 2)
+            bd = bound(*sharded_work(hier, tail, sp, bsz, item, MG3["nu"]),
+                       item)
+            times[("K8", bsz, sp)] = (ms, ms_p, bd)
+            pb = joined(cycle())
+            rzb = batch_sum(rb * pb)
+            ones = torch.ones(bsz, device=dev)
+            zero = torch.zeros(bsz, device=dev)
+            inf = torch.full((bsz,), float("inf"), device=dev)
+
+            def k9(fn, plain, reps):
+                states = [[mesh.shard_rows(m, t)[0] for t in (xb, rb, pb)]
+                          for _ in range(reps)]
+
+                def call():
+                    xs, rs_, ps = states.pop()
+                    fn(cw[0], xs, rs_, ps, rzb, ones, zero, inf, K9_TIME_K,
+                       coarse=lambda rc: fused2d.v_cycle_sharded_fused(
+                           hier, cw, rc, level=1, tail=tail, plain=plain,
+                           **MG3), omega=MG3["omega"], nu=MG3["nu"],
+                       over=MG3["over"])
+                return call
+
+            n0 = lib.deff_launch_count()
+            k9(cg_steps_sharded, False, 1)()
+            per_iter = (lib.deff_launch_count() - n0) / K9_TIME_K
+            ms9 = cuda_ms(k9(cg_steps_sharded, False, 4), 3)
+            ms9_p = cuda_ms(k9(cg_steps_sharded_reference, True, 2), 1)
+            bd9 = bound(*sharded_work(hier, tail, sp, bsz, item, MG3["nu"],
+                                      K9_TIME_K), item)
+            times[("K9", bsz, sp)] = (ms9, ms9_p, bd9)
+            lines.append(
+                f"B={bsz} SP={sp}: K8 cycle {ms:.4f} ms (plain {ms_p:.4f} "
+                f"ms, bound {bd[0]:.4f} ms by {bd[1]}); K9 k={K9_TIME_K} "
+                f"{ms9:.4f} ms ({ms9 / K9_TIME_K:.4f} ms/iteration; plain "
+                f"{ms9_p:.4f} ms, bound {bd9[0]:.4f} ms by {bd9[1]}, "
+                f"{per_iter:g} library launches/iteration)")
+            del hier, cw, tail, rs, pb
+    phase(29, t0, f"K8/K9 times {card}, {C3_SIZE}^2 fp32: " + "; ".join(lines))
+    t0 = time.perf_counter()
+    m = mesh.make_mesh(4, devices=[dev] * 4)
+    prof = profile_solve(
+        lambda: halo.sharded_solve_mgcg(c1, s1, x01, m, **C3_KW,
+                                        first_window=0),
+        PROFILE_GROUPS_SHARDED)
+    if prof is None:
+        line = "the profiler saw no device time"
+    else:
+        busy, span, wall, groups = prof
+        line = (f"device busy {busy:.3f} ms of a {span:.3f} ms kernel span "
+                f"(idle share {1 - busy / span:.1%}; wall {wall:.3f} ms under "
+                "the profiler), by group " + ", ".join(
+                    f"{g} {ms:.3f} ms ({ms / busy:.0%})" for g, ms in
+                    sorted(groups.items(), key=lambda kv: -kv[1])))
+    phase(29, t0, f"config 3 sharded SP=4 profile {card}: {line}")
+
+    k8_ms, k8_ms_p, k8_bound = times[("K8", 1, 4)]
+    k9_ms, k9_ms_p, k9_bound = times[("K9", 1, 4)]
+    return [
+        {"name": "v_cycle_sharded_fused (shard_t1, shard_t2)",
+         "route": "cuda",
+         "source": "effectivediffusivityfvm_tpu_torch/csrc/vcycle_sharded.cu",
+         "replaces": "effectivediffusivityfvm_tpu/parallel/fused2d.py:358",
+         "launches": main_launches["K8 T1"] + main_launches["K8 T2"],
+         "max_abs_err": k8_err, "ms": k8_ms, "plain_ms": k8_ms_p,
+         "bound_ms": k8_bound[0], "bound_by": k8_bound[1],
+         "library_ms": None},
+        {"name": "cg_steps_sharded", "route": "cuda",
+         "source": "effectivediffusivityfvm_tpu_torch/csrc/cgstep_sharded.cu",
+         "replaces": "effectivediffusivityfvm_tpu/parallel/fused2d_cg.py:389",
+         "launches": main_launches["K9"], "max_abs_err": k9_err,
+         "ms": k9_ms, "plain_ms": k9_ms_p, "bound_ms": k9_bound[0],
+         "bound_by": k9_bound[1], "library_ms": None},
+    ]
+
+
 def main():
     import torch
 
@@ -1488,9 +1936,12 @@ def main():
         for lb, (ms, mp, bd) in k3_times.items()))
     del c, xk
     torch.cuda.empty_cache()
-    tiled_rows = large_grid_phases(dev, card, lib)
+    c3_ref, tiled_rows = large_grid_phases(dev, card, lib)
     torch.cuda.empty_cache()
     volume_rows = volume_phases(dev, card, lib)
+    torch.cuda.empty_cache()
+    sharded_rows = sharded_phases(dev, card, lib, c3_ref["stored"],
+                                  imgs[:64], inp10.read_text(), table10)
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
     k3_ms, k3_ms_p, k3_bound = next(iter(k3_times.values()))
@@ -1513,7 +1964,7 @@ def main():
          "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_ms_p, "bound_ms": k3_bound[0],
          "bound_by": k3_bound[1], "library_ms": None},
-    ] + tiled_rows + volume_rows
+    ] + tiled_rows + volume_rows + sharded_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,11 @@ Ported so far:
 * the 3D voxel path: ``.npy``/``.npz`` volumes through the CLI into the
   volume pipelines, the 7-point assembly and ``solve_mgcg_3d*`` on the
   banded fused 3D engine, whose V-cycle and CG iterations run as
-  hand-written CUDA kernels.
+  hand-written CUDA kernels;
+* the row-sharded 2D path (``parallel/``): a mesh of torch devices driven
+  from one process, the sharded Jacobi and MGCG solves (the latter on
+  hand-written CUDA kernels for one shard's cycle level and its CG
+  passes), and the ``Devices``/``DP``/``SP`` routes of the batch pipeline.
 
 Everything runs on the CUDA device by default; pass ``device="cpu"`` to the
 pipelines (or CPU tensors to the solvers) to run the kernels' plain PyTorch

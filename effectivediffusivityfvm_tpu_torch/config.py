@@ -68,8 +68,7 @@ class SimulationConfig:
     seed_both_boundaries: bool = True # flood-fill seeding intent (Deff2D.cuh:593-605)
     compact_batches: bool = False     # re-pack active images between solve
                                       #   segments (not ported yet)
-    devices: int = 1                  # devices for the pipeline: 1 = one device
-                                      #   (the only value the port takes yet),
+    devices: int = 1                  # devices for the pipeline: 1 = one device,
                                       #   -1 = all visible, n = first n
     dp: int = 0                       # data-parallel extent; 0 = devices//sp
     sp: int = 1                       # spatial (row-sharded) extent
@@ -114,6 +113,17 @@ class SimulationConfig:
         if self.first_window < 0:
             raise ValueError(
                 f"FirstWindow must be >= 0 (0 = auto), got {self.first_window}")
+
+    def resolve_mesh_shape(self, n_visible: int) -> tuple:
+        """Resolve (n_devices, dp, sp) against the visible device count."""
+        n = n_visible if self.devices == -1 else self.devices
+        if n > n_visible:
+            raise ValueError(f"Devices: {n} requested, {n_visible} visible")
+        sp = self.sp
+        dp = self.dp if self.dp else max(n // sp, 1)
+        if dp * sp != n:
+            raise ValueError(f"dp*sp = {dp}*{sp} != Devices = {n}")
+        return n, dp, sp
 
 
 # key in input.txt -> (field name, converter)

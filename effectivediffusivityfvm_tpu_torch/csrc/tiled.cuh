@@ -1,6 +1,8 @@
 // Device code shared by the banded (large-grid) engine: K4, the tiled
 // V-cycle (vcycle_tiled.cu), and K5, the three-pass CG iteration
-// (cgstep_tiled.cu).
+// (cgstep_tiled.cu); and by the row-sharded engine, K8 (vcycle_sharded.cu)
+// and K9 (cgstep_sharded.cu), whose windows read a shard's halo strips
+// (Rows, at the end of this file).
 //
 // The TPU engine (effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py,
 // cgstep_tiled.py) streamed the fine level in row bands of full width with
@@ -261,6 +263,96 @@ __device__ void store_interior(T* __restrict__ g, const T* S, const Tile& t) {
     if (gi < t.py && gj < t.px)
       g[(size_t)gi * t.px + gj] = S[(ti + t.h) * t.wx + tj + t.h];
   }
+}
+
+// ---------------------------------------------------------------- shards
+// A row shard of a larger plane (K8 and K9, the sharded engine): its own
+// (B, py, px) block plus the halo strips exchanged from its neighbours,
+// `sh` rows each, per image: north holds rows -sh..-1, south rows
+// py..py+sh-1 (zeros at the global top and bottom).  A window row in one
+// of the strips reads it; a row beyond them, or a column off the plane,
+// reads 0.  The tile halo h must not exceed sh.
+template <typename T>
+struct Rows {
+  const T* body;
+  const T* north;
+  const T* south;
+  int sh;
+};
+
+template <typename T>
+__device__ __forceinline__ T rows_at(const Rows<T>& g, int b, int gi, int gj,
+                                     int py, int px) {
+  if (gj < 0 || gj >= px) return T(0);
+  if (gi >= 0 && gi < py) return g.body[((size_t)b * py + gi) * px + gj];
+  if (gi < 0 && gi >= -g.sh)
+    return g.north[((size_t)b * g.sh + (size_t)(g.sh + gi)) * px + gj];
+  if (gi >= py && gi < py + g.sh)
+    return g.south[((size_t)b * g.sh + (size_t)(gi - py)) * px + gj];
+  return T(0);
+}
+
+// True where window row gi lies on the shard or in one of its strips.
+template <typename T>
+__device__ __forceinline__ bool rows_has(const Rows<T>& g, int gi, int py) {
+  return gi >= -g.sh && gi < py + g.sh;
+}
+
+// The window of image b of a shard plane.
+template <typename T>
+__device__ void load_window_rows(T* s, const Rows<T>& g, int b,
+                                 const Tile& t) {
+  const int n = t.wy * t.wx;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int wi = c / t.wx, wj = c - wi * t.wx;
+    s[c] = rows_at(g, b, t.i0 + wi, t.j0 + wj, t.py, t.px);
+  }
+}
+
+// The three level coefficient windows of image b of a shard.
+template <typename T>
+struct ShardCoef {
+  Rows<T> aw, an, dinv;
+};
+
+template <typename T>
+__device__ void coeff_windows_rows(const ShardCoef<T>& f, int b,
+                                   const Tile& t, T* AW, T* AN, T* DI) {
+  load_window_rows(AW, f.aw, b, t);
+  load_window_rows(AN, f.an, b, t);
+  load_window_rows(DI, f.dinv, b, t);
+}
+
+// post_smooth on a shard: e = e_pre + over ec[floor(i/2), j/2] on the
+// window, e_pre read through its strips (fine rows) and ec through its own
+// strips of sh/2 coarse rows (fine window row i takes coarse row i >> 1:
+// every shard starts on an even global row and the strips are even), 0
+// beyond them; then the sweeps in reverse order.  R must be complete.
+// Returns the plane that holds z, synchronised.
+template <typename T>
+__device__ T* post_smooth_rows(const T* AW, const T* AN, const T* DI,
+                               const T* R, T* E0, T* E1, const Rows<T>& e_pre,
+                               const Rows<T>& ec, int b, T over,
+                               const Weights& ws, const Tile& t) {
+  const int n = t.wy * t.wx;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    const int wi = c / t.wx, wj = c - wi * t.wx;
+    const int gi = t.i0 + wi, gj = t.j0 + wj;
+    E0[c] = (rows_has(e_pre, gi, t.py) && gj >= 0 && gj < t.px)
+                ? rows_at(e_pre, b, gi, gj, t.py, t.px) +
+                      over * rows_at(ec, b, gi >> 1, gj >> 1, t.py / 2,
+                                     t.px / 2)
+                : T(0);
+  }
+  __syncthreads();
+  T* cur = E0;
+  T* oth = E1;
+  for (int s = ws.nu - 1; s >= 0; --s) {
+    sweep_window(AW, AN, DI, R, cur, oth, (T)ws.w[s], (T)(1.0 - ws.w[s]), t);
+    __syncthreads();
+    T* tmp = cur; cur = oth; oth = tmp;
+  }
+  return cur;
 }
 
 // Raise the dynamic shared memory limit of `kernel` to `bytes` if needed.

@@ -50,8 +50,39 @@ _ENTRIES = {
     "deff_cycle3_count": ([], ctypes.c_longlong),
     "deff_cycle3_scratch_elems": ([_I, _P, _P, _P], ctypes.c_longlong),
     "deff_cg3d_scratch_elems": ([_I, _P, _P, _P, _I], ctypes.c_longlong),
+    "deff_shard_tiles": ([_I, _I], _I),
 }
 for _t in ("f32", "f64"):
+    # the sharded entries take their planes as one array of pointers (a
+    # shard body and its north/south strips for each plane)
+    _ENTRIES[f"deff_shard_t1_{_t}"] = (
+        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
+         _P, _P, _P,                # planes[], e, coarse residual
+         _P, _I, _P], _I)           # ws[], nu, stream
+    _ENTRIES[f"deff_shard_t2_{_t}"] = (
+        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
+         _P, _P,                    # planes[], z
+         _P, _I, _D, _P], _I)       # ws[], nu, over, stream
+    _ENTRIES[f"deff_shard_abs_parts_{_t}"] = (
+        [_I, _I, _I, _P, _P,        # B, ny_local, nx, r, partials
+         _I, _I, _P], _I)           # partials per image, offset, stream
+    _ENTRIES[f"deff_shard_fin_{_t}"] = (
+        [_I, _I, _P, _I,            # kind, B, state[], partials per image
+         _P, _P], _I)               # active (init only), stream
+    _ENTRIES[f"deff_shard_pass_a_{_t}"] = (
+        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
+         _P, _P, _I,                # planes[], p (out), first
+         _P, _I, _I, _I, _P], _I)   # state[], per image, offset, nu, stream
+    _ENTRIES[f"deff_shard_pass_b_{_t}"] = (
+        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
+         _P, _P, _P, _P, _P,        # planes[], x, r (out), e, coarse residual
+         _P, _I, _I,                # state[], per image, offset
+         _P, _I, _P], _I)           # ws[], nu, stream
+    _ENTRIES[f"deff_shard_pass_c_{_t}"] = (
+        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
+         _P, _P, _D,                # planes[], z, over
+         _P, _I, _I,                # state[], per image, offset
+         _P, _I, _P], _I)           # ws[], nu, stream
     _ENTRIES[f"deff_v_cycle_{_t}"] = (
         [_I, _I, _P, _P,            # B, L, ny[], nx[]
          _P, _P, _P,                # aw[], an[], dinv[] (pointer arrays)

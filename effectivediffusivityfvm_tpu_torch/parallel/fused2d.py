@@ -1,0 +1,128 @@
+"""The fused sharded V-cycle: K8's per-shard T1/T2 kernels with halo strips
+exchanged once per level (torch port of
+``effectivediffusivityfvm_tpu.parallel.fused2d``).
+
+A shard is a band of rows: exchanging ``HALO``-row strips of the residual
+once per level lets the whole pre-smoothing, residual and restriction (T1)
+and the prolongation, add and post-smoothing (T2) run as one kernel each on
+the shard, exact on its rows because ``nu`` sweeps and the residual
+invalidate ``nu + 1 < HALO`` rows at the window's edge.  A level exchanges
+three strips (r, e after T1, and the coarse correction with ``HALO // 2``
+rows); the coefficient strips are exchanged once per solve
+(:func:`_coef_windows`).
+
+Levels whose local block has fewer than ``HALO`` rows, or odd sizes, take
+the plain-torch sharded cycle (``halo._v_cycle_sharded_2d``) from there
+down.  The first coarse level whose whole grid passes ``fits_whole_cycle``
+is gathered once per solve and run as one K2 cycle per device
+(:func:`build_fused_tail`); where none does, the cycle ends in K2 on the
+replicated hierarchy.
+
+The JAX package split a shard that was too large for VMEM into bands
+(``_window_fits``, ``_banded_level``); the band changes no number (each
+band's window is exact on its rows), and the card tiles a shard like any
+plane, so :func:`shard_band` keeps only the structural conditions.
+"""
+
+from __future__ import annotations
+
+from ..ops.kernels.vcycle_sharded import (HALO, shard_t1, shard_t1_reference,
+                                          shard_t2, shard_t2_reference)
+from ..ops.kernels.vcycle_tiled import fits_whole_cycle
+from .halo import (ShardedHierarchy, _gathered_levels, _v_cycle_sharded_2d,
+                   gathered_cycle)
+from .mesh import halo_strips
+
+__all__ = ["v_cycle_sharded_fused", "fused_shard_level_ok", "shard_band",
+           "build_fused_tail"]
+
+
+def shard_band(ny_local: int, nx: int, itemsize: int = 4) -> int:
+    """Rows the fused T1/T2 kernels take at once on a local block: the
+    whole block, or 0 (no fused level: fewer than ``HALO`` rows, or odd
+    sizes; such levels take the plain sweeps).  ``itemsize`` is accepted
+    for signature parity."""
+    del itemsize
+    if ny_local < HALO or ny_local % 2 or nx % 2:
+        return 0
+    return ny_local
+
+
+def fused_shard_level_ok(ny_local: int, nx: int, itemsize: int = 4) -> bool:
+    """Whether a sharded level can run the fused T1/T2 kernels."""
+    return shard_band(ny_local, nx, itemsize) > 0
+
+
+def _coef_windows(sharded_levels):
+    """Per fused level, per shard: ``(aw, awN, awS, an, anN, anS, dinv,
+    dinvN, dinvS)``, the strips exchanged once per solve (the coefficients
+    do not change); ``None`` for a level without a fused band."""
+    out = []
+    for c_row in sharded_levels:
+        ny_l, nx = c_row[0].diag.shape[-2:]
+        if not fused_shard_level_ok(ny_l, nx):
+            out.append(None)
+            continue
+        per_shard = [[] for _ in c_row]
+        for f in ("a_w", "a_n", "diag_inv"):
+            planes = [getattr(c, f).contiguous() for c in c_row]
+            norths, souths = halo_strips(planes, HALO)
+            for s, p in enumerate(planes):
+                per_shard[s].extend([p, norths[s], souths[s]])
+        out.append([tuple(p) for p in per_shard])
+    return out
+
+
+def build_fused_tail(sharded_levels, min_size):
+    """The early-gather tail: the first coarse level (from level 1) whose
+    whole grid, even-padded, passes ``fits_whole_cycle``, gathered once per
+    solve and coarsened with ``pad_levels=True``.  Returns ``(level,
+    hierarchies per shard)``, or ``(None, None)`` when no level qualifies.
+    The cycle then runs every level from there as one K2 call per device,
+    each shard taking its rows."""
+    n_sh = len(sharded_levels[0]) if sharded_levels else 0
+    for lvl in range(1, len(sharded_levels)):
+        c_row = sharded_levels[lvl]
+        ny_l, nx_l = c_row[0].diag.shape[-2:]
+        full = ny_l * n_sh
+        if not fits_whole_cycle(full + full % 2, nx_l + nx_l % 2,
+                                c_row[0].diag.element_size()):
+            continue
+        return lvl, _gathered_levels(c_row, min_size)
+    return None, None
+
+
+def v_cycle_sharded_fused(hier: ShardedHierarchy, coef_wins, rs, *, nu,
+                          omega, coarse_iters, over, level=0, tail=None,
+                          plain=False):
+    """The fused sharded V(nu, nu) cycle of one mesh row from ``level``:
+    K8 (``shard_t1``/``shard_t2``) on every shard of a fused level, the
+    plain sharded sweeps on a level without a band, and the gathered K2
+    tail (``tail`` from :func:`build_fused_tail`) or, without one, K2 on
+    the replicated hierarchy.  ``rs`` are the shards' residuals ``(B, ny_l,
+    nx)``; returns their corrections.  ``plain=True`` runs the plain
+    versions of every kernel."""
+    mg = dict(omega=omega, coarse_iters=coarse_iters, over=over)
+    if tail is not None and tail[0] is not None and level == tail[0]:
+        return gathered_cycle(tail[1], rs, nu=nu, plain=plain, **mg)
+    if level == len(hier.sharded):
+        return gathered_cycle(hier.replicated, rs, nu=nu, plain=plain, **mg)
+    ny_l, nx_l = rs[0].shape[-2:]
+    if shard_band(ny_l, nx_l, rs[0].element_size()) == 0:
+        return _v_cycle_sharded_2d(hier, rs, nu1=nu, nu2=nu, level=level,
+                                   plain=plain, **mg)
+    t1 = shard_t1_reference if plain else shard_t1
+    t2 = shard_t2_reference if plain else shard_t2
+    coefs = coef_wins[level]
+    rs = [r.contiguous() for r in rs]
+    rn, rss = halo_strips(rs, HALO)
+    pre = [t1(coefs[s], rs[s], rn[s], rss[s], omega=omega, nu=nu)
+           for s in range(len(rs))]
+    e_c = v_cycle_sharded_fused(hier, coef_wins, [p[1] for p in pre], nu=nu,
+                                level=level + 1, tail=tail, plain=plain, **mg)
+    e_pre = [p[0] for p in pre]
+    en, ess = halo_strips(e_pre, HALO)
+    ecn, ecss = halo_strips(e_c, HALO // 2)
+    return [t2(coefs[s], e_pre[s], en[s], ess[s], rs[s], rn[s], rss[s],
+               e_c[s], ecn[s], ecss[s], omega=omega, nu=nu, over=over)
+            for s in range(len(rs))]

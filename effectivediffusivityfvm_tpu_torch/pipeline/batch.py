@@ -21,10 +21,17 @@ Host/device pipelining: group k+1's host preprocessing (stack, porosity,
 flood fill) runs on a worker thread while the device solves group k
 (:func:`_prefetched`).
 
-Not ported yet: the multi-device paths (``Devices``/``DP``/``SP`` other
-than 1, ROADMAP slice 6), the compacting batch solve (``Compact: 1`` with
-mgcg, slice 3), and ``Pallas: off|interpret`` (the JAX package's XLA and
-interpreter engines).  ``Pallas:`` maps as the JAX package maps it:
+Multi-device placement (``Devices``/``DP``/``SP``): a shape group is
+solved on a ``(dp, sp)`` mesh of torch devices (:mod:`..parallel.mesh`),
+the devices given by the caller's ``mesh_devices`` (default: every visible
+CUDA device; a device may repeat).  ``SP: 1`` splits the batch over dp and
+runs the regular batched solver on each chunk's device; ``SP > 1`` also
+splits the rows and runs the sharded solvers (``jacobi``, ``mgcg``).
+
+Not ported yet: the compacting batch solve (``Compact: 1`` with mgcg,
+slice 3), ``dcg``/``dmg`` (slice 3, on a mesh too), and ``Pallas:
+off|interpret`` (the JAX package's XLA and interpreter engines).
+``Pallas:`` maps as the JAX package maps it:
 ``force`` runs the "cgstep" engine (K1/K2) at every size, ``auto`` lets the
 solver choose (the banded K4/K5 engine for float32 grids past the
 whole-cycle size).
@@ -44,8 +51,9 @@ from ..io import images as img_io
 from ..io import writers
 from ..models import floodfill, phases
 from ..ops import fvm
-from ..ops.flux import make_flux_spec
+from ..ops.flux import BoundaryFluxSpec, make_flux_spec
 from ..solvers.dispatch import needs_spd, solve_batched
+from ..solvers.driver import SolveResult
 from ..utils.logging import vprint
 from ..utils.timing import time_fn
 from .single import _linear_init, dcg_stages, resolve_device, torch_dtype
@@ -56,11 +64,6 @@ __all__ = ["batch_sim", "batch_sim_3phase", "solve_image_group",
 
 def _check_supported(cfg: SimulationConfig) -> None:
     """Refuse the batch settings whose engines are not ported yet."""
-    if not (cfg.devices == 1 and cfg.sp == 1 and cfg.dp in (0, 1)):
-        raise NotImplementedError(
-            f"Devices: {cfg.devices}, DP: {cfg.dp}, SP: {cfg.sp}: the "
-            "multi-device batch paths are not ported to the torch package "
-            "yet (ROADMAP slice 6); use Devices: 1")
     if cfg.compact_batches and cfg.solver in ("cg", "mgcg"):
         raise NotImplementedError(
             "Compact: 1 (the compacting batch solve) is not ported to the "
@@ -82,6 +85,106 @@ def _solver_kwargs(cfg: SimulationConfig, tol: float, max_iter: int) -> dict:
     return kw
 
 
+# ---------------------------------------------------------------------------
+# Multi-device placement
+# ---------------------------------------------------------------------------
+
+def _pipeline_mesh(cfg: SimulationConfig, dev, mesh_devices=None):
+    """The pipeline's ``(dp, sp)`` mesh, or ``None`` for one device.
+
+    ``cfg.devices`` (``Devices:``) counts the devices a shape group spreads
+    over, out of ``mesh_devices`` (default: every visible CUDA device when
+    the pipeline runs on CUDA, else ``[dev]``)."""
+    if cfg.devices == 1 and cfg.sp == 1 and cfg.dp in (0, 1):
+        return None
+    from ..parallel.mesh import default_devices, make_mesh
+
+    if mesh_devices is None:
+        mesh_devices = default_devices() if dev.type == "cuda" else [dev]
+    n, dp, sp = cfg.resolve_mesh_shape(len(mesh_devices))
+    if n == 1:
+        return None
+    return make_mesh(n, dp=dp, sp=sp, devices=mesh_devices)
+
+
+def _pad_batch(tree, mult: int):
+    """Edge-pad the batch axis of ``(coeffs, spec, x0)`` to a multiple of
+    ``mult`` (padded entries copy the last image: they solve identically
+    and are dropped on the way out)."""
+    coeffs, spec, x0 = tree
+    bsz = x0.shape[0]
+    pad = (-bsz) % mult
+    if pad == 0:
+        return tree, bsz
+
+    def pad_one(a):
+        return torch.cat([a, a[-1:].expand((pad,) + tuple(a.shape[1:]))])
+
+    return (fvm.StencilCoeffs(*map(pad_one, coeffs)),
+            BoundaryFluxSpec(*map(pad_one, spec)), pad_one(x0)), bsz
+
+
+def _solve_group_dp_shardmap(cfg, mesh, coeffs, spec, x0, tol, max_iter):
+    """The dp-only group solve: dp chunk ``d`` of the batch runs the regular
+    batched solver (its CUDA kernels included) on mesh device ``d``.  Each
+    image's solve is independent of the others in its batch, so the result
+    equals the single-device run of the same images."""
+    bl = x0.shape[0] // mesh.dp
+    kw = _solver_kwargs(cfg, tol, max_iter)
+    parts = []
+    for d in range(mesh.dp):
+        dev = mesh.devices[d]
+        sl = slice(d * bl, (d + 1) * bl)
+        parts.append(solve_batched(
+            cfg.solver, fvm.StencilCoeffs(*(a[sl].to(dev) for a in coeffs)),
+            BoundaryFluxSpec(*(a[sl].to(dev) for a in spec)),
+            x0[sl].to(dev), **kw))
+    return SolveResult(*(torch.cat([getattr(r, f).to(x0.device)
+                                    for r in parts])
+                         for f in SolveResult._fields))
+
+
+def _solve_group_on_mesh(cfg, mesh, coeffs, spec, x0, tol, max_iter):
+    """Run one shape group's batched solve on the pipeline mesh.
+
+    ``sp == 1``: the batch split over dp (:func:`_solve_group_dp_shardmap`).
+    ``sp > 1``: the rows split too, through the sharded Jacobi or MGCG
+    solver (``jacobi``/``mgcg`` only)."""
+    dp, sp = mesh.dp, mesh.sp
+    (coeffs, spec, x0), bsz = _pad_batch((coeffs, spec, x0), dp)
+    if sp > 1:
+        if cfg.solver not in ("jacobi", "mgcg"):
+            raise ValueError(
+                f"SP: {sp} in batch mode supports solver=jacobi (halo sweep) "
+                f"or solver=mgcg (sharded multigrid-PCG); got {cfg.solver!r} "
+                f"— use SP: 1 (pure dp) for other solvers")
+        ny = x0.shape[-2]
+        if ny % sp:
+            raise ValueError(f"image rows ({ny}) must divide SP ({sp})")
+        if cfg.solver == "mgcg":
+            from ..parallel.halo import sharded_solve_mgcg
+
+            res = sharded_solve_mgcg(
+                coeffs, spec, x0, mesh, tol=tol, max_iter=max_iter,
+                check_every=cfg.check_every or 10, criterion=cfg.criterion,
+                first_window=cfg.first_window)
+        else:
+            from ..parallel.halo import sharded_solve_jacobi
+
+            res = sharded_solve_jacobi(
+                coeffs, spec, x0, mesh, omega=cfg.omega or 2.0 / 3.0, tol=tol,
+                max_iter=max_iter,
+                check_every=cfg.check_every or 10_000, criterion=cfg.criterion)
+    else:
+        if cfg.solver in ("dcg", "dmg"):
+            raise NotImplementedError(
+                f"solver {cfg.solver!r} is not ported to the torch package "
+                "yet, on a mesh or off it (ROADMAP slice 3)")
+        res = _solve_group_dp_shardmap(cfg, mesh, coeffs, spec, x0, tol,
+                                       max_iter)
+    return SolveResult(*(a[:bsz] for a in res))
+
+
 def _group_by_shape(imgs: Sequence[np.ndarray], indices: Sequence[int],
                     max_group: int) -> List[List[int]]:
     """Bucket image indices by (H, W); split buckets larger than max_group."""
@@ -98,8 +201,9 @@ def _group_by_shape(imgs: Sequence[np.ndarray], indices: Sequence[int],
 
 
 def solve_image_group(cfg: SimulationConfig, imgs_np: np.ndarray,
-                      device="cuda"):
-    """2-phase batched solve of one same-shape group.
+                      device="cuda", mesh_devices=None):
+    """2-phase batched solve of one same-shape group (on the pipeline mesh
+    when ``Devices``/``DP``/``SP`` ask for one, see :func:`_pipeline_mesh`).
 
     Args:
       imgs_np: (B, H, W) uint8 pixels.
@@ -120,18 +224,34 @@ def solve_image_group(cfg: SimulationConfig, imgs_np: np.ndarray,
     spec = make_flux_spec(d_field, cfg.c_left, cfg.c_right)
     x0 = _linear_init(ny, nx, cfg.c_left, cfg.c_right, dtype, dev).expand(
         bsz, ny, nx)
-    res, dt = time_fn(solve_batched, cfg.solver, coeffs, spec, x0,
-                      **_solver_kwargs(cfg, cfg.convergence, cfg.max_iter))
+    mesh = _pipeline_mesh(cfg, dev, mesh_devices)
+    if mesh is not None:
+        res, dt = time_fn(_solve_group_on_mesh, cfg, mesh, coeffs, spec, x0,
+                          cfg.convergence, cfg.max_iter)
+    else:
+        res, dt = time_fn(solve_batched, cfg.solver, coeffs, spec, x0,
+                          **_solver_kwargs(cfg, cfg.convergence,
+                                           cfg.max_iter))
     deff = res.deff.cpu().numpy().astype(np.float64) / cfg.d_fluid  # Deff2D.cuh:2017
     return (deff, res.conv.cpu().numpy(), res.iters.cpu().numpy(),
             res.x.cpu().numpy(), dt)
 
 
 def solve_image_group_3phase(cfg: SimulationConfig, imgs_np: np.ndarray,
-                             device="cuda"):
+                             device="cuda", mesh_devices=None):
     """3-phase batched solve of one same-shape group, DCG homotopy included
-    (stage ladder depends only on the global DCG, so all images share it)."""
+    (stage ladder depends only on the global DCG, so all images share it);
+    on the pipeline mesh as :func:`solve_image_group`."""
     dev = resolve_device(device)
+    mesh = _pipeline_mesh(cfg, dev, mesh_devices)
+
+    def solve(coeffs, spec, x, tol, max_iter):
+        if mesh is not None:
+            return _solve_group_on_mesh(cfg, mesh, coeffs, spec, x, tol,
+                                        max_iter)
+        return solve_batched(cfg.solver, coeffs, spec, x,
+                             **_solver_kwargs(cfg, tol, max_iter))
+
     dtype = torch_dtype(cfg)
     class_list, mask_list = [], []
     for im in imgs_np:
@@ -164,14 +284,11 @@ def solve_image_group_3phase(cfg: SimulationConfig, imgs_np: np.ndarray,
     for stage_num, dcg_t in enumerate(dcg_stages(cfg.d_gas), start=1):
         vprint(cfg.verbose, f"Pre-Cond Stage {stage_num}: DCG = {dcg_t:1.3e}")
         coeffs, spec = build(dcg_t)
-        res = solve_batched(
-            cfg.solver, coeffs, spec, x,
-            **_solver_kwargs(cfg, cfg.convergence * 10, stage_max_iter))
+        res = solve(coeffs, spec, x, cfg.convergence * 10, stage_max_iter)
         x = res.x
 
     coeffs, spec = build(cfg.d_gas)
-    res, dt = time_fn(solve_batched, cfg.solver, coeffs, spec, x,
-                      **_solver_kwargs(cfg, cfg.convergence, cfg.max_iter))
+    res, dt = time_fn(solve, coeffs, spec, x, cfg.convergence, cfg.max_iter)
     deff = res.deff.cpu().numpy().astype(np.float64) / cfg.d_fluid
     fr = [phases.phase_fractions(c) for c in classes]
     svf = np.asarray([f[0] for f in fr])
@@ -206,8 +323,11 @@ def _attribute_time(total_s: float, iters: np.ndarray) -> np.ndarray:
 
 
 def batch_sim(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]] = None,
-              device="cuda") -> np.ndarray:
+              device="cuda", mesh_devices=None) -> np.ndarray:
     """2-phase batch pipeline (reference BatchSim, Deff2D.cuh:1843).
+
+    ``mesh_devices``: the devices ``Devices:``/``DP:``/``SP:`` lay their
+    mesh on (default: every visible CUDA device; a device may repeat).
 
     Returns the (NumImg, 9) output table:
     imgNum, porosity, PathFlag, Deff, Time, nElements, converge, ds, df.
@@ -235,7 +355,8 @@ def batch_sim(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]] = None
         return stack, stats
 
     for group, (stack, stats) in _prefetched(groups, prepare):
-        deff, conv, iters, _, dt = solve_image_group(cfg, stack, device)
+        deff, conv, iters, _, dt = solve_image_group(cfg, stack, device,
+                                                     mesh_devices)
         times = _attribute_time(dt, iters)
         for k, i in enumerate(group):
             im = imgs[i]
@@ -254,8 +375,9 @@ def batch_sim(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]] = None
 
 
 def batch_sim_3phase(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]] = None,
-                     device="cuda") -> np.ndarray:
-    """3-phase batch pipeline (reference BatchSim3Phase, Deff2D.cuh:2056).
+                     device="cuda", mesh_devices=None) -> np.ndarray:
+    """3-phase batch pipeline (reference BatchSim3Phase, Deff2D.cuh:2056);
+    ``mesh_devices`` as for :func:`batch_sim`.
 
     Returns the (NumImg, 11) output table:
     imgNum, SVF, LVF, PathFlag, Deff, Time, nElements, converge, ds, df, dg.
@@ -282,7 +404,7 @@ def batch_sim_3phase(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]]
 
     for group, (stack, flags) in _prefetched(groups, prepare):
         deff, conv, iters, x, dt, svf, lvf = solve_image_group_3phase(
-            cfg, stack, device)
+            cfg, stack, device, mesh_devices)
         times = _attribute_time(dt, iters)
         for k, i in enumerate(group):
             im = imgs[i]

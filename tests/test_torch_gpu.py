@@ -363,3 +363,118 @@ def test_3d_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         cg_steps3d(levels, x.clone(), r.clone(), r.clone(), one, one, 0 * one,
                    one, 2, nu=4)
+
+
+# ------------------------------------------- the row-sharded engine (K8/K9)
+
+def _sharded_problem(dev, dtype, bsz, ny, nx, sp, seed=0):
+    """One mesh row of ``sp`` shards on the card: the sharded hierarchy,
+    its coefficient strips and tail, and the shards of a linear x."""
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, halo, mesh
+
+    d, c, _, _ = _problem(dev, dtype, bsz, ny, nx, seed=seed)
+    m = mesh.make_mesh(sp, devices=[dev] * sp)
+    sh = [mesh.shard_rows(m, a)[0] for a in c]
+    row = [fvm.StencilCoeffs(*(f[s] for f in sh)) for s in range(sp)]
+    hier = halo._build_sharded_hierarchy_2d(row, ny // sp, min_size=4)
+    cw = fused2d._coef_windows(hier.sharded)
+    tail = fused2d.build_fused_tail(hier.sharded, 4)
+    x = torch.arange(nx, dtype=dtype, device=dev).div(nx).expand(bsz, ny, nx)
+    r = c.b - fvm.apply_operator(c, x)
+    return m, c, hier, cw, tail, x.contiguous(), r
+
+
+SHARD_MG = dict(omega=0.8, coarse_iters=8, over=1.8)
+
+
+@pytest.mark.parametrize("nu", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sp", [1, 2, 4])
+def test_shard_cycle_kernels_match_plain(cuda, sp, dtype, nu):
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_sharded
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
+
+    m, _, hier, cw, tail, _, r = _sharded_problem(cuda, dtype, 2, 64, 40, sp)
+    rs = mesh.shard_rows(m, r)[0]
+    rn, rss = mesh.halo_strips(rs, vcycle_sharded.HALO)
+    t1 = vcycle_sharded.shard_t1.launches
+    for s in range(sp):
+        got = vcycle_sharded.shard_t1(cw[0][s], rs[s], rn[s], rss[s],
+                                      omega=0.8, nu=nu)
+        ref = vcycle_sharded.shard_t1_reference(cw[0][s], rs[s], rn[s],
+                                                rss[s], omega=0.8, nu=nu)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert vcycle_sharded.shard_t1.launches == t1 + sp
+    kw = dict(nu=nu, tail=tail, **SHARD_MG)
+    before = vcycle_sharded.shard_t2.launches
+    z = fused2d.v_cycle_sharded_fused(hier, cw, rs, **kw)
+    zp = fused2d.v_cycle_sharded_fused(hier, cw, rs, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert vcycle_sharded.shard_t2.launches == before + sp
+    for g, e in zip(z, zp):
+        assert _rel_err(g, e) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("nu", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sp", [1, 2, 4])
+def test_shard_cg_steps_kernel_matches_plain(cuda, sp, dtype, nu):
+    """Image 0 runs the window, 1 is frozen, 2 exits at iteration 0 on its
+    stop, 3 overshoots (rz inflated) and trips its hi after one step."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import cgstep_sharded
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
+
+    m, c, hier, cw, tail, x, r = _sharded_problem(cuda, dtype, 4, 64, 40, sp,
+                                                  seed=1)
+    p = r * c.diag_inv
+    rz = torch.sum(r * p, dim=(-2, -1))
+    sr0 = torch.sum(r.abs(), dim=(-2, -1))
+    rz[3] *= 1e3
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=dtype, device=cuda)
+    stop = torch.zeros_like(sr0)
+    stop[2] = 10 * sr0[2]
+    hi = torch.full_like(sr0, float("inf"))
+    hi[3] = 2 * sr0[3]
+
+    def run(fn, plain):
+        xs, rs, ps = (mesh.shard_rows(m, t)[0] for t in (x, r, p))
+        out = fn(cw[0], xs, rs, ps, rz.clone(), active, stop, hi, 4,
+                 coarse=lambda rc: fused2d.v_cycle_sharded_fused(
+                     hier, cw, rc, nu=nu, level=1, tail=tail, plain=plain,
+                     **SHARD_MG),
+                 omega=0.8, nu=nu, over=1.8)
+        return [torch.cat(out[i], dim=-2) for i in range(3)] + list(out[3:])
+
+    before = cgstep_sharded.cg_steps_sharded.launches
+    got = run(cgstep_sharded.cg_steps_sharded, False)
+    ref = run(cgstep_sharded.cg_steps_sharded_reference, True)
+    torch.cuda.synchronize()
+    assert cgstep_sharded.cg_steps_sharded.launches == before + 1
+    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
+    for g, e in zip(got[:3], ref[:3]):
+        for b in range(4):
+            assert _rel_err(g[b], e[b]) <= TOL[dtype]
+    torch.testing.assert_close(got[3], ref[3], rtol=10 * TOL[dtype], atol=0)
+    for g, s in zip(got[:3], (x, r, p)):
+        assert torch.equal(g[1], s[1])          # frozen: bit-unchanged
+
+
+def test_sharded_solve_on_gpu_matches_plain_on_cpu(cuda):
+    from effectivediffusivityfvm_tpu_torch.parallel import halo, mesh
+
+    d, c, _, _ = _problem(cuda, torch.float64, 2, 64, 40, seed=2)
+    spec = make_flux_spec(d, 0.0, 1.0)
+    x0 = torch.arange(40, dtype=torch.float64, device=cuda).div(40)
+    x0 = x0.expand(2, 64, 40)
+    kw = dict(tol=1e-6, max_iter=200, check_every=10,
+              criterion="relresidual", nu1=2, nu2=2, min_size=4,
+              coarse_iters=8)
+    got = halo.sharded_solve_mgcg(c, spec, x0,
+                                  mesh.make_mesh(4, devices=[cuda] * 4), **kw)
+    ref = halo.sharded_solve_mgcg(
+        fvm.StencilCoeffs(*(a.cpu() for a in c)),
+        type(spec)(*(a.cpu() for a in spec)), x0.cpu(),
+        mesh.make_mesh(4, devices=["cpu"] * 4), **kw)
+    assert got.iters.cpu().tolist() == ref.iters.tolist()
+    torch.testing.assert_close(got.deff.cpu(), ref.deff, rtol=1e-9, atol=0)

@@ -275,7 +275,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
                         "slice 3"),
                        ("InputName: vol.npy\nSolver: rbsor\n", "slice 3"),
                        ("Solver: dmg\nDtype: float64\n", "slice 3"),
-                       ("RunBatch: 1\nNumImages: 1\nDevices: 2\n", "slice 6"),
+                       # the mesh routes are ported; on the CPU the CLI
+                       # sees one device
+                       ("RunBatch: 1\nNumImages: 1\nDevices: 2\n",
+                        "2 requested, 1 visible"),
                        ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
                         "Pallas: off\n", "Pallas: off")):
         (tmp_path / "in.txt").write_text(text)

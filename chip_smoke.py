@@ -10,18 +10,21 @@ non-zero):
    ``nvidia-smi``'s name and power limit;
 2. build: compiles the port's CUDA kernels from the checkout's sources;
 3. K2 (V-cycle) against its plain PyTorch version on the card, B=8 x 512^2;
-4. K1 (fused CG steps) against its plain version on the card, B=8 x 512^2,
-   k=5, with a frozen image, one that exits at iteration 0 and one tripped
-   by its divergence threshold;
+4. K1 (fused CG steps, three tile passes an iteration) against its plain
+   version on the card, B=8 x 512^2, k=5, with a frozen image, one that
+   exits at iteration 0 and one tripped by its divergence threshold; its
+   launches an iteration and reckoned bytes a cell an iteration;
 5. the MGCG slice: bench.py's problem (B=512 images of 512^2, fp32, the
    bench solver settings) through ``solve_mgcg_batched`` on the kernels,
    checked for convergence, Deff range and kernel launches, the first 16
    images solved again through the plain versions, then one warm-up and
    three timed solves;
 6. K1/K2 times at the main path's shapes (CUDA events) against the plain
-   versions;
-7. K3 (Jacobi sweeps) against its plain version on the card: B=8 at 128^2,
-   96x160 and 512^2, fp32 and fp64, k = 1 and 37, image 5 frozen;
+   versions, then one K1 call and one slice solve under ``torch.profiler``;
+7. K3 (Jacobi sweeps) against its plain version on the card, bit for bit:
+   B=8 at 128^2 (k = 1, 37 and 10000) and 96x160 (k = 1, 37) on the
+   resident route, one launch a call, and 512^2 (k = 1, 37) on the
+   streaming route, fp32 and fp64, image 5 frozen;
 8. the CLI batch path at full size (the reference's datagen mode): an
    ``input.txt`` with ``Solver: jacobi_pallas``, parsed by the port and run
    through ``batch_sim`` on 256 images of 128^2 to the reference protocol
@@ -34,7 +37,9 @@ non-zero):
 10. ``batch_sim`` with ``Solver: mgcg`` on 64 of phase 5's images, which
     reaches K1/K2 through the CLI path, against the same solve called
     directly with the pipeline's settings;
-11. K3 times (CUDA events) at B=256 x 128^2 fp32 and B=1 x 128^2 fp64;
+11. config 1 and the CLI batch under ``torch.profiler``; K3 times (CUDA
+    events) at B=256 x 128^2 fp32 and B=1 x 128^2 fp64, the resident and
+    the streaming route in turns;
 12. K4 (the banded V-cycle) against its plain version on the card: B=2 at
     2048^2 and at 2007x1002 (padded to 2048x1024) in fp32, B=2 at 256x320
     in fp64;
@@ -47,7 +52,8 @@ non-zero):
     versions, then one warm-up and three timed solves per leg;
 15. the CLI route to the banded engine: ``single_sim`` with ``Solver:
     mgcg`` on the config-3 image, and ``batch_sim`` on two 2048^2 images
-    with ``Pallas: auto`` (K4/K5) and ``Pallas: force`` (K1/K2);
+    with ``Pallas: auto`` (K4/K5) and ``Pallas: force`` (K1/K2); then the
+    force batch in float64 through "cgstep" (K1/K2) and "tiled" (K4/K5);
 16. K4/K5 times (CUDA events) at B=1 and B=4 x 2048^2 fp32;
 17. one config-3 solve per leg under ``torch.profiler``: device busy time,
     the span of its kernels and the idle share, and device time by kernel
@@ -83,7 +89,9 @@ non-zero):
 27. BASELINE config 3's image (phase 14's problem) through
     ``sharded_solve_mgcg`` on four shards of the card and on one, each
     against the same solve on the plain versions and against phase 14's
-    unsharded stored solve, then config 3's generator at 4096^2 at SP=4:
+    unsharded stored solve, with its K2 cycles equal to the live
+    iterations plus the fresh and refresh cycles, then config 3's
+    generator at 4096^2 at SP=4:
     one float32 solve of the sharded and the unsharded banded engine (the
     float32 relres floor lies above 1e-4 there), and a float64 leg against
     the unsharded banded solve; one warm-up and three timed solves a leg,
@@ -237,6 +245,25 @@ def cycle_work(levels, bsz, itemsize, nu):
     return nbytes, ops, cells
 
 
+def k1_bytes_per_cell(levels, itemsize, nu):
+    """Reckoned bytes a K1 iteration moves per level-0 cell, ``(before,
+    after)`` the three-pass redesign, from the kernels' loads and stores
+    (each plane a pass reads or writes counted once; a quarter plane for the
+    restricted residual and the coarse correction).  Level 0, before: q = A
+    p (5 planes), the x/r update (6), pre_first (5), the residual and
+    restriction (5.25), post_first (6.25), the second post-sweep (6), the
+    dot products (2), the p update (3): 38.5.  After: pass P (7), pass X
+    (10.25), pass Z (6.25): 23.5.  Each coarse level of the cycle, in both:
+    pre_first 5, 6 for each further pre-sweep, the residual and restriction
+    5.25, post_first 6.25, 6 for each further post-sweep; the coarsest level
+    5 (its sweeps stay in one block)."""
+    cells = [c.diag.shape[-2] * c.diag.shape[-1] for c in levels]
+    per_level = 5 + 6 * (nu - 2 if nu > 2 else 0) + 5.25 + 6.25 + 6 * (nu - 1)
+    coarse = sum(per_level * n for n in cells[1:-1]) + 5 * cells[-1]
+    coarse = coarse / cells[0] if len(cells) > 1 else 0.0
+    return (itemsize * (38.5 + coarse), itemsize * (23.5 + coarse))
+
+
 def phase(n, t0, text):
     print(f"phase {n} {text} [{time.perf_counter() - t0:.1f} s]", flush=True)
 
@@ -255,6 +282,47 @@ def c3_problem(imgs, dev, dtype=None):
     x0 = (torch.arange(nx, dtype=dtype, device=dev) / nx).expand(imgs.shape)
     return (d, fvm.fvm_coefficients(d, 0.0, 1.0),
             make_flux_spec(d, 0.0, 1.0), x0)
+
+
+def force_leg(imgs2, dtype, engine):
+    """Phase 15's ``Pallas: force`` batch (two 2048^2 images, the pipeline's
+    V(1,1) settings, mean|r| <= C15_TOL, MaxIter 400) with ``Dtype:
+    dtype``, solved by ``engine`` ("cgstep": K1/K2, what force selects;
+    "tiled": K4/K5).  Returns Deff, conv and iterations per image and the
+    group's solve seconds."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.config import parse_input_file
+    from effectivediffusivityfvm_tpu_torch.pipeline import batch
+
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    csv = WORK_DIR / f"batch_c3_force_{dtype}_{engine}.csv"
+    csv.unlink(missing_ok=True)
+    inp = WORK_DIR / f"input_c3_force_{dtype}_{engine}.txt"
+    inp.write_text(f"Phases: 2\nRunBatch: 1\nNumImages: 2\n"
+                   f"Ds: {CONTRAST}\nDf: 1\nSolver: mgcg\n"
+                   f"Criterion: residual\nConvergence: {C15_TOL}\n"
+                   f"MaxIter: 400\nPallas: force\nDtype: {dtype}\n"
+                   f"OutputName: {csv}\n")
+    groups = []
+    solve_group, kwargs = batch.solve_image_group, batch._solver_kwargs
+
+    def observed(*a, **kw):
+        out = solve_group(*a, **kw)
+        groups.append(out)
+        return out
+
+    def pinned(cfg, tol, max_iter):
+        return dict(kwargs(cfg, tol, max_iter), use_pallas=engine)
+
+    batch.solve_image_group, batch._solver_kwargs = observed, pinned
+    try:
+        table = batch.batch_sim(parse_input_file(str(inp)), imgs=list(imgs2),
+                                device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        batch.solve_image_group, batch._solver_kwargs = solve_group, kwargs
+    return table[:, 3], table[:, 6], np.asarray(groups[0][2]), groups[0][4]
 
 
 def tiled_setup(d, coeffs, x0, min_size):
@@ -294,6 +362,26 @@ PROFILE_GROUPS = (
     ("K2 levels", ("pre_first", "smooth_kernel", "resid_restrict",
                    "coarse_solve", "post_first")),
 )
+PROFILE_GROUPS_K1 = (
+    ("K1 pass P", "pass_p_kernel"), ("K1 pass X", "pass_x_kernel"),
+    ("K1 pass Z", "pass_z_kernel"), ("K1 scalars", ("fin_", "set_act")),
+    ("K2 levels", ("pre_first", "smooth_kernel", "resid_restrict",
+                   "coarse_solve", "post_first")),
+    ("memset", ("emset",)),
+)
+PROFILE_GROUPS_K3 = (("K3 resident", "jacobi_resident"),
+                     ("K3 streaming", "jacobi_sweep_kernel"))
+
+
+def profile_line(prof):
+    """One line of :func:`profile_solve`'s result."""
+    if prof is None:
+        return "the profiler saw no device activity"
+    busy, span, wall, groups = prof
+    return (f"busy {busy:.3f} ms of a {span:.3f} ms span (wall {wall:.3f} "
+            f"ms), idle share {1 - busy / span:.1%}; " + ", ".join(
+                f"{g} {ms:.3f} ms ({ms / busy:.1%})" for g, ms in sorted(
+                    groups.items(), key=lambda kv: -kv[1])))
 
 
 def profile_solve(fn, group_table=PROFILE_GROUPS):
@@ -531,7 +619,32 @@ def large_grid_phases(dev, card, lib):
                        f"{', '.join(f'{v:.6f}' for v in table[:, 3])}, conv "
                        f"{table[:, 6].max():.3e}, solve "
                        f"{table[:, 4].sum():.3f} s, launches {launched}")
+        force32 = table[:, 3]
     phase(15, t0, "CLI route: " + "; ".join(results))
+
+    # the same force batch in float64 through K1/K2 and through K4/K5: where
+    # both converge to one Deff, the float32 force result above is the
+    # float32 floor of the reference engine, not a fault of the port
+    t0 = time.perf_counter()
+    f64 = {}
+    for engine, want in (("cgstep", "K1"), ("tiled", "K5")):
+        cyc0 = zero_counts()
+        f64[engine] = force_leg(imgs4[:2], "float64", engine)
+        launched = counts(cyc0)
+        check(launched[want] > 0, f"float64 {engine} launches {launched}")
+        deff, conv, _, _ = f64[engine]
+        check(bool(np.all(np.isfinite(deff)) and np.all(conv <= C15_TOL)),
+              f"float64 {engine}: Deff {deff}, conv {conv}")
+    gap = np.abs(f64["cgstep"][0] - f64["tiled"][0]) / np.abs(f64["tiled"][0])
+    check(bool(np.all(gap <= 1e-3)), f"float64 cgstep vs tiled Deff gap {gap}")
+    off32 = np.abs(force32 - f64["tiled"][0]) / np.abs(f64["tiled"][0])
+    phase(15, t0, f"Pallas: force in float64 {card}: " + "; ".join(
+        f"{eng} Deff {', '.join(f'{v:.6f}' for v in dv)}, conv "
+        f"{cv.max():.3e}, iterations {', '.join(str(int(i)) for i in it)}, "
+        f"solve {dt:.3f} s" for eng, (dv, cv, it, dt) in f64.items())
+        + f"; cgstep vs tiled Deff rel gap {gap.max():.3e}; the float32 "
+        f"force Deff off the float64 one by "
+        f"{', '.join(f'{v:.3e}' for v in off32)}")
 
     # -- 16: K4/K5 times (CUDA events)
     t0 = time.perf_counter()
@@ -1246,9 +1359,9 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
     def k9_run(fn, plain, k=5):
         xs, rs, ps = (mesh.shard_rows(m4, t)[0] for t in (x4, r4, p4))
         out = fn(cw4[0], xs, rs, ps, rz.clone(), active, stop, hi, k,
-                 coarse=lambda rc: fused2d.v_cycle_sharded_fused(
+                 coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
                      hier4, cw4, rc, level=1, tail=tail4, plain=plain,
-                     **MG3), omega=MG3["omega"], nu=MG3["nu"],
+                     live=live, **MG3), omega=MG3["omega"], nu=MG3["nu"],
                  over=MG3["over"])
         return [joined(out[i]) for i in range(3)] + list(out[3:])
 
@@ -1314,11 +1427,13 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         m = mesh.make_mesh(sp, devices=[dev] * sp)
         torch.cuda.synchronize()
         zero_counts()
+        cyc0 = lib.deff_cycle_count()
         t1 = time.perf_counter()
         res = halo.sharded_solve_mgcg(c, s, x0, m, **kw)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t1
         launched = counts()
+        cycles = lib.deff_cycle_count() - cyc0
         if main_launches is None:
             main_launches = launched
         check(launched["K9"] > 0 and launched["K8 T1"] > 0
@@ -1328,6 +1443,11 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         conv, deff, iters = float(res.conv), float(res.deff), int(res.iters)
         check(np.isfinite(deff) and conv <= C3_KW["tol"],
               f"config 3 {name}: relres {conv}, Deff {deff}")
+        # one gathered K2 tail cycle per live iteration, plus one for the
+        # fresh start and one for the refresh after each of the K9 windows
+        check(cycles == iters + launched["K9"] + 1,
+              f"config 3 {name}: {cycles} K2 cycles for {iters} live "
+              f"iterations and {launched['K9']} windows")
         if size == C3_SIZE:
             plain = halo.sharded_solve_mgcg(c, s, x0, m, plain=True, **kw)
             p_deff, p_iters = float(plain.deff), int(plain.iters)
@@ -1363,7 +1483,9 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
               f"{iters - u_iters:+d}), first run {t_first:.4f} s, timed "
               f"{', '.join(f'{t:.4f}' for t in times)} s, "
               f"{min(times) / iters * 1e3:.4f} ms/iteration, peak memory "
-              f"{peak / 2**30:.3f} GiB, launches {launched}")
+              f"{peak / 2**30:.3f} GiB, launches {launched}, K2 cycles "
+              f"{cycles} = {iters} live iterations + {launched['K9'] + 1} "
+              f"fresh and refresh")
         t0 = time.perf_counter()
         del res
     del c, s, x0
@@ -1461,9 +1583,9 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
                 def call():
                     xs, rs_, ps = states.pop()
                     fn(cw[0], xs, rs_, ps, rzb, ones, zero, inf, K9_TIME_K,
-                       coarse=lambda rc: fused2d.v_cycle_sharded_fused(
+                       coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
                            hier, cw, rc, level=1, tail=tail, plain=plain,
-                           **MG3), omega=MG3["omega"], nu=MG3["nu"],
+                           live=live, **MG3), omega=MG3["omega"], nu=MG3["nu"],
                        over=MG3["over"])
                 return call
 
@@ -1532,8 +1654,9 @@ def main():
     from effectivediffusivityfvm_tpu_torch.ops.kernels import _build
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
         batch_sum, cg_steps, cg_steps_reference)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import jacobi as k3mod
     from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
-        jacobi_sweeps, jacobi_sweeps_reference)
+        jacobi_resident_fits, jacobi_sweeps, jacobi_sweeps_reference)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
         v_cycle, v_cycle_reference)
     from effectivediffusivityfvm_tpu_torch.pipeline import batch, single
@@ -1592,7 +1715,12 @@ def main():
     rz[7] *= 1e3                                 # overshoots ...
     hi[7] = 2.0 * sr0[7]                         # ... and trips its hi
     state = (x8, r8, p8, rz, active, stop, hi)
+    n0 = lib.deff_launch_count()
+    cg_steps(lv8, *(t.clone() for t in state), 0, **MG)
+    n1 = lib.deff_launch_count()
     got = cg_steps(lv8, *(t.clone() for t in state), 5, **MG)
+    # images 0-4 run all five iterations: launches an iteration
+    k1_per_iter = (lib.deff_launch_count() - n1 - (n1 - n0)) / 5
     ref = cg_steps_reference(lv8, *(t.clone() for t in state), 5, **MG)
     torch.cuda.synchronize()
     kd = got[4].tolist()
@@ -1611,7 +1739,14 @@ def main():
     for g, s in zip(got[:4], state[:4]):
         check(bool(torch.equal(g[5], s[5])), "K1 frozen image changed")
     check(float(got[5][5]) == 0.0, "K1 frozen sum|r_true| != 0")
-    phase(4, t0, f"K1 vs plain: k_done {kd}, max abs err x/r/p {k1_err:.3e}")
+    k1_bit = all(bool(torch.equal(g, e)) for g, e in zip(got[:3], ref[:3]))
+    k1_bpc = k1_bytes_per_cell(lv8, 4, MG["nu"])
+    phase(4, t0, f"K1 vs plain: k_done {kd}, max abs err x/r/p {k1_err:.3e} "
+          f"(bit-equal {k1_bit}), rz max rel err "
+          f"{float(((got[3] - ref[3]) / ref[3]).abs().max()):.3e}; "
+          f"{k1_per_iter:g} launches/iteration; reckoned "
+          f"{k1_bpc[1]:.1f} B/cell an iteration (eight-pass design "
+          f"{k1_bpc[0]:.1f})")
     del c8, lv8, x8, r8, z_k, z_p, p8, got, ref, state
 
     # -- 5: the MGCG slice at B=512 x 512^2
@@ -1713,18 +1848,29 @@ def main():
         7 * item * BATCH * cells[0]
     k1_ops = 6 * k2_ops + BATCH * cells[0] * (22 * 5 + 15)
     k1_bound = bound(k1_bytes, k1_ops, item)
+    k1_bpc = k1_bytes_per_cell(lv, item, MG["nu"])
     phase(6, t0, f"kernel times {card}, B={BATCH} x {SIZE}^2 fp32: "
           f"K2 v_cycle {ms_k2:.3f} ms (plain {ms_k2p:.3f} ms, bound "
           f"{k2_bound[0]:.3f} ms by {k2_bound[1]}, {per_cycle} "
           f"launches/cycle); K1 cg_steps k=5 {ms_k1:.3f} ms (plain "
           f"{ms_k1p:.3f} ms, bound {k1_bound[0]:.3f} ms by {k1_bound[1]}, "
-          f"{per_iter:g} launches/iteration)")
+          f"{per_iter:g} launches/iteration, reckoned {k1_bpc[1]:.1f} "
+          f"B/cell an iteration: {k1_bpc[1] * BATCH * SIZE**2 / 1e9:.2f} GB, "
+          f"{k1_bpc[1] * BATCH * SIZE**2 / HBM_BPS * 1e3:.3f} ms at "
+          f"{HBM_BPS / 1e12:.2f} TB/s; eight-pass design "
+          f"{k1_bpc[0]:.1f} B/cell)")
+    prof_k1 = profile_solve(lambda: k1(cg_steps), PROFILE_GROUPS_K1)
+    prof_slice = profile_solve(
+        lambda: multigrid.solve_mgcg_batched(coeffs, spec, x0, **SOLVE_KW),
+        PROFILE_GROUPS_K1)
+    phase(6, t0, f"profiles {card}: K1 k=5 call: {profile_line(prof_k1)}; "
+          f"one slice solve: {profile_line(prof_slice)}")
     del lv, x, r, p, coeffs, spec, x0
     torch.cuda.empty_cache()
 
-    # -- 7: K3 against its plain version
+    # -- 7: K3 against its plain version, both routes
     t0 = time.perf_counter()
-    k3_err, k3_cases = 0.0, 0
+    k3_err, k3_cases, routes = 0.0, 0, {"resident": 0, "streaming": 0}
     for ny, nx in ((128, 128), (96, 160), (512, 512)):
         k_imgs = bench_images(8, ny, nx, seed=11)
         for dtype in (torch.float32, torch.float64):
@@ -1732,25 +1878,33 @@ def main():
             xk = xk.contiguous()
             act = torch.ones(8, dtype=torch.int32, device=dev)
             act[5] = 0
-            for k in (1, 37):
+            resident = jacobi_resident_fits(ny, nx, xk.element_size())
+            check(resident == (ny < 512), f"K3 route rule at {ny}x{nx}")
+            for k in ((1, 37, 10_000) if ny == 128 else (1, 37)):
                 n0, l0 = jacobi_sweeps.launches, lib.deff_launch_count()
+                r0 = jacobi_sweeps.resident_launches
                 got = jacobi_sweeps(c, xk, k, active=act)
                 torch.cuda.synchronize()
-                check(jacobi_sweeps.launches - n0 == k
-                      and lib.deff_launch_count() - l0 == k,
-                      f"K3 launches {jacobi_sweeps.launches - n0}/"
-                      f"{lib.deff_launch_count() - l0} for k={k}")
+                want = (1, 0) if resident else (0, k)
+                seen = (jacobi_sweeps.resident_launches - r0,
+                        jacobi_sweeps.launches - n0)
+                check(seen == want and lib.deff_launch_count() - l0 == sum(
+                    want), f"K3 {ny}x{nx} k={k} launches (resident, "
+                    f"streaming) {seen}, library "
+                    f"{lib.deff_launch_count() - l0}")
                 ref = jacobi_sweeps_reference(c, xk, k, active=act)
                 err = float((got - ref).abs().max())
-                scale = float(ref.abs().max())
-                check(err <= 1e-6 * scale, f"K3 {ny}x{nx} {dtype} k={k}: "
-                      f"max abs err {err} > 1e-6 * {scale}")
+                check(bool(torch.equal(got, ref)), f"K3 {ny}x{nx} {dtype} "
+                      f"k={k}: max abs err {err} (must be bit-equal)")
                 check(bool(torch.equal(got[5], xk[5])),
                       "K3 frozen image changed")
                 k3_err = max(k3_err, err)
                 k3_cases += 1
-    phase(7, t0, f"K3 vs plain: {k3_cases} cases (128^2, 96x160, 512^2; "
-          f"fp32/fp64; k=1/37; image 5 frozen), max abs err {k3_err:.3e}")
+                routes["resident" if resident else "streaming"] += 1
+    phase(7, t0, f"K3 vs plain: {k3_cases} cases (128^2 k=1/37/10000 and "
+          f"96x160 k=1/37 on the resident route, one launch a call; 512^2 "
+          f"k=1/37 streaming; fp32/fp64; image 5 frozen; cases by route "
+          f"{routes}), max abs err {k3_err:.3e}, all bit-equal")
 
     # -- 8: the CLI batch path at full size on K3
     t0 = time.perf_counter()
@@ -1775,13 +1929,14 @@ def main():
     batch.solve_image_group = observed       # to read each image's sweeps
     try:
         torch.cuda.synchronize()
-        jacobi_sweeps.launches = 0
+        jacobi_sweeps.launches = jacobi_sweeps.resident_launches = 0
         v_cycle.launches = cg_steps.launches = 0
         t1 = time.perf_counter()
         table = batch.batch_sim(cfg, imgs=list(jimgs), device="cuda")
         torch.cuda.synchronize()
         wall8 = time.perf_counter() - t1
-        k3_launches = jacobi_sweeps.launches
+        k3_routes = (jacobi_sweeps.resident_launches, jacobi_sweeps.launches)
+        k3_launches = sum(k3_routes)
         check(v_cycle.launches == 0 and cg_steps.launches == 0,
               "the jacobi_pallas path launched K1/K2")
     finally:
@@ -1800,13 +1955,15 @@ def main():
     check(bool(np.all(np.isfinite(j_deff)) and np.all(j_deff > 0)
                and np.all(j_deff <= 1)),
           f"Deff out of (0, 1]: {j_deff.min()}..{j_deff.max()}")
-    check(k3_launches > 0, "K3 was not launched")
+    check(k3_routes[0] > 0 and k3_routes[1] == 0,
+          f"K3 launches (resident, streaming) {k3_routes}")
     phase(8, t0, f"CLI batch {card}: {JAC_BATCH} x {JAC_SIZE}^2 fp32 "
           f"jacobi_pallas, {int(done.sum())} converged, "
           f"{int(np.sum(sweeps == JAC_MAX))} at MaxIter, sweeps "
           f"{sweeps.min()}..{sweeps.max()}, Deff {j_deff.min():.5f}.."
           f"{j_deff.max():.5f}, solve {solve8:.3f} s, host and set-up "
-          f"{wall8 - solve8:.3f} s, K3 launches {k3_launches}")
+          f"{wall8 - solve8:.3f} s, K3 launches {k3_launches} (resident "
+          f"{k3_routes[0]}, streaming {k3_routes[1]})")
 
     t0 = time.perf_counter()
     c, s, xk = build_problem(jimgs[:8], dev)
@@ -1830,15 +1987,21 @@ def main():
     cfg1 = SimulationConfig(n_phase=2, d_fluid=1.0, d_solid=1e-6,
                             dtype="float64", solver="jacobi_pallas",
                             convergence=JAC_TOL, max_iter=JAC_MAX)
+    jacobi_sweeps.launches = jacobi_sweeps.resident_launches = 0
     r1 = single.single_sim(cfg1, img=jimgs[0], write_output=False,
                            device="cuda")
+    torch.cuda.synchronize()
+    k3_c1 = (jacobi_sweeps.resident_launches, jacobi_sweeps.launches)
+    check(k3_c1[0] > 0 and k3_c1[1] == 0,
+          f"config 1 K3 launches (resident, streaming) {k3_c1}")
     check(np.isfinite(r1.deff) and 0 < r1.deff <= 1, f"Deff {r1.deff}")
     check(abs(r1.conv) <= JAC_TOL or r1.iters == JAC_MAX,
           f"conv {r1.conv} after {r1.iters} sweeps")
     phase(9, t0, f"BASELINE config 1 {card}: 128^2 fp64 jacobi_pallas, "
           f"Deff {r1.deff:.6f}, conv {r1.conv:.3e}, {r1.iters} sweeps, "
           f"solve {r1.time_s:.3f} s, porosity {r1.porosity:.4f}, PathFlag "
-          f"{int(r1.path_flag)}")
+          f"{int(r1.path_flag)}, K3 launches {sum(k3_c1)} (resident "
+          f"{k3_c1[0]}, streaming {k3_c1[1]})")
 
     t0 = time.perf_counter()
     capped = {}
@@ -1913,27 +2076,51 @@ def main():
           f"(median {np.median(rel10):.3e}), solve "
           f"{table10[:, 4].sum():.3f} s, launches {mg_launches}")
 
-    # -- 11: K3 times (CUDA events), K3_TIME_K sweeps a call
+    # -- 11: K3 times (CUDA events), K3_TIME_K sweeps a call, the resident
+    # and the streaming route in turns (resident, streaming, streaming,
+    # resident), at the CLI batch's and config 1's shapes
     t0 = time.perf_counter()
     k3_times = {}
     for n_img, dtype in ((JAC_BATCH, torch.float32), (1, torch.float64)):
         label = f"B={n_img}x{JAC_SIZE}^2 {str(dtype)[-7:]}"
         c, _, xk = build_problem(jimgs[:n_img], dev, dtype)
         xk = xk.contiguous()
-        ms = cuda_ms(lambda: jacobi_sweeps(c, xk, K3_TIME_K), 3)
+        w = 2.0 / 3.0
+
+        def res_call():
+            return k3mod._resident(c, xk, K3_TIME_K, w, None)
+
+        def str_call():
+            return k3mod._streaming(c, xk, K3_TIME_K, w, None)
+
+        check(bool(torch.equal(res_call(), str_call())),
+              f"K3 {label}: the routes differ")
+        turns = [cuda_ms(f, 3) for f in (res_call, str_call, str_call,
+                                         res_call)]
         ms_p = cuda_ms(lambda: jacobi_sweeps_reference(c, xk, K3_TIME_K), 1)
         item = xk.element_size()
         cells = xk.numel()
         # reads a_w, a_n, diag_inv, b and x once, writes the result once;
         # 12 operations a cell a sweep (4 products and 4 sums for num,
         # then 3 products and 1 sum)
-        k3_times[label] = (ms, ms_p, bound(6 * item * cells,
-                                           12 * cells * K3_TIME_K, item))
-    phase(11, t0, f"K3 times {card}: " + "; ".join(
-        f"{lb} {ms / K3_TIME_K * 1e3:.2f} us/sweep (plain "
-        f"{mp / K3_TIME_K * 1e3:.2f} us/sweep; a {K3_TIME_K}-sweep call "
-        f"{ms:.3f} ms vs bound {bd[0]:.3f} ms by {bd[1]})"
-        for lb, (ms, mp, bd) in k3_times.items()))
+        k3_times[label] = (min(turns[0], turns[3]), min(turns[1], turns[2]),
+                           ms_p, turns, bound(6 * item * cells,
+                                              12 * cells * K3_TIME_K, item))
+    prof_c1 = profile_solve(lambda: single.single_sim(
+        cfg1, img=jimgs[0], write_output=False, device="cuda"),
+        PROFILE_GROUPS_K3)
+    csv.unlink(missing_ok=True)
+    prof_batch = profile_solve(lambda: batch.batch_sim(
+        cfg, imgs=list(jimgs), device="cuda"), PROFILE_GROUPS_K3)
+    phase(11, t0, f"profiles {card}: config 1: {profile_line(prof_c1)}; "
+          f"the CLI batch: {profile_line(prof_batch)}")
+    t0 = time.perf_counter()
+    phase(11, t0, f"K3 times {card}, {K3_TIME_K} sweeps a call: " + "; ".join(
+        f"{lb} resident {mr / K3_TIME_K * 1e3:.3f} us/sweep, streaming "
+        f"{ms / K3_TIME_K * 1e3:.3f} us/sweep (turns "
+        f"{', '.join(f'{t:.3f}' for t in tr)} ms), plain "
+        f"{mp / K3_TIME_K * 1e3:.2f} us/sweep; bound {bd[0]:.3f} ms a call "
+        f"by {bd[1]}" for lb, (mr, ms, mp, tr, bd) in k3_times.items()))
     del c, xk
     torch.cuda.empty_cache()
     c3_ref, tiled_rows = large_grid_phases(dev, card, lib)
@@ -1944,9 +2131,9 @@ def main():
                                   imgs[:64], inp10.read_text(), table10)
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
-    k3_ms, k3_ms_p, k3_bound = next(iter(k3_times.values()))
+    k3_ms, _, k3_ms_p, _, k3_bound = next(iter(k3_times.values()))
     kernels = [
-        {"name": "cg_steps", "route": "cuda",
+        {"name": "cg_steps_three_pass", "route": "cuda",
          "source": "effectivediffusivityfvm_tpu_torch/csrc/cgstep.cu",
          "replaces": "effectivediffusivityfvm_tpu/ops/kernels/cgstep_vmem.py:166",
          "launches": launches["cg_steps"], "max_abs_err": k1_err,
@@ -1958,7 +2145,7 @@ def main():
          "launches": launches["v_cycle"], "max_abs_err": k2_err,
          "ms": ms_k2, "plain_ms": ms_k2p, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1], "library_ms": None},
-        {"name": "jacobi_sweeps", "route": "cuda",
+        {"name": "jacobi_sweeps_resident", "route": "cuda",
          "source": "effectivediffusivityfvm_tpu_torch/csrc/jacobi.cu",
          "replaces": "effectivediffusivityfvm_tpu/ops/kernels/jacobi_vmem.py:72",
          "launches": k3_launches, "max_abs_err": k3_err,

@@ -6,34 +6,142 @@
 // (cg_steps_pallas(refresh=True) / _kernel).  The TPU kernel kept one
 // image's CG state and pyramid resident in VMEM for a whole window; on
 // Hopper an image's state (~14 MiB at 512^2 fp32) does not fit an SM, so
-// each CG step is a batch-wide pass with blockIdx = (tile of cells, image).
+// each step is a batch-wide pass over 64x16 tiles (blockIdx = (tile,
+// image)), every tile staged in shared memory with a halo by cp.async.
 //
-// What bounds it on an H100: memory bandwidth.  Per iteration, outside the
-// V-cycle (vcycle.cuh): q = A p reads p, a_w, a_n, diag_inv and writes q
-// (20 B/cell fp32); the x/r update reads x, r, p, q and writes x, r
-// (24 B/cell); <r,z> and sum|r| read r, z (8 B/cell); p = z + beta p
-// (12 B/cell).  The reductions ride inside those passes: every block writes
-// one partial per image, and a one-block-per-image finalize kernel sums the
-// partials in a fixed order (no float atomics, so iteration counts do not
-// change from run to run) and computes alpha, beta, rz and the image's
-// live flag on the device.  Products are formed in T, but dot products and
-// sum|r| accumulate in double and are rounded to T once: over 262k cells an
-// fp32 sum carries ~1e-5 relative error whose order-dependence CG amplifies
-// from iteration to iteration, while the double sum rounds to the same T
-// value as any other accurate summation (the plain version sums in double
-// too).  The cost is register and shared-memory width only; the passes stay
-// bandwidth-bound.
+// What bounds it on an H100: memory bandwidth, so the design is about the
+// bytes a cell crosses HBM with per iteration.  Level 0's CG updates are
+// fused with the cycle's level-0 work into three tile passes:
+//   P  p = z + beta p_old, recomputed on the tile and a 1-cell halo; q = A p
+//      and partials of <p, q>.  Reads z, p_old, a_w, a_n, diag_inv; writes
+//      p, q (28 B/cell fp32).
+//   X  after alpha: x += alpha p; r_new = r - alpha q on the tile and a
+//      2-cell halo; the two pre-sweeps e (pre_first's form: e0 = w0 dinv r
+//      recomputed where the second sweep reads it) on the tile and a 1-cell
+//      halo; the residual r_new - A e and its 2x2 restriction.  Reads x, p,
+//      r, q, a_w, a_n, diag_inv; writes x, r_new, e and the quarter plane
+//      (41 B/cell).
+//   .  the cycle's levels >= 1 (vcycle.cuh, cycle_from(l0 = 1), shared with
+//      K2) on the restricted residual.
+//   Z  the first post-sweep with the prolongation e + over P e_c recomputed
+//      on the tile and a 1-cell halo, the second sweep on the tile, then z
+//      and partials of <r, z> and sum|r|.  Reads e, e_c, r, a_w, a_n,
+//      diag_inv; writes z (25 B/cell).
+// That is 94 B/cell at level 0 an iteration (the eight passes this
+// replaces moved 154), plus the coarse levels' ~30.  V(1,1) fuses the same
+// way with one sweep each side; for nu > 2 the passes do the first two
+// pre-sweeps and the last two post-sweeps, and K2's smooth, residual-
+// restriction and prolongation kernels do the rest.  A one-level hierarchy
+// runs pass X's updates, K2's whole cycle and pass Z's dot products.
+//
+// The arithmetic is K2's (vcycle_vmem's form: w dinv folded, the diagonal
+// rebuilt as 1/diag_inv) and the plain version's, operation for operation
+// and with FMA contraction off, so x, r and p equal the plain version's
+// wherever the double sums round to the same T.
+//
+// Reductions: products are formed in T, accumulated in double over a tile
+// in a fixed order, one partial per tile and image; a one-block-per-image
+// finalize kernel sums an image's partials in a fixed order (no float
+// atomics, so iteration counts do not change from run to run) and computes
+// alpha, beta, rz and the image's live flag on the device.
 //
 // Per-image control: `live` is i < k && stop < sum|r| < hi, recomputed on
 // the device after every iteration; every pass of an image whose flag is 0
 // returns at once, so an image that exited early, or a frozen one
-// (active <= 0), moves no data.  The p update is gated on the flag as it
-// was at the start of the iteration (`pflag`), since the finalize kernel
-// that computes beta also retires the image.
+// (active <= 0), moves no data.  p and r ping-pong between the caller's
+// planes and scratch planes (a tile's halo must read the old values), and
+// the refresh writes the caller's r and p for every active image.
 #include "vcycle.cuh"
 
 namespace deff {
 namespace {
+
+constexpr int TX = 64;   // tile columns
+constexpr int TY = 16;   // tile rows
+static_assert(TX * TY == THREADS * 4, "four tile cells a thread");
+static_assert((TX / 2) * (TY / 2) == THREADS, "one coarse cell a thread");
+
+// A tile with an h-cell halo, as a (TY + 2h) x (TX + 2h) array.
+template <int H>
+struct Reg {
+  static constexpr int W = TX + 2 * H;
+  static constexpr int N = W * (TY + 2 * H);
+};
+constexpr int CW = TX / 2 + 2;           // coarse region of a tile: one
+constexpr int CN = CW * (TY / 2 + 2);    // coarse cell around it
+
+// The origin of the tile of blockIdx.x (tiles in row-major order).
+struct TileAt {
+  int i0, j0;
+  __device__ TileAt(int nx) {
+    const int ntx = (nx + TX - 1) / TX;
+    const int t = blockIdx.x;
+    i0 = (t / ntx) * TY;
+    j0 = (t - (t / ntx) * ntx) * TX;
+  }
+};
+
+inline int tiles_for(int ny, int nx) {
+  return ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
+}
+
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool ok) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = ok ? (int)sizeof(T) : 0;     // 0 bytes read: zero-fill
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa),
+                 "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(sa),
+                 "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Stage an image plane's tile with an H-cell halo; cells beyond the grid
+// read as 0.
+template <int H, typename T>
+__device__ __forceinline__ void stage(T* dst, const T* img, int i0, int j0,
+                                      int ny, int nx) {
+  for (int e = threadIdx.x; e < Reg<H>::N; e += THREADS) {
+    const int li = e / Reg<H>::W, lj = e - li * Reg<H>::W;
+    const int gi = i0 - H + li, gj = j0 - H + lj;
+    const bool ok = gi >= 0 && gi < ny && gj >= 0 && gj < nx;
+    cp_async(dst + e, ok ? img + (size_t)gi * nx + gj : img, ok);
+  }
+}
+
+// nbsum (vcycle.cuh) on staged arrays of row width W: the same terms in the
+// same order, with the grid bounds taken from the global index.
+template <typename T, typename V>
+__device__ __forceinline__ T nbsum_s(const T* aw, const T* an, V v, int e,
+                                     int W, int gi, int gj, int ny, int nx) {
+  T s = (gj > 0) ? aw[e] * v(e - 1) : T(0);
+  if (gj + 1 < nx) s = s + aw[e + 1] * v(e + 1);
+  if (gi > 0) s = s + an[e] * v(e - W);
+  if (gi + 1 < ny) s = s + an[e + W] * v(e + W);
+  return s;
+}
+
+// Run f(e, gi, gj) on every in-grid cell of the tile grown by h (h <= H)
+// inside an H-halo array (both compile-time, so the index division is by
+// a constant).
+template <int H, int h, typename F>
+__device__ __forceinline__ void for_cells(int i0, int j0, int ny, int nx,
+                                          F f) {
+  static_assert(0 <= h && h <= H, "a ring inside the staged halo");
+  constexpr int w = TX + 2 * h, n = w * (TY + 2 * h);
+  for (int c = threadIdx.x; c < n; c += THREADS) {
+    const int a = c / w, bcol = c - a * w;
+    const int gi = i0 - h + a, gj = j0 - h + bcol;
+    if (gi < 0 || gi >= ny || gj < 0 || gj >= nx) continue;
+    f((a + H - h) * Reg<H>::W + (bcol + H - h), gi, gj);
+  }
+}
 
 __device__ double block_sum(double v, double* sh) {
   sh[threadIdx.x] = v;
@@ -47,10 +155,10 @@ __device__ double block_sum(double v, double* sh) {
   return out;
 }
 
-// Fixed-order sum of one image's per-block partials.
-__device__ double sum_parts(const double* part, int nblk, double* sh) {
+// Fixed-order sum of one image's per-tile partials.
+__device__ double sum_parts(const double* part, int nt, double* sh) {
   double acc = 0.0;
-  for (int j = threadIdx.x; j < nblk; j += THREADS) acc += part[j];
+  for (int j = threadIdx.x; j < nt; j += THREADS) acc += part[j];
   return block_sum(acc, sh);
 }
 
@@ -62,93 +170,209 @@ __global__ void set_act_kernel(const T* active, int* act, int* it, int B) {
   it[b] = 0;
 }
 
-// q = A p (diag rebuilt as 1/diag_inv) and per-block partials of <p, q>.
-template <typename T>
-__global__ void matvec_dot_kernel(Level<T> lv, const T* __restrict__ p,
-                                  T* __restrict__ q, double* part, int nblk,
-                                  const int* flag) {
+// ---- pass P: MODE 0 q = A p (p as given, the window's first iteration);
+// MODE 1 p = z + beta p_old, q = A p; both write partials of <p, q>.
+// MODE 2 (the refresh): out = b - A x.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(THREADS)
+pass_p_kernel(Level<T> lv, const T* __restrict__ v_in,
+              const T* __restrict__ z, const T* __restrict__ b,
+              const T* __restrict__ beta, T* __restrict__ p_out,
+              T* __restrict__ q, double* part, int ntiles, const int* flag) {
   __shared__ double sh[THREADS];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   if (gated_off(flag)) return;
-  const int n = lv.ny * lv.nx;
-  const size_t off = (size_t)blockIdx.y * n;
-  const T* aw = lv.aw + off;
-  const T* an = lv.an + off;
-  const T* di = lv.dinv + off;
-  const T* pb = p + off;
-  auto v = [&](int cc) { return pb[cc]; };
+  using RG = Reg<1>;
+  T* vs = reinterpret_cast<T*>(smem_raw);
+  T* aws = vs + RG::N;
+  T* ans = aws + RG::N;
+  T* dis = ans + RG::N;
+  T* zs = dis + RG::N;                   // MODE 1 only
+  const int ny = lv.ny, nx = lv.nx;
+  const size_t off = (size_t)blockIdx.y * ny * nx;
+  const TileAt t(nx);
+  stage<1>(vs, v_in + off, t.i0, t.j0, ny, nx);
+  stage<1>(aws, lv.aw + off, t.i0, t.j0, ny, nx);
+  stage<1>(ans, lv.an + off, t.i0, t.j0, ny, nx);
+  stage<1>(dis, lv.dinv + off, t.i0, t.j0, ny, nx);
+  if (MODE == 1) stage<1>(zs, z + off, t.i0, t.j0, ny, nx);
+  cp_async_wait();
+  if (MODE == 1) {
+    const T bt = beta[blockIdx.y];
+    for (int e = threadIdx.x; e < RG::N; e += THREADS)
+      vs[e] = zs[e] + bt * vs[e];
+    __syncthreads();
+  }
+  auto v = [&](int e) { return vs[e]; };
   double acc = 0.0;
-  for (int k = 0; k < CPT; ++k) {
-    const int c = blockIdx.x * TILE + k * THREADS + threadIdx.x;
-    if (c >= n) break;
-    const int i = c / lv.nx, j = c - i * lv.nx;
-    const T qc = diag_of(di[c]) * pb[c] - nbsum(aw, an, v, c, i, j, lv.ny, lv.nx);
-    q[off + c] = qc;
-    const T prod = pb[c] * qc;
-    acc += (double)prod;
-  }
+  for_cells<1, 0>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
+    const size_t c = off + (size_t)gi * nx + gj;
+    const T av = diag_of(dis[e]) * vs[e] -
+                 nbsum_s(aws, ans, v, e, RG::W, gi, gj, ny, nx);
+    if (MODE == 2) {
+      p_out[c] = b[c] - av;
+    } else {
+      q[c] = av;
+      if (MODE == 1) p_out[c] = vs[e];
+      const T prod = vs[e] * av;
+      acc += (double)prod;
+    }
+  });
+  if (MODE == 2) return;
   const double s = block_sum(acc, sh);
-  if (threadIdx.x == 0) part[(size_t)blockIdx.y * nblk + blockIdx.x] = s;
+  if (threadIdx.x == 0) part[(size_t)blockIdx.y * ntiles + blockIdx.x] = s;
 }
 
-// r = b - A x.
-template <typename T>
-__global__ void resid_kernel(Level<T> lv, const T* __restrict__ rhs,
-                             const T* __restrict__ x, T* __restrict__ r,
-                             const int* flag) {
+// ---- pass X: x += alpha p, r_new = r - alpha q, then SWEEPS (0, 1 or 2)
+// pre-sweeps into e and, if RESTRICT, the residual r_new - A e restricted
+// 2x2 into rc (level 1, nyc x nxc).
+template <int SWEEPS, bool RESTRICT>
+struct XHalo {
+  static constexpr int H =
+      SWEEPS + (RESTRICT ? 1 : 0) - 1 > 0 ? SWEEPS + (RESTRICT ? 1 : 0) - 1
+                                          : 0;
+};
+
+template <typename T, int SWEEPS, bool RESTRICT>
+__global__ void __launch_bounds__(THREADS)
+pass_x_kernel(Level<T> lv, int nyc, int nxc, T* __restrict__ x,
+              const T* __restrict__ p, const T* __restrict__ r,
+              const T* __restrict__ q, T* __restrict__ r_new,
+              T* __restrict__ e_out, T* __restrict__ rc,
+              const T* __restrict__ alpha, T w0, T w1, T omw1,
+              const int* flag) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   if (gated_off(flag)) return;
-  const int n = lv.ny * lv.nx;
-  const size_t off = (size_t)blockIdx.y * n;
-  const T* aw = lv.aw + off;
-  const T* an = lv.an + off;
-  const T* di = lv.dinv + off;
-  const T* xb = x + off;
-  auto v = [&](int cc) { return xb[cc]; };
-  for (int k = 0; k < CPT; ++k) {
-    const int c = blockIdx.x * TILE + k * THREADS + threadIdx.x;
-    if (c >= n) break;
-    const int i = c / lv.nx, j = c - i * lv.nx;
-    r[off + c] = rhs[off + c] -
-        (diag_of(di[c]) * xb[c] - nbsum(aw, an, v, c, i, j, lv.ny, lv.nx));
+  constexpr int H = XHalo<SWEEPS, RESTRICT>::H;
+  using RG = Reg<H>;
+  T* rs = reinterpret_cast<T*>(smem_raw);
+  T* qs = rs + RG::N;
+  T* aws = qs + RG::N;
+  T* ans = aws + RG::N;
+  T* dis = ans + RG::N;
+  T* e1 = dis + RG::N;                   // SWEEPS == 2 only
+  const int ny = lv.ny, nx = lv.nx;
+  const size_t off = (size_t)blockIdx.y * ny * nx;
+  const TileAt t(nx);
+  stage<H>(rs, r + off, t.i0, t.j0, ny, nx);
+  stage<H>(qs, q + off, t.i0, t.j0, ny, nx);
+  if (SWEEPS > 0 || RESTRICT) {
+    stage<H>(aws, lv.aw + off, t.i0, t.j0, ny, nx);
+    stage<H>(ans, lv.an + off, t.i0, t.j0, ny, nx);
+    stage<H>(dis, lv.dinv + off, t.i0, t.j0, ny, nx);
   }
-}
-
-// x += alpha p, r -= alpha q.
-template <typename T>
-__global__ void axpy_kernel(T* __restrict__ x, T* __restrict__ r,
-                            const T* __restrict__ p, const T* __restrict__ q,
-                            const T* alpha, int n, const int* flag) {
-  if (gated_off(flag)) return;
-  const size_t off = (size_t)blockIdx.y * n;
+  cp_async_wait();
   const T a = alpha[blockIdx.y];
-  for (int k = 0; k < CPT; ++k) {
-    const int c = blockIdx.x * TILE + k * THREADS + threadIdx.x;
-    if (c >= n) break;
-    x[off + c] = x[off + c] + a * p[off + c];
-    r[off + c] = r[off + c] - a * q[off + c];
+  for (int e = threadIdx.x; e < RG::N; e += THREADS) rs[e] = rs[e] - a * qs[e];
+  __syncthreads();
+  auto e0 = [&](int e) { return (w0 * dis[e]) * rs[e]; };
+  if constexpr (SWEEPS == 2) {
+    for_cells<H, H - 1>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
+      const T nb = nbsum_s(aws, ans, e0, e, RG::W, gi, gj, ny, nx);
+      e1[e] = omw1 * e0(e) + (rs[e] + nb) * (w1 * dis[e]);
+    });
+    __syncthreads();
   }
+  auto ev = [&](int e) { return SWEEPS == 2 ? e1[e] : e0(e); };
+  for_cells<H, 0>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
+    const size_t c = off + (size_t)gi * nx + gj;
+    x[c] = x[c] + a * p[c];
+    r_new[c] = rs[e];
+    if (SWEEPS > 0) e_out[c] = ev(e);
+  });
+  if (!RESTRICT) return;
+  const int I = t.i0 / 2 + threadIdx.x / (TX / 2);
+  const int J = t.j0 / 2 + threadIdx.x % (TX / 2);
+  if (2 * I >= ny || 2 * J >= nx) return;  // beyond the grid: stays 0
+  auto res = [&](int gi, int gj) {
+    const int e = (gi - t.i0 + H) * RG::W + (gj - t.j0 + H);
+    return rs[e] - (diag_of(dis[e]) * ev(e) -
+                    nbsum_s(aws, ans, ev, e, RG::W, gi, gj, ny, nx));
+  };
+  const int i = 2 * I, j = 2 * J;
+  rc[(size_t)blockIdx.y * nyc * nxc + (size_t)I * nxc + J] =
+      (res(i, j) + res(i + 1, j)) + (res(i, j + 1) + res(i + 1, j + 1));
 }
 
-// Per-block partials of <r, z> (skipped when z is null) and sum|r|.
-template <typename T>
-__global__ void dots_kernel(const T* __restrict__ r, const T* __restrict__ z,
-                            double* part_rz, double* part_abs, int n,
-                            int nblk, const int* flag) {
+// ---- pass Z: src = e (+ over P e_c if PROLONG); SWEEPS (0, 1 or 2) post-
+// sweeps with weights wa then wb give z (SWEEPS == 0: z = src, not
+// written); partials of <r, z> (if part_rz) and sum|r|.
+template <typename T, bool PROLONG, int SWEEPS>
+__global__ void __launch_bounds__(THREADS)
+pass_z_kernel(Level<T> lv, int nyc, int nxc, const T* __restrict__ es,
+              const T* __restrict__ ec, T over, const T* __restrict__ r,
+              T* __restrict__ z, T wa, T omwa, T wb, T omwb, double* part_rz,
+              double* part_abs, int ntiles, const int* flag) {
   __shared__ double sh[THREADS];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   if (gated_off(flag)) return;
-  const size_t off = (size_t)blockIdx.y * n;
+  constexpr int H = SWEEPS;
+  using RG = Reg<H>;
+  T* ss = reinterpret_cast<T*>(smem_raw);
+  T* rs = ss + RG::N;
+  T* aws = rs + RG::N;
+  T* ans = aws + RG::N;
+  T* dis = ans + RG::N;
+  T* s1 = dis + RG::N;                   // SWEEPS == 2
+  T* ecs = s1 + (SWEEPS == 2 ? RG::N : 0);  // PROLONG
+  const int ny = lv.ny, nx = lv.nx;
+  const size_t off = (size_t)blockIdx.y * ny * nx;
+  const TileAt t(nx);
+  const int ci0 = t.i0 / 2 - 1, cj0 = t.j0 / 2 - 1;
+  stage<H>(ss, es + off, t.i0, t.j0, ny, nx);
+  stage<H>(rs, r + off, t.i0, t.j0, ny, nx);
+  if (SWEEPS > 0) {
+    stage<H>(aws, lv.aw + off, t.i0, t.j0, ny, nx);
+    stage<H>(ans, lv.an + off, t.i0, t.j0, ny, nx);
+    stage<H>(dis, lv.dinv + off, t.i0, t.j0, ny, nx);
+  }
+  if (PROLONG) {
+    const T* cb = ec + (size_t)blockIdx.y * nyc * nxc;
+    for (int e = threadIdx.x; e < CN; e += THREADS) {
+      const int a = e / CW, bcol = e - a * CW;
+      const int I = ci0 + a, J = cj0 + bcol;
+      const bool ok = I >= 0 && I < nyc && J >= 0 && J < nxc;
+      cp_async(ecs + e, ok ? cb + (size_t)I * nxc + J : cb, ok);
+    }
+  }
+  cp_async_wait();
+  if constexpr (PROLONG) {
+    for_cells<H, H>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
+      ss[e] = ss[e] + over * ecs[((gi >> 1) - ci0) * CW + ((gj >> 1) - cj0)];
+    });
+    __syncthreads();
+  }
+  auto sv = [&](int e) { return ss[e]; };
+  auto s1v = [&](int e) { return s1[e]; };
+  if constexpr (SWEEPS == 2) {
+    for_cells<H, 1>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
+      const T nb = nbsum_s(aws, ans, sv, e, RG::W, gi, gj, ny, nx);
+      s1[e] = omwa * ss[e] + (rs[e] + nb) * (wa * dis[e]);
+    });
+    __syncthreads();
+  }
   double arz = 0.0, aab = 0.0;
-  for (int k = 0; k < CPT; ++k) {
-    const int c = blockIdx.x * TILE + k * THREADS + threadIdx.x;
-    if (c >= n) break;
-    const T rc = r[off + c];
-    if (z != nullptr) {
-      const T prod = rc * z[off + c];
+  for_cells<H, 0>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
+    T zc;
+    if (SWEEPS == 2) {
+      const T nb = nbsum_s(aws, ans, s1v, e, RG::W, gi, gj, ny, nx);
+      zc = omwb * s1[e] + (rs[e] + nb) * (wb * dis[e]);
+    } else if (SWEEPS == 1) {
+      const T nb = nbsum_s(aws, ans, sv, e, RG::W, gi, gj, ny, nx);
+      zc = omwa * ss[e] + (rs[e] + nb) * (wa * dis[e]);
+    } else {
+      zc = ss[e];
+    }
+    if (SWEEPS > 0) z[off + (size_t)gi * nx + gj] = zc;
+    const T rv = rs[e];
+    if (part_rz != nullptr) {
+      const T prod = rv * zc;
       arz += (double)prod;
     }
-    aab += (double)(rc < T(0) ? -rc : rc);
-  }
-  const size_t slot = (size_t)blockIdx.y * nblk + blockIdx.x;
-  if (z != nullptr) {
+    aab += (double)(rv < T(0) ? -rv : rv);
+  });
+  const size_t slot = (size_t)blockIdx.y * ntiles + blockIdx.x;
+  if (part_rz != nullptr) {
     const double s = block_sum(arz, sh);
     if (threadIdx.x == 0) part_rz[slot] = s;
   }
@@ -156,24 +380,10 @@ __global__ void dots_kernel(const T* __restrict__ r, const T* __restrict__ z,
   if (threadIdx.x == 0) part_abs[slot] = s;
 }
 
-// p = z + beta p.
-template <typename T>
-__global__ void pupdate_kernel(T* __restrict__ p, const T* __restrict__ z,
-                               const T* beta, int n, const int* flag) {
-  if (gated_off(flag)) return;
-  const size_t off = (size_t)blockIdx.y * n;
-  const T bt = beta[blockIdx.y];
-  for (int k = 0; k < CPT; ++k) {
-    const int c = blockIdx.x * TILE + k * THREADS + threadIdx.x;
-    if (c >= n) break;
-    p[off + c] = z[off + c] + bt * p[off + c];
-  }
-}
-
 // ---- per-image finalize kernels: grid (1, B), one block per image ----
 
 template <typename T>
-__global__ void fin_init_kernel(const double* part_abs, int nblk,
+__global__ void fin_init_kernel(const double* part_abs, int nt,
                                 const int* act, int* live, const T* stop,
                                 const T* hi, int k) {
   __shared__ double sh[THREADS];
@@ -182,33 +392,29 @@ __global__ void fin_init_kernel(const double* part_abs, int nblk,
     if (threadIdx.x == 0) live[b] = 0;
     return;
   }
-  const T sr = (T)sum_parts(part_abs + (size_t)b * nblk, nblk, sh);
+  const T sr = (T)sum_parts(part_abs + (size_t)b * nt, nt, sh);
   if (threadIdx.x == 0) live[b] = (0 < k && sr > stop[b] && sr < hi[b]);
 }
 
 template <typename T>
-__global__ void fin_alpha_kernel(const double* part, int nblk, const T* rz,
+__global__ void fin_alpha_kernel(const double* part, int nt, const T* rz,
                                  T* alpha, const int* live) {
   __shared__ double sh[THREADS];
   const int b = blockIdx.y;
   if (!live[b]) return;
-  const T pap = (T)sum_parts(part + (size_t)b * nblk, nblk, sh);
+  const T pap = (T)sum_parts(part + (size_t)b * nt, nt, sh);
   if (threadIdx.x == 0) alpha[b] = pap > T(0) ? rz[b] / pap : T(0);
 }
 
 template <typename T>
 __global__ void fin_beta_kernel(const double* part_rz, const double* part_abs,
-                                int nblk, T* rz, T* beta, int* it, int* live,
-                                int* pflag, const T* stop, const T* hi,
-                                int k) {
+                                int nt, T* rz, T* beta, int* it, int* live,
+                                const T* stop, const T* hi, int k) {
   __shared__ double sh[THREADS];
   const int b = blockIdx.y;
-  if (!live[b]) {
-    if (threadIdx.x == 0) pflag[b] = 0;
-    return;
-  }
-  const T rzn = (T)sum_parts(part_rz + (size_t)b * nblk, nblk, sh);
-  const T sr = (T)sum_parts(part_abs + (size_t)b * nblk, nblk, sh);
+  if (!live[b]) return;
+  const T rzn = (T)sum_parts(part_rz + (size_t)b * nt, nt, sh);
+  const T sr = (T)sum_parts(part_abs + (size_t)b * nt, nt, sh);
   if (threadIdx.x == 0) {
     const T rzo = rz[b];
     beta[b] = rzo > T(0) ? rzn / rzo : T(0);
@@ -216,13 +422,12 @@ __global__ void fin_beta_kernel(const double* part_rz, const double* part_abs,
     const int i = it[b] + 1;
     it[b] = i;
     live[b] = (i < k && sr > stop[b] && sr < hi[b]);
-    pflag[b] = 1;
   }
 }
 
 template <typename T>
 __global__ void fin_refresh_kernel(const double* part_rz,
-                                   const double* part_abs, int nblk,
+                                   const double* part_abs, int nt,
                                    const int* act, const int* it, T* rz,
                                    T* sr_true, int* k_done) {
   __shared__ double sh[THREADS];
@@ -231,8 +436,8 @@ __global__ void fin_refresh_kernel(const double* part_rz,
     if (threadIdx.x == 0) { sr_true[b] = T(0); k_done[b] = 0; }
     return;
   }
-  const T rzv = (T)sum_parts(part_rz + (size_t)b * nblk, nblk, sh);
-  const T sr = (T)sum_parts(part_abs + (size_t)b * nblk, nblk, sh);
+  const T rzv = (T)sum_parts(part_rz + (size_t)b * nt, nt, sh);
+  const T sr = (T)sum_parts(part_abs + (size_t)b * nt, nt, sh);
   if (threadIdx.x == 0) {
     rz[b] = rzv;
     sr_true[b] = sr;
@@ -240,15 +445,102 @@ __global__ void fin_refresh_kernel(const double* part_rz,
   }
 }
 
-// Scratch per image in elements of `elem_bytes` (4 or 8): the double
-// partials of <.,.> and sum|r| first (8-byte aligned at the start), then
-// q, z, the cycle's scratch, alpha and beta.
+// Dynamic shared memory of each tile pass, in elements.
+template <int MODE>
+constexpr int p_smem() { return (MODE == 1 ? 5 : 4) * Reg<1>::N; }
+template <int SWEEPS, bool RESTRICT>
+constexpr int x_smem() {
+  return (SWEEPS == 2 ? 6 : 5) * Reg<XHalo<SWEEPS, RESTRICT>::H>::N;
+}
+template <bool PROLONG, int SWEEPS>
+constexpr int z_smem() {
+  return (SWEEPS == 2 ? 6 : 5) * Reg<SWEEPS>::N + (PROLONG ? CN : 0);
+}
+
+// Allow a kernel its dynamic shared memory (above 48 KB it must ask), once
+// per device.
+template <typename K>
+cudaError_t allow_smem(K kern, size_t bytes, unsigned* done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 32 && (*done >> dev & 1u)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess && dev < 32) *done |= 1u << dev;
+  return e;
+}
+
+// Scratch per image in elements of `elem_bytes` (4 or 8): three double
+// partial arrays first (8-byte aligned at the start), then q, z, the second
+// p and r planes, level 1's correction, the cycle's scratch, alpha, beta.
 long long cg_scratch_elems(int L, const int* ny, const int* nx,
                            int elem_bytes) {
   const long long n0 = (long long)ny[0] * nx[0];
-  return 2LL * blocks_for(n0) * (8 / elem_bytes) + 2 * n0 +
+  const long long n1 = L > 1 ? (long long)ny[1] * nx[1] : 0;
+  return 3LL * tiles_for(ny[0], nx[0]) * (8 / elem_bytes) + 4 * n0 + n1 +
          cycle_scratch_elems(L, ny, nx) + 2;
 }
+
+// Launches of the tile passes: grid (tiles, images), THREADS a block, the
+// dynamic shared memory each pass stages.
+template <typename T>
+struct Launch {
+  int nt;
+  dim3 tiles, blk;
+  cudaStream_t st;
+  Level<T> l0;
+
+  template <int MODE>
+  cudaError_t pass_p(const T* v, const T* z, const T* b, const T* beta,
+                     T* p_out, T* q, double* part, const int* flag) {
+    static unsigned done = 0;
+    const size_t sm = sizeof(T) * p_smem<MODE>();
+    auto kern = pass_p_kernel<T, MODE>;
+    cudaError_t e = allow_smem(kern, sm, &done);
+    if (e != cudaSuccess) return e;
+    DEFF_LAUNCH(kern<<<tiles, blk, sm, st>>>(l0, v, z, b, beta, p_out, q,
+                                              part, nt, flag));
+    return cudaSuccess;
+  }
+
+  template <int SWEEPS, bool RESTRICT>
+  cudaError_t pass_x(int nyc, int nxc, T* x, const T* p, const T* r,
+                     const T* q, T* r_new, T* e_out, T* rc, const T* alpha,
+                     const double* ws, int nu, const int* flag) {
+    static unsigned done = 0;
+    const size_t sm = sizeof(T) * x_smem<SWEEPS, RESTRICT>();
+    auto kern = pass_x_kernel<T, SWEEPS, RESTRICT>;
+    cudaError_t e = allow_smem(kern, sm, &done);
+    if (e != cudaSuccess) return e;
+    const double w1 = nu > 1 ? ws[1] : 0.0;
+    DEFF_LAUNCH(kern<<<tiles, blk, sm, st>>>(
+        l0, nyc, nxc, x, p, r, q, r_new, e_out, rc, alpha, (T)ws[0], (T)w1,
+        (T)(1.0 - w1), flag));
+    return cudaSuccess;
+  }
+
+  template <bool PROLONG, int SWEEPS>
+  cudaError_t pass_z(int nyc, int nxc, const T* es, const T* ec, double over,
+                     const T* r, T* z, double wa, double wb, double* part_rz,
+                     double* part_abs, const int* flag) {
+    static unsigned done = 0;
+    const size_t sm = sizeof(T) * z_smem<PROLONG, SWEEPS>();
+    auto kern = pass_z_kernel<T, PROLONG, SWEEPS>;
+    cudaError_t e = allow_smem(kern, sm, &done);
+    if (e != cudaSuccess) return e;
+    DEFF_LAUNCH(kern<<<tiles, blk, sm, st>>>(
+        l0, nyc, nxc, es, ec, (T)over, r, z, (T)wa, (T)(1.0 - wa), (T)wb,
+        (T)(1.0 - wb), part_rz, part_abs, nt, flag));
+    return cudaSuccess;
+  }
+};
+
+#define DEFF_TRY(...)                          \
+  do {                                         \
+    cudaError_t _t = (__VA_ARGS__);            \
+    if (_t != cudaSuccess) return _t;          \
+  } while (0)
 
 template <typename T>
 int cg_steps_entry(int B, int L, const int* ny, const int* nx,
@@ -260,67 +552,145 @@ int cg_steps_entry(int B, int L, const int* ny, const int* nx,
                    double over, void* scratch_, void* iscratch_,
                    void* stream) {
   Level<T> lv[MAX_LEVELS];
-  if (!fill_levels<T>(L, ny, nx, aw, an, dinv, lv) || B < 1 || k < 0)
+  if (!fill_levels<T>(L, ny, nx, aw, an, dinv, lv) || B < 1 || B > 65535 ||
+      k < 0 || nu < 1 || (ny[0] | nx[0]) & 1)
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const T* rhs = static_cast<const T*>(b_);
   T* x = static_cast<T*>(x_);
-  T* r = static_cast<T*>(r_);
-  T* p = static_cast<T*>(p_);
   T* rz = static_cast<T*>(rz_);
   const T* active = static_cast<const T*>(active_);
   const T* stop = static_cast<const T*>(stop_);
   const T* hi = static_cast<const T*>(hi_);
 
-  const int n0 = ny[0] * nx[0];
-  const int nblk = blocks_for(n0);
-  double* part_rz = static_cast<double*>(scratch_);
-  double* part_abs = part_rz + (size_t)B * nblk;
-  T* q = reinterpret_cast<T*>(part_abs + (size_t)B * nblk);
+  const long long n0 = (long long)ny[0] * nx[0];
+  const int nyc = L > 1 ? ny[1] : 0, nxc = L > 1 ? nx[1] : 0;
+  const long long n1 = (long long)nyc * nxc;
+  const int nt = tiles_for(ny[0], nx[0]);
+  double* part_a = static_cast<double*>(scratch_);   // <p, q>
+  double* part_b = part_a + (size_t)B * nt;          // sum|r|
+  double* part_c = part_b + (size_t)B * nt;          // <r, z>
+  T* q = reinterpret_cast<T*>(part_c + (size_t)B * nt);
   T* z = q + (size_t)B * n0;
-  T* cyc = z + (size_t)B * n0;
+  T* P[2] = {static_cast<T*>(p_), z + (size_t)B * n0};
+  T* R[2] = {static_cast<T*>(r_), P[1] + (size_t)B * n0};
+  T* ecb = R[1] + (size_t)B * n0;                    // level 1's correction
+  T* cyc = ecb + (size_t)B * n1;
   T* alpha = cyc + (size_t)B * cycle_scratch_elems(L, ny, nx);
   T* beta = alpha + B;
+  // the cycle scratch's level-0 planes and level-1 residual (cycle_from)
+  T* E0 = cyc;
+  T* F0 = cyc + (size_t)B * n0;
+  T* R1 = cyc + 2 * (size_t)B * n0;
   int* act = static_cast<int*>(iscratch_);
   int* live = act + B;
-  int* pflag = live + B;
-  int* it = pflag + B;
+  int* it = live + B;
 
-  const dim3 blk(THREADS), cells(nblk, B), per_image(1, B);
+  Launch<T> go{nt, dim3(nt, B), dim3(THREADS), st, lv[0]};
+  const dim3 blk(THREADS), per_image(1, B);
+  const bool fused = L > 1 && nu <= 2;
+  // pass X writes the coarse cells under the fine grid; those past it
+  // (level 1's even padding) stay 0 for the whole call
+  if (fused) DEFF_TRY(cudaMemsetAsync(R1, 0, sizeof(T) * B * n1, st));
   DEFF_LAUNCH(set_act_kernel<T><<<(B + THREADS - 1) / THREADS, blk, 0, st>>>(
       active, act, it, B));
-  DEFF_LAUNCH(dots_kernel<T><<<cells, blk, 0, st>>>(
-      r, nullptr, part_rz, part_abs, n0, nblk, act));
+  DEFF_TRY(go.template pass_z<false, 0>(0, 0, R[0], nullptr, 0.0, R[0],
+                                        nullptr, 0.0, 0.0, nullptr, part_b,
+                                        act));
   DEFF_LAUNCH(fin_init_kernel<T><<<per_image, blk, 0, st>>>(
-      part_abs, nblk, act, live, stop, hi, k));
+      part_b, nt, act, live, stop, hi, k));
 
+  int pc = 0;                    // P[pc] holds the current p
   for (int i = 0; i < k; ++i) {
-    DEFF_LAUNCH(matvec_dot_kernel<T><<<cells, blk, 0, st>>>(
-        lv[0], p, q, part_rz, nblk, live));
+    T* r_cur = R[i & 1];
+    T* r_nxt = R[(i & 1) ^ 1];
+    if (i == 0) {
+      DEFF_TRY(go.template pass_p<0>(P[0], nullptr, nullptr, nullptr,
+                                     nullptr, q, part_a, live));
+    } else {
+      DEFF_TRY(go.template pass_p<1>(P[pc], z, nullptr, beta, P[pc ^ 1], q,
+                                     part_a, live));
+      pc ^= 1;
+    }
     DEFF_LAUNCH(fin_alpha_kernel<T><<<per_image, blk, 0, st>>>(
-        part_rz, nblk, rz, alpha, live));
-    DEFF_LAUNCH(axpy_kernel<T><<<cells, blk, 0, st>>>(
-        x, r, p, q, alpha, n0, live));
-    cudaError_t e = run_cycle<T>(B, L, lv, r, z, cyc, ws, nu, coarse_iters,
-                                 over, live, st);
-    if (e != cudaSuccess) return e;
-    DEFF_LAUNCH(dots_kernel<T><<<cells, blk, 0, st>>>(
-        r, z, part_rz, part_abs, n0, nblk, live));
+        part_a, nt, rz, alpha, live));
+    const T* p = P[pc];
+    if (fused && nu == 2) {
+      DEFF_TRY(go.template pass_x<2, true>(nyc, nxc, x, p, r_cur, q, r_nxt,
+                                           E0, R1, alpha, ws, nu, live));
+      DEFF_TRY(cycle_from<T>(B, L, lv, 1, R1, ecb, cyc, ws, nu, coarse_iters,
+                             over, live, st));
+      DEFF_TRY(go.template pass_z<true, 2>(nyc, nxc, E0, ecb, over, r_nxt, z,
+                                           ws[1], ws[0], part_c, part_b,
+                                           live));
+    } else if (fused) {
+      DEFF_TRY(go.template pass_x<1, true>(nyc, nxc, x, p, r_cur, q, r_nxt,
+                                           E0, R1, alpha, ws, nu, live));
+      DEFF_TRY(cycle_from<T>(B, L, lv, 1, R1, ecb, cyc, ws, nu, coarse_iters,
+                             over, live, st));
+      DEFF_TRY(go.template pass_z<true, 1>(nyc, nxc, E0, ecb, over, r_nxt, z,
+                                           ws[0], 0.0, part_c, part_b,
+                                           live));
+    } else if (L > 1) {
+      // nu > 2: the passes take the first two pre-sweeps and the last two
+      // post-sweeps; K2's level kernels the rest, as in its cycle
+      DEFF_TRY(go.template pass_x<2, false>(nyc, nxc, x, p, r_cur, q, r_nxt,
+                                            E0, nullptr, alpha, ws, nu,
+                                            live));
+      const dim3 cells(blocks_for(n0), B);
+      T* cur = E0;
+      T* oth = F0;
+      for (int s = 2; s < nu; ++s) {
+        DEFF_LAUNCH(smooth_kernel<T><<<cells, blk, 0, st>>>(
+            lv[0], cur, r_nxt, oth, (T)ws[s], (T)(1.0 - ws[s]), live));
+        T* tmp = cur; cur = oth; oth = tmp;
+      }
+      DEFF_LAUNCH(resid_restrict_kernel<T><<<dim3(blocks_for(n1), B), blk, 0,
+                                             st>>>(lv[0], r_nxt, cur, R1, nyc,
+                                                   nxc, live));
+      DEFF_TRY(cycle_from<T>(B, L, lv, 1, R1, ecb, cyc, ws, nu, coarse_iters,
+                             over, live, st));
+      T* bufs[2] = {oth, cur};
+      T* dst = bufs[0];
+      DEFF_LAUNCH(post_first_kernel<T><<<cells, blk, 0, st>>>(
+          lv[0], cur, ecb, nyc, nxc, (T)over, r_nxt, dst, (T)ws[nu - 1],
+          (T)(1.0 - ws[nu - 1]), live));
+      for (int s = 1; s < nu - 2; ++s) {
+        T* src = dst;
+        dst = bufs[s & 1];
+        const double w = ws[nu - 1 - s];
+        DEFF_LAUNCH(smooth_kernel<T><<<cells, blk, 0, st>>>(
+            lv[0], src, r_nxt, dst, (T)w, (T)(1.0 - w), live));
+      }
+      DEFF_TRY(go.template pass_z<false, 2>(nyc, nxc, dst, nullptr, 0.0,
+                                            r_nxt, z, ws[1], ws[0], part_c,
+                                            part_b, live));
+    } else {
+      // one level: the cycle is the coarse solve on level 0
+      DEFF_TRY(go.template pass_x<0, false>(0, 0, x, p, r_cur, q, r_nxt,
+                                            nullptr, nullptr, alpha, ws, nu,
+                                            live));
+      DEFF_TRY(run_cycle<T>(B, L, lv, r_nxt, z, cyc, ws, nu, coarse_iters,
+                            over, live, st));
+      DEFF_TRY(go.template pass_z<false, 0>(0, 0, z, nullptr, 0.0, r_nxt,
+                                            nullptr, 0.0, 0.0, part_c,
+                                            part_b, live));
+    }
     DEFF_LAUNCH(fin_beta_kernel<T><<<per_image, blk, 0, st>>>(
-        part_rz, part_abs, nblk, rz, beta, it, live, pflag, stop, hi, k));
-    DEFF_LAUNCH(pupdate_kernel<T><<<cells, blk, 0, st>>>(
-        p, z, beta, n0, pflag));
+        part_c, part_b, nt, rz, beta, it, live, stop, hi, k));
   }
 
-  // refresh + restart for every active image: r = b - A x, p = z = M r
-  DEFF_LAUNCH(resid_kernel<T><<<cells, blk, 0, st>>>(lv[0], rhs, x, r, act));
-  cudaError_t e = run_cycle<T>(B, L, lv, r, p, cyc, ws, nu, coarse_iters,
-                               over, act, st);
-  if (e != cudaSuccess) return e;
-  DEFF_LAUNCH(dots_kernel<T><<<cells, blk, 0, st>>>(
-      r, p, part_rz, part_abs, n0, nblk, act));
+  // refresh + restart for every active image, into the caller's r and p:
+  // r = b - A x, p = z = M r
+  DEFF_TRY(go.template pass_p<2>(x, nullptr, rhs, nullptr, R[0], nullptr,
+                                 nullptr, act));
+  DEFF_TRY(run_cycle<T>(B, L, lv, R[0], P[0], cyc, ws, nu, coarse_iters,
+                        over, act, st));
+  DEFF_TRY(go.template pass_z<false, 0>(0, 0, P[0], nullptr, 0.0, R[0],
+                                        nullptr, 0.0, 0.0, part_c, part_b,
+                                        act));
   DEFF_LAUNCH(fin_refresh_kernel<T><<<per_image, blk, 0, st>>>(
-      part_rz, part_abs, nblk, act, it, rz, static_cast<T*>(sr_true_),
+      part_c, part_b, nt, act, it, rz, static_cast<T*>(sr_true_),
       static_cast<int*>(k_done_)));
   return cudaSuccess;
 }

@@ -16,13 +16,13 @@ int v_cycle_entry(int B, int L, const int* ny, const int* nx,
                   const void* const* aw, const void* const* an,
                   const void* const* dinv, const void* r, void* z,
                   void* scratch, const double* ws, int nu, int coarse_iters,
-                  double over, void* stream) {
+                  double over, const int* flag, void* stream) {
   deff::Level<T> lv[deff::MAX_LEVELS];
   if (!deff::fill_levels<T>(L, ny, nx, aw, an, dinv, lv))
     return cudaErrorInvalidValue;
   return deff::run_cycle<T>(B, L, lv, static_cast<const T*>(r),
                             static_cast<T*>(z), static_cast<T*>(scratch), ws,
-                            nu, coarse_iters, over, nullptr,
+                            nu, coarse_iters, over, flag,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -42,18 +42,20 @@ int deff_v_cycle_f32(int B, int L, const int* ny, const int* nx,
                      const void* const* aw, const void* const* an,
                      const void* const* dinv, const void* r, void* z,
                      void* scratch, const double* ws, int nu,
-                     int coarse_iters, double over, void* stream) {
+                     int coarse_iters, double over, const int* flag,
+                     void* stream) {
   return v_cycle_entry<float>(B, L, ny, nx, aw, an, dinv, r, z, scratch, ws,
-                              nu, coarse_iters, over, stream);
+                              nu, coarse_iters, over, flag, stream);
 }
 
 int deff_v_cycle_f64(int B, int L, const int* ny, const int* nx,
                      const void* const* aw, const void* const* an,
                      const void* const* dinv, const void* r, void* z,
                      void* scratch, const double* ws, int nu,
-                     int coarse_iters, double over, void* stream) {
+                     int coarse_iters, double over, const int* flag,
+                     void* stream) {
   return v_cycle_entry<double>(B, L, ny, nx, aw, an, dinv, r, z, scratch, ws,
-                               nu, coarse_iters, over, stream);
+                               nu, coarse_iters, over, flag, stream);
 }
 
 }  // extern "C"

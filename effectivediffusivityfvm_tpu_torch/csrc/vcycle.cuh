@@ -238,13 +238,19 @@ inline long long cycle_scratch_elems(int L, const int* ny, const int* nx) {
   return s;
 }
 
-// Launch one V(nu, nu) cycle z = M r for B images on `st`.  `scratch` holds
-// B * cycle_scratch_elems(L, ny, nx) elements; z must not alias r.
+// One V(nu, nu) cycle from level l0 down to the coarsest and back, for B
+// images on `st`: `r` is level l0's right-hand side and `z` receives level
+// l0's correction (z must not alias r or the scratch).  `scratch` holds B *
+// cycle_scratch_elems(L, ny, nx) elements laid out for the whole hierarchy;
+// the planes of the levels above l0 are not touched.  l0 = 0 is K2's whole
+// cycle; K1 runs its level 0 in its own passes and calls this with l0 = 1.
 template <typename T>
-cudaError_t run_cycle(int B, int L, const Level<T>* lv, const T* r, T* z,
-                      T* scratch, const double* ws, int nu, int coarse_iters,
-                      double over, const int* flag, cudaStream_t st) {
-  if (L < 1 || L > MAX_LEVELS || nu < 1 || coarse_iters < 0 || B < 1)
+cudaError_t cycle_from(int B, int L, const Level<T>* lv, int l0, const T* r,
+                       T* z, T* scratch, const double* ws, int nu,
+                       int coarse_iters, double over, const int* flag,
+                       cudaStream_t st) {
+  if (L < 1 || L > MAX_LEVELS || l0 < 0 || l0 >= L || nu < 1 ||
+      coarse_iters < 0 || B < 1)
     return cudaErrorInvalidValue;
   ++g_cycles;
   T* R[MAX_LEVELS];
@@ -265,9 +271,9 @@ cudaError_t run_cycle(int B, int L, const Level<T>* lv, const T* r, T* z,
   // way down: pre-smooth, then residual + restriction
   T* es[MAX_LEVELS];
   T* spare[MAX_LEVELS];
-  for (int l = 0; l < L - 1; ++l) {
+  for (int l = l0; l < L - 1; ++l) {
     const Level<T> v = lv[l];
-    const T* rl = (l == 0) ? r : R[l];
+    const T* rl = (l == l0) ? r : R[l];
     const long long n = (long long)v.ny * v.nx;
     const double w1 = nu > 1 ? ws[1] : 0.0;
     DEFF_LAUNCH(pre_first_kernel<T><<<grid(n), blk, 0, st>>>(
@@ -289,25 +295,25 @@ cudaError_t run_cycle(int B, int L, const Level<T>* lv, const T* r, T* z,
   // coarsest level: coarse_iters sweeps at the last weight, from zero
   const int lc = L - 1;
   const double wc = ws[nu - 1];
-  T* ec = (L == 1) ? z : E[lc];
+  T* ec = (lc == l0) ? z : E[lc];
   DEFF_LAUNCH(coarse_solve_kernel<T><<<dim3(1, B), blk, 0, st>>>(
-      lv[lc], L == 1 ? r : R[lc], ec, P[lc], (T)wc, (T)(1.0 - wc),
+      lv[lc], lc == l0 ? r : R[lc], ec, P[lc], (T)wc, (T)(1.0 - wc),
       coarse_iters, flag));
 
   // way up: prolongation fused into the first post-smooth, weights reversed
-  for (int l = L - 2; l >= 0; --l) {
+  for (int l = L - 2; l >= l0; --l) {
     const Level<T> v = lv[l];
-    const T* rl = (l == 0) ? r : R[l];
+    const T* rl = (l == l0) ? r : R[l];
     const long long n = (long long)v.ny * v.nx;
     T* bufs[2] = {spare[l], es[l]};
-    T* dst = (l == 0 && nu == 1) ? z : bufs[0];
+    T* dst = (l == l0 && nu == 1) ? z : bufs[0];
     const double w0 = ws[nu - 1];
     DEFF_LAUNCH(post_first_kernel<T><<<grid(n), blk, 0, st>>>(
         v, es[l], ec, lv[l + 1].ny, lv[l + 1].nx, tover, rl, dst, (T)w0,
         (T)(1.0 - w0), flag));
     for (int s = 1; s < nu; ++s) {
       T* src = dst;
-      dst = (l == 0 && s == nu - 1) ? z : bufs[s & 1];
+      dst = (l == l0 && s == nu - 1) ? z : bufs[s & 1];
       const double w = ws[nu - 1 - s];
       DEFF_LAUNCH(smooth_kernel<T><<<grid(n), blk, 0, st>>>(
           v, src, rl, dst, (T)w, (T)(1.0 - w), flag));
@@ -315,6 +321,17 @@ cudaError_t run_cycle(int B, int L, const Level<T>* lv, const T* r, T* z,
     ec = dst;
   }
   return cudaSuccess;
+}
+
+// Launch one whole V(nu, nu) cycle z = M r (K2) for B images on `st`.
+// `scratch` holds B * cycle_scratch_elems(L, ny, nx) elements; z must not
+// alias r.
+template <typename T>
+cudaError_t run_cycle(int B, int L, const Level<T>* lv, const T* r, T* z,
+                      T* scratch, const double* ws, int nu, int coarse_iters,
+                      double over, const int* flag, cudaStream_t st) {
+  return cycle_from<T>(B, L, lv, 0, r, z, scratch, ws, nu, coarse_iters,
+                       over, flag, st);
 }
 
 template <typename T>

@@ -88,7 +88,7 @@ for _t in ("f32", "f64"):
          _P, _P, _P,                # aw[], an[], dinv[] (pointer arrays)
          _P, _P, _P,                # r, z, scratch
          _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
-         _P], _I)                   # stream
+         _P, _P], _I)               # flag (int32 per image, or null), stream
     _ENTRIES[f"deff_tiled_pre_{_t}"] = (
         [_I, _I, _I,                # B, py, px
          _P, _P, _P,                # aw, an, dinv (level 0)
@@ -147,6 +147,12 @@ for _t in ("f32", "f64"):
          _P, _P, _P,                # x, out, scratch
          _P, _I, _D,                # active (int32 or null), k, omega
          _P], _I)                   # stream
+    _ENTRIES[f"deff_jacobi_resident_{_t}"] = (
+        [_I, _I, _I, _I,            # B, ny, nx, CTAs a cluster
+         _P, _P, _P, _P,            # aw, an, dinv, b
+         _P, _P,                    # x, out
+         _P, _I, _D,                # active (int32 or null), k, omega
+         _P], _I)                   # stream
 
 
 def _nvcc() -> str:
@@ -202,8 +208,13 @@ def load_library() -> ctypes.CDLL:
         for obj in objs:
             obj.unlink(missing_ok=True)
         if failed:
-            raise RuntimeError(f"nvcc failed ({failed[0]}):\n"
-                               f"{''.join(logs)[-4000:]}")
+            # the failing compiles' diagnostics, without ptxas's reports
+            bad = [log for p, log in zip(procs, logs) if p.returncode] or logs
+            text = "\n".join(ln for log in bad for ln in log.splitlines()
+                              if not ln.lstrip().startswith("ptxas info")
+                              and "bytes stack frame" not in ln
+                              and "Function properties" not in ln)
+            raise RuntimeError(f"nvcc failed ({failed[0]}):\n{text[:8000]}")
         os.replace(tmp, lib_path)
     _INFO["seconds"] = time.perf_counter() - t0
     _INFO["path"] = str(lib_path)

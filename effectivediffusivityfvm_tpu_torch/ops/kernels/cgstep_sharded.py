@@ -19,6 +19,10 @@ Replaces ``effectivediffusivityfvm_tpu/parallel/fused2d_cg.py``
   fused into pass B, the caller's ``coarse`` on the restricted residual,
   T2 fused into pass C), ``rz = <r, z>``, ``k_done += 1``, ``live = stop <
   sum|r| < hi``;
+* the window ends after the iteration in which the last image died (the
+  JAX loop's ``(i < k) & reduce_any(live)``), so a dead iteration costs
+  nothing; ``coarse(rcs, live)`` gets the per-shard live flags and skips
+  the images whose flag is 0;
 * no refresh: the caller refreshes between windows.
 
 ``A`` is level 0's stencil with the diagonal rebuilt as ``1/diag_inv``.
@@ -87,6 +91,8 @@ def cg_steps_sharded_reference(coefs, xs, rs, ps, rz, active, stop, hi,
     k_done = torch.zeros(x[0].shape[0], dtype=torch.int32, device=dev0)
     z = p
     for i in range(k):
+        if not bool(live.any()):
+            break
         beta = torch.where(live & (rz_p > 0) & (i > 0),
                            rz_c / torch.where(rz_p > 0, rz_p, 1.0), 0.0)
         zn, zs = halo_strips(z, HALO)
@@ -118,7 +124,7 @@ def cg_steps_sharded_reference(coefs, xs, rs, ps, rz, active, stop, hi,
             es.append(torch.where(lv, body(e), 0.0))
             rcs.append(torch.where(
                 lv, rc[..., HALO // 2:HALO // 2 + ny // 2, :], 0.0))
-        ecs = coarse(rcs)
+        ecs = coarse(rcs, [live] * n)
         en, ess = halo_strips(es, HALO)
         rn, rss = halo_strips(r_new, HALO)
         ecn, ecss = halo_strips(ecs, HALO // 2)
@@ -184,14 +190,20 @@ def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
         z>``, ``> 0`` iterates / ``<= 0`` frozen, and the early-exit and
         divergence thresholds on ``sum|r|`` over all shards.
       k: iteration cap (host integer).
-      coarse: maps the shards' restricted residuals ``(B, ny_l/2, nx/2)``
-        to their coarse corrections (the cycle from level 1).
+      coarse: ``coarse(rcs, live)`` maps the shards' restricted residuals
+        ``(B, ny_l/2, nx/2)`` to their coarse corrections (the cycle from
+        level 1); ``live`` holds each shard's per-image flags on its device
+        (the images whose flag is 0 may skip the cycle: their corrections
+        are not read).
     Returns:
       ``(xs, rs, ps, rz, k_done)``; ``k_done`` is int32 ``(B,)`` on shard
       0's device.
 
     CPU tensors run the plain version; CUDA tensors launch the kernels
-    (float32 or float64, ``nu <= 4``) or raise.
+    (float32 or float64, ``nu <= 4``) or raise.  The host reads ``any(live)``
+    once before each iteration (one synchronisation, against the ~1 ms of
+    launches, exchanges and coarse tail that a dead iteration would cost)
+    and ends the window when no image is live.
     """
     if nu < 1 or nu > MAX_NU:
         raise ValueError(f"cg_steps_sharded: nu={nu} must be in 1..{MAX_NU}")
@@ -280,7 +292,11 @@ def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
     pass_a = getattr(lib, f"deff_shard_pass_a_{sfx}")
     pass_b = getattr(lib, f"deff_shard_pass_b_{sfx}")
     pass_c = getattr(lib, f"deff_shard_pass_c_{sfx}")
+    ran = 0
     for i in range(k):
+        if not bool(st[0].live.any()):
+            break
+        ran += 1
         cur, nxt = i % 2, 1 - i % 2
         znm, zsrc = ("p", P[cur]) if i == 0 else ("z", zbuf)
         for s in range(n):
@@ -301,7 +317,7 @@ def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
                          nu, st[s].stream), "cg_steps_sharded (pass B)")
         exchange("r", R[nxt])
         exchange("e", ebuf)
-        ecs = coarse(rcbuf)
+        ecs = coarse(rcbuf, [sd.live for sd in st])
         ecn, ecss = halo_strips(ecs, HALO // 2, out=ecs_strips)
         for s in range(n):
             if i == 0:
@@ -317,7 +333,7 @@ def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
         sync_parts(1)
         sync_parts(2)
         fin(2)
-    if k % 2:
+    if ran % 2:                         # the last iteration wrote P[1], R[1]
         for s in range(n):
             ps[s].copy_(P[1][s])
             rs[s].copy_(R[1][s])

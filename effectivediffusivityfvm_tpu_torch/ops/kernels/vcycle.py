@@ -79,8 +79,9 @@ def _check_even(shapes):
 
 def v_cycle_reference(levels: Sequence[StencilCoeffs], r: torch.Tensor, *,
                       omega=0.8, coarse_iters: int = 32, over: float = 1.8,
-                      nu: int = 1) -> torch.Tensor:
-    """Plain PyTorch V(nu, nu) cycle: ``(B, py, px) -> (B, py, px)``."""
+                      nu: int = 1, active=None) -> torch.Tensor:
+    """Plain PyTorch V(nu, nu) cycle: ``(B, py, px) -> (B, py, px)``; images
+    whose ``active`` flag is 0 come back as zeros."""
     shapes = [tuple(c.diag.shape[-2:]) for c in levels]
     _check_even(shapes)
     ws = smoothing_schedule(omega, nu)
@@ -113,6 +114,8 @@ def v_cycle_reference(levels: Sequence[StencilCoeffs], r: torch.Tensor, *,
         e = es[l] + over * _prolong(e, shapes[l])
         for w in reversed(ws):
             e = smooth(l, e, rs[l], w)
+    if active is not None:
+        e = torch.where(active.ne(0).to(e.device)[:, None, None], e, 0.0)
     return e
 
 
@@ -166,17 +169,20 @@ def weights(omega, nu):
 
 
 def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
-            coarse_iters: int = 32, over: float = 1.8,
-            nu: int = 1) -> torch.Tensor:
+            coarse_iters: int = 32, over: float = 1.8, nu: int = 1,
+            active=None) -> torch.Tensor:
     """One V(nu, nu) cycle ``z = M r`` on a ``(B, py, px)`` batch.
 
     ``levels`` is ``build_hierarchy(..., pad_levels=True)`` with planes
-    ``(B, ny_l, nx_l)``.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the CUDA kernel (float32 or float64).
+    ``(B, ny_l, nx_l)``.  ``active`` (optional, ``(B,)`` on ``r``'s device):
+    an image whose flag is 0 does no work and comes back as zeros.  A CPU
+    tensor runs the plain version; a CUDA tensor launches the CUDA kernel
+    (float32 or float64).
     """
     if r.device.type == "cpu":
         return v_cycle_reference(levels, r, omega=omega,
-                                 coarse_iters=coarse_iters, over=over, nu=nu)
+                                 coarse_iters=coarse_iters, over=over, nu=nu,
+                                 active=active)
     if r.device.type != "cuda":
         raise ValueError(f"v_cycle: unsupported device {r.device}")
     from ._build import check, load_library
@@ -185,7 +191,14 @@ def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
     la = LevelArgs(levels, r)
     check_plane(r, "r", (r.shape[0],) + la.shapes[0], r)
     bsz = r.shape[0]
-    z = torch.empty_like(r)
+    flag = None
+    if active is not None:
+        if tuple(active.shape) != (bsz,) or active.device != r.device:
+            raise ValueError(f"active: shape {tuple(active.shape)} on "
+                             f"{active.device}, expected ({bsz},) on "
+                             f"{r.device}")
+        flag = active.ne(0).to(torch.int32)
+    z = torch.empty_like(r) if flag is None else torch.zeros_like(r)
     per_image = lib.deff_cycle_scratch_elems(la.n_levels, la.ny, la.nx)
     scratch = torch.empty(bsz * per_image, dtype=r.dtype, device=r.device)
     ws = weights(omega, nu)
@@ -194,7 +207,8 @@ def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
         fn = getattr(lib, f"deff_v_cycle_{la.suffix}")
         status = fn(bsz, la.n_levels, la.ny, la.nx, la.aw, la.an, la.dinv,
                     r.data_ptr(), z.data_ptr(), scratch.data_ptr(),
-                    ws, nu, coarse_iters, float(over), stream)
+                    ws, nu, coarse_iters, float(over),
+                    None if flag is None else flag.data_ptr(), stream)
     check(status, "v_cycle")
     v_cycle.launches += 1
     return z

@@ -94,19 +94,23 @@ def build_fused_tail(sharded_levels, min_size):
 
 def v_cycle_sharded_fused(hier: ShardedHierarchy, coef_wins, rs, *, nu,
                           omega, coarse_iters, over, level=0, tail=None,
-                          plain=False):
+                          plain=False, live=None):
     """The fused sharded V(nu, nu) cycle of one mesh row from ``level``:
     K8 (``shard_t1``/``shard_t2``) on every shard of a fused level, the
     plain sharded sweeps on a level without a band, and the gathered K2
     tail (``tail`` from :func:`build_fused_tail`) or, without one, K2 on
     the replicated hierarchy.  ``rs`` are the shards' residuals ``(B, ny_l,
     nx)``; returns their corrections.  ``plain=True`` runs the plain
-    versions of every kernel."""
+    versions of every kernel.  ``live`` (per shard, ``(B,)``) gates the
+    gathered K2 tail: an image whose flag is 0 skips it (the K8 levels above
+    the tail take no flags)."""
     mg = dict(omega=omega, coarse_iters=coarse_iters, over=over)
     if tail is not None and tail[0] is not None and level == tail[0]:
-        return gathered_cycle(tail[1], rs, nu=nu, plain=plain, **mg)
+        return gathered_cycle(tail[1], rs, nu=nu, plain=plain, live=live,
+                              **mg)
     if level == len(hier.sharded):
-        return gathered_cycle(hier.replicated, rs, nu=nu, plain=plain, **mg)
+        return gathered_cycle(hier.replicated, rs, nu=nu, plain=plain,
+                              live=live, **mg)
     ny_l, nx_l = rs[0].shape[-2:]
     if shard_band(ny_l, nx_l, rs[0].element_size()) == 0:
         return _v_cycle_sharded_2d(hier, rs, nu1=nu, nu2=nu, level=level,
@@ -119,7 +123,8 @@ def v_cycle_sharded_fused(hier: ShardedHierarchy, coef_wins, rs, *, nu,
     pre = [t1(coefs[s], rs[s], rn[s], rss[s], omega=omega, nu=nu)
            for s in range(len(rs))]
     e_c = v_cycle_sharded_fused(hier, coef_wins, [p[1] for p in pre], nu=nu,
-                                level=level + 1, tail=tail, plain=plain, **mg)
+                                level=level + 1, tail=tail, plain=plain,
+                                live=live, **mg)
     e_pre = [p[0] for p in pre]
     en, ess = halo_strips(e_pre, HALO)
     ecn, ecss = halo_strips(e_c, HALO // 2)

@@ -56,9 +56,9 @@ class _Row:
         self.kw = dict(nu=nu, tail=self.tail, plain=plain, **mg)
         self.npts = ny_l * c_row[0].diag.shape[-1] * len(c_row)
 
-    def cycle(self, rs, level=0):
+    def cycle(self, rs, level=0, live=None):
         return v_cycle_sharded_fused(self.hier, self.coef_wins, rs,
-                                     level=level, **self.kw)
+                                     level=level, live=live, **self.kw)
 
     def matvec(self, xs):
         nbs = _neighbor_sum_2d_local(self.c, xs)
@@ -161,7 +161,8 @@ def run_mgcg_sharded_fused(c_rows, s_rows, x_rows, *, tol, max_iter,
             out = cg_fn([c for c in row.coef_wins[0]], x[d], r[d], p[d],
                         part(rz, d), part(active.to(dtype), d),
                         part(stop_sum, d), part(hi_sum, d), k,
-                        coarse=lambda rc, row=row: row.cycle(rc, level=1),
+                        coarse=lambda rc, live, row=row: row.cycle(
+                            rc, level=1, live=live),
                         omega=mg_omega, nu=nu, over=over)
             x[d], r[d], p[d] = out[0], out[1], out[2]
             rz_rows.append(out[3])

@@ -305,10 +305,12 @@ def _build_sharded_hierarchy_2d(c_row, ny_local, min_size=8):
 
 
 def gathered_cycle(levels_per_shard, rs, *, nu, omega, coarse_iters, over,
-                   plain=False):
+                   plain=False, live=None):
     """The replicated cycle of a row: the shards' residuals gathered, zero-
     padded to the hierarchy's level 0, one K2 cycle per device (its plain
-    version if ``plain``), and each shard's rows sliced back out."""
+    version if ``plain``), and each shard's rows sliced back out.  ``live``
+    (optional, per shard an int or bool ``(B,)``): the images whose flag
+    is 0 skip the cycle and get a zero correction."""
     cycle = v_cycle_reference if plain else v_cycle
     gathered = all_gather(rs)
     ny_l = rs[0].shape[-2]
@@ -322,9 +324,10 @@ def gathered_cycle(levels_per_shard, rs, *, nu, omega, coarse_iters, over,
             py, px = levels[0].diag.shape[-2:]
             if (py, px) != (ny_f, nx_f):
                 r_full = F.pad(r_full, (0, px - nx_f, 0, py - ny_f))
+            act = None if live is None else live[s].to(dev)
             done[dev] = cycle(levels, r_full.contiguous(), omega=omega, nu=nu,
-                              coarse_iters=coarse_iters,
-                              over=over)[..., :ny_f, :nx_f]
+                              coarse_iters=coarse_iters, over=over,
+                              active=act)[..., :ny_f, :nx_f]
         out.append(done[dev][..., s * ny_l:(s + 1) * ny_l, :].contiguous())
     return out
 

@@ -31,7 +31,7 @@ from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep3d import (
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
     cg_steps_tiled, cg_steps_tiled_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
-    jacobi_sweeps, jacobi_sweeps_reference)
+    jacobi_resident_fits, jacobi_sweeps, jacobi_sweeps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
     v_cycle, v_cycle_reference)
 from effectivediffusivityfvm_tpu_torch.solvers import multigrid, solvers3d
@@ -107,6 +107,46 @@ def test_cg_steps_kernel_matches_plain(cuda, dtype):
     assert float(got[5][1]) == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nu,shape,min_size", [
+    (1, (48, 40), 4),        # V(1,1): one fused sweep each side
+    (3, (48, 40), 4),        # nu > 2: K2's level kernels for the middle
+    (2, (130, 70), 4),       # partial 64x16 tiles, padded levels
+    (2, (6, 8), 8),          # a one-level hierarchy
+])
+def test_cg_steps_kernel_cycle_forms(cuda, dtype, nu, shape, min_size):
+    """K1's pass structure for every cycle it takes: the same frozen, exit
+    and tripped images as above, on a batch of 4."""
+    d, c, _, x = _problem(cuda, dtype, 4, *shape, seed=5)
+    levels = multigrid.build_hierarchy(c, min_size=min_size, pad_levels=True)
+    x = torch.zeros((4,) + tuple(levels[0].diag.shape[-2:]), dtype=dtype,
+                    device=cuda)
+    x[:, :shape[0], :shape[1]] = torch.arange(
+        shape[1], dtype=dtype, device=cuda).div(shape[1])
+    mg = dict(MG, nu=nu, omega=0.8)
+    r = levels[0].b - fvm.apply_operator(levels[0], x)
+    p = v_cycle_reference(levels, r, **mg)
+    rz = torch.sum(r * p, dim=(-2, -1))
+    sr0 = torch.sum(r.abs(), dim=(-2, -1))
+    rz[3] *= 1e3
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=dtype, device=cuda)
+    stop = torch.zeros_like(sr0)
+    stop[2] = 10 * sr0[2]
+    hi = torch.full_like(sr0, float("inf"))
+    hi[3] = 2 * sr0[3]
+    state = (x, r, p, rz, active, stop, hi)
+    got = cg_steps(levels, *(t.clone() for t in state), 3, **mg)
+    ref = cg_steps_reference(levels, *(t.clone() for t in state), 3, **mg)
+    torch.cuda.synchronize()
+    assert (len(levels) == 1) == (min_size == 8)
+    assert got[4].tolist() == ref[4].tolist() == [3, 0, 0, 1]
+    for g, e in zip(got[:3], ref[:3]):
+        for b in range(4):
+            assert _rel_err(g[b], e[b]) <= TOL[dtype]
+    for g, s in zip(got[:4], state[:4]):
+        assert torch.equal(g[1], s[1])          # frozen: bit-unchanged
+
+
 def test_solve_on_gpu_matches_plain_on_cpu(cuda):
     d, c, _, _ = _problem(cuda, torch.float64, 3, 32, 48, seed=2)
     spec = make_flux_spec(d, 0.0, 1.0)
@@ -146,14 +186,47 @@ def test_jacobi_kernel_matches_plain(cuda, dtype, shape, k):
     active = torch.tensor([1, 1, 1, 0, 1], dtype=torch.int32, device=cuda)
     lib = _build.load_library()
     before, n0 = jacobi_sweeps.launches, lib.deff_launch_count()
+    res0 = jacobi_sweeps.resident_launches
     got = jacobi_sweeps(c, x, k, active=active)
     torch.cuda.synchronize()
-    assert jacobi_sweeps.launches - before == k
-    assert lib.deff_launch_count() - n0 == k
+    # every shape here takes the resident route: one launch per call
+    assert jacobi_resident_fits(*shape, x.element_size())
+    assert jacobi_sweeps.launches == before
+    assert jacobi_sweeps.resident_launches - res0 == min(k, 1)
+    assert lib.deff_launch_count() - n0 == min(k, 1)
     assert torch.equal(got, jacobi_sweeps_reference(c, x, k, active=active))
     assert torch.equal(got[3], x[3])
     assert got.data_ptr() != x.data_ptr()
     assert torch.equal(jacobi_sweeps(c, x, k), jacobi_sweeps_reference(c, x, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 37, 10_000])
+def test_jacobi_routes_match_plain_at_128(cuda, dtype, k):
+    """At the CLI batch's and config 1's 128^2, the resident route runs all
+    k sweeps (10,000: a check window) in one launch, and it and the
+    streaming route equal the plain version bit for bit; image 1 frozen."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import jacobi as k3
+
+    d, c, _, _ = _problem(cuda, dtype, 3, 128, 128, seed=6, contrast=1e6)
+    x = torch.rand(d.shape, dtype=dtype, device=cuda,
+                   generator=torch.Generator(cuda).manual_seed(7))
+    active = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    lib = _build.load_library()
+    n0, res0 = lib.deff_launch_count(), jacobi_sweeps.resident_launches
+    got = jacobi_sweeps(c, x, k, active=active)
+    torch.cuda.synchronize()
+    assert lib.deff_launch_count() - n0 == 1
+    assert jacobi_sweeps.resident_launches - res0 == 1
+    ref = jacobi_sweeps_reference(c, x, k, active=active)
+    assert torch.equal(got, ref)
+    assert torch.equal(got[1], x[1])
+    if k < 10_000:
+        act = active.contiguous()
+        streamed = k3._streaming(c, x, k, 2.0 / 3.0, act)
+        torch.cuda.synchronize()
+        assert lib.deff_launch_count() - n0 == 1 + k
+        assert torch.equal(streamed, ref)
 
 
 def test_jacobi_kernel_rejects_bad_input(cuda):
@@ -440,9 +513,9 @@ def test_shard_cg_steps_kernel_matches_plain(cuda, sp, dtype, nu):
     def run(fn, plain):
         xs, rs, ps = (mesh.shard_rows(m, t)[0] for t in (x, r, p))
         out = fn(cw[0], xs, rs, ps, rz.clone(), active, stop, hi, 4,
-                 coarse=lambda rc: fused2d.v_cycle_sharded_fused(
+                 coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
                      hier, cw, rc, nu=nu, level=1, tail=tail, plain=plain,
-                     **SHARD_MG),
+                     live=live, **SHARD_MG),
                  omega=0.8, nu=nu, over=1.8)
         return [torch.cat(out[i], dim=-2) for i in range(3)] + list(out[3:])
 
@@ -478,3 +551,46 @@ def test_sharded_solve_on_gpu_matches_plain_on_cpu(cuda):
         mesh.make_mesh(4, devices=["cpu"] * 4), **kw)
     assert got.iters.cpu().tolist() == ref.iters.tolist()
     torch.testing.assert_close(got.deff.cpu(), ref.deff, rtol=1e-9, atol=0)
+
+
+def test_shard_cg_steps_window_ends_with_the_last_live_image(cuda):
+    """K9 on two images that both reach their stop at iteration 3 of a k=10
+    window: three iterations run, with one gated K2 tail cycle each (not
+    ten), and x/r/p equal a k=3 window's."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import cgstep_sharded
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
+
+    m, c, hier, cw, tail, x, r = _sharded_problem(cuda, torch.float64, 2, 32,
+                                                  16, 2, seed=12)
+    assert tail[0] == 1                         # the coarse levels are K2's
+    p = r * c.diag_inv
+    rz = torch.sum(r * p, dim=(-2, -1))
+    lib = _build.load_library()
+    ones = torch.ones(2, dtype=torch.float64, device=cuda)
+
+    def run(k, stop):
+        xs, rs, ps = (mesh.shard_rows(m, t.clone())[0] for t in (x, r, p))
+        c0 = lib.deff_cycle_count()
+        out = cgstep_sharded.cg_steps_sharded(
+            cw[0], xs, rs, ps, rz, ones, stop, float("inf") * ones, k,
+            coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
+                hier, cw, rc, level=1, tail=tail, live=live, nu=2,
+                **SHARD_MG),
+            omega=0.8, nu=2, over=1.8)
+        torch.cuda.synchronize()
+        return ([torch.cat(out[i], dim=-2) for i in range(3)],
+                out[4].tolist(), lib.deff_cycle_count() - c0)
+
+    srs = [r.abs().sum(dim=(-2, -1))]
+    for k in (1, 2, 3):
+        planes, kd, cyc = run(k, 0 * ones)
+        assert kd == [k, k] and cyc == k
+        srs.append(planes[1].abs().sum(dim=(-2, -1)))
+    first = torch.stack(srs[:3]).min(dim=0).values
+    stop = (srs[3] + first) / 2
+    assert bool(torch.all((srs[3] < stop) & (stop < first)))
+    got, kd, cycles = run(10, stop)
+    assert kd == [3, 3]
+    assert cycles == 3                          # live iterations, no more
+    for g, w in zip(got, planes):
+        assert torch.equal(g, w)

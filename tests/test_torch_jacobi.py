@@ -25,8 +25,10 @@ from effectivediffusivityfvm_tpu.solvers import \
 from effectivediffusivityfvm_tpu_torch.models import floodfill, phases
 from effectivediffusivityfvm_tpu_torch.ops import fvm
 from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
+from effectivediffusivityfvm_tpu_torch.ops.kernels import jacobi as k3
 from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
-    jacobi_sweeps, jacobi_sweeps_reference)
+    jacobi_resident_fits, jacobi_sweeps, jacobi_sweeps_reference,
+    resident_cluster)
 from effectivediffusivityfvm_tpu_torch.solvers import driver, jacobi
 from effectivediffusivityfvm_tpu_torch.solvers import jacobi_pallas
 
@@ -88,6 +90,47 @@ def test_sweeps_reference_matches_pallas_kernel(shape, system, k):
     assert torch.equal(frozen[1], x[1])
     assert torch.equal(frozen[0::2], got[0::2])
     assert x.data_ptr() != frozen.data_ptr()
+
+
+@pytest.mark.parametrize("shape,itemsize,cluster", [
+    ((128, 128), 4, 8),       # the CLI datagen batch (float32)
+    ((128, 128), 8, 8),       # BASELINE config 1 (float64)
+    ((129, 129), 8, 0),
+    ((96, 160), 4, 4),
+    ((96, 160), 8, 8),
+    ((24, 20), 4, 1),
+    ((170, 170), 4, 8),       # the largest float32 square the rule holds
+    ((171, 171), 4, 0),
+    ((512, 512), 4, 0),       # streams
+    ((512, 512), 8, 0),
+])
+def test_resident_size_rule(shape, itemsize, cluster):
+    assert resident_cluster(*shape, itemsize) == cluster
+    assert jacobi_resident_fits(*shape, itemsize) == (cluster > 0)
+
+
+@pytest.mark.parametrize("shape,dtype,route", [
+    ((128, 128), torch.float32, "resident"),
+    ((128, 128), torch.float64, "resident"),
+    ((512, 512), torch.float32, "streaming"),
+])
+def test_wrapper_takes_the_route_of_the_size_rule(monkeypatch, shape, dtype,
+                                                  route):
+    """The CUDA wrapper's route choice, reached without a card: the two
+    launchers are stubbed and see the validated arguments."""
+    calls = []
+    for name in ("resident", "streaming"):
+        monkeypatch.setattr(k3, f"_{name}",
+                            lambda c, x, k, w, a, name=name:
+                            calls.append((name, k, w, a)) or x)
+    c = _two_phase(np.random.default_rng(0), 2, *shape)
+    c = fvm.StencilCoeffs(*(a.to(dtype) for a in c))
+    x = torch.zeros((2,) + shape, dtype=dtype)
+    act = k3._checked(c, x, 7, torch.tensor([1.0, 0.0]))
+    k3._launch(c, x, 7, 0.5, act)
+    assert [cl[:3] for cl in calls] == [(route, 7, 0.5)]
+    assert calls[0][3].tolist() == [1, 0]
+    assert calls[0][3].dtype == torch.int32
 
 
 def test_sweeps_reject_negative_k():

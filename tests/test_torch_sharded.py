@@ -260,8 +260,8 @@ def test_k9_plain_cg_steps_match_jax():
     xs, rs, ps = (mesh.shard_rows(m, t)[0] for t in (x, r, p))
     out = cgstep_sharded.cg_steps_sharded(
         cw[0], xs, rs, ps, rz, active, stop, hi, k,
-        coarse=lambda rc: fused2d.v_cycle_sharded_fused(
-            hier, cw, rc, level=1, tail=tail, **MG),
+        coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
+            hier, cw, rc, level=1, tail=tail, live=live, **MG),
         omega=0.8, nu=2, over=1.8)
 
     g3 = P(None, "sp", None)
@@ -290,6 +290,53 @@ def test_k9_plain_cg_steps_match_jax():
                                    atol=1e-10 * np.abs(want).max())
     np.testing.assert_allclose(out[3].numpy(), np.asarray(ref[3]),
                                rtol=1e-10)
+
+
+def test_k9_plain_leaves_the_window_when_none_is_live():
+    """Two images that both stop at iteration 2 of a k=10 window (sum|r|
+    rises over their ``hi`` there): the plain K9 makes two coarse calls (not
+    ten), each with both images live, and returns the x/r/p of a k=2 window
+    bit for bit."""
+    ny, nx, n = 32, 16, 2
+    (c, _, x0), _ = _systems(_medium(12, (2, ny, nx), contrast=10.0))
+    r = c.b - fvm.apply_operator(c, x0)
+    p = r * c.diag_inv
+    rz = torch.sum(r * p, dim=(-2, -1))
+    row = _port_row(c, n)
+    hier = halo._build_sharded_hierarchy_2d(row, ny // n, min_size=4)
+    cw = fused2d._coef_windows(hier.sharded)
+    tail = fused2d.build_fused_tail(hier.sharded, 4)
+    m = _cpu_mesh(n)
+    calls = []
+
+    def run(k, hi):
+        def coarse(rc, live):
+            calls.append([bool(v) for v in live[0]])
+            return fused2d.v_cycle_sharded_fused(hier, cw, rc, level=1,
+                                                 tail=tail, live=live, **MG)
+        xs, rs, ps = (mesh.shard_rows(m, t.clone())[0] for t in (x0, r, p))
+        out = cgstep_sharded.cg_steps_sharded(
+            cw[0], xs, rs, ps, rz, torch.ones(2, dtype=torch.float64),
+            torch.zeros(2, dtype=torch.float64), hi, k, coarse=coarse,
+            omega=0.8, nu=2, over=1.8)
+        return [_joined(out[i]) for i in range(3)], out[4].tolist()
+
+    def sum_abs(v):
+        return torch.tensor(np.abs(v).sum(axis=(-2, -1)))
+
+    inf = torch.full((2,), np.inf, dtype=torch.float64)
+    (_, r1, _), _ = run(1, inf)
+    (x2, r2, p2), kd2 = run(2, inf)
+    sr0, sr1, sr2 = sum_abs(r.numpy()), sum_abs(r1), sum_abs(r2)
+    hi = (torch.maximum(sr0, sr1) + sr2) / 2
+    assert bool(torch.all(torch.maximum(sr0, sr1) < hi)) and kd2 == [2, 2]
+    assert bool(torch.all(sr2 > hi))
+    calls.clear()
+    (x10, r10, p10), kd10 = run(10, hi)
+    assert kd10 == [2, 2]
+    assert calls == [[True, True], [True, True]]
+    for got, want in ((x10, x2), (r10, r2), (p10, p2)):
+        np.testing.assert_array_equal(got, want)
 
 
 # ----------------------------------------------------------- whole solves

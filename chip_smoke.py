@@ -9,7 +9,11 @@ non-zero):
 1. device: CUDA must be available; prints the card, the device count and
    ``nvidia-smi``'s name and power limit;
 2. build: compiles the port's CUDA kernels from the checkout's sources;
-3. K2 (V-cycle) against its plain PyTorch version on the card, B=8 x 512^2;
+3. K2 (V-cycle) against its plain PyTorch version on the card, bit for bit:
+   B=8 x 512^2 in float32 and float64 with two images gated, and config
+   3's K2 tail (levels 1.. of the banded 2048^2 hierarchy), each in the
+   launches of the resident rule (two tile passes a level, one launch for
+   the resident bottom);
 4. K1 (fused CG steps, three tile passes an iteration) against its plain
    version on the card, B=8 x 512^2, k=5, with a frozen image, one that
    exits at iteration 0 and one tripped by its divergence threshold; its
@@ -20,7 +24,9 @@ non-zero):
    images solved again through the plain versions, then one warm-up and
    three timed solves;
 6. K1/K2 times at the main path's shapes (CUDA events) against the plain
-   versions, then one K1 call and one slice solve under ``torch.profiler``;
+   versions, K2's launches a cycle and K1's an iteration, then one K1 call
+   and one slice solve under ``torch.profiler`` (``turns.py`` times them
+   against another checkout's package in turns);
 7. K3 (Jacobi sweeps) against its plain version on the card, bit for bit:
    B=8 at 128^2 (k = 1, 37 and 10000) and 96x160 (k = 1, 37) on the
    resident route, one launch a call, and 512^2 (k = 1, 37) on the
@@ -85,13 +91,15 @@ non-zero):
     sharded level 1 too); B=2 x 256x320 fp64 at SP=4;
 26. K9 (the sharded three-pass CG steps) against its plain version, B=4 x
     2048^2, SP=4, k=5, with a frozen image, one that exits at iteration 0
-    and one tripped by its divergence threshold;
+    and one tripped by its divergence threshold; its graph route (the
+    shards on one card) against its host loop, bit for bit;
 27. BASELINE config 3's image (phase 14's problem) through
     ``sharded_solve_mgcg`` on four shards of the card and on one, each
     against the same solve on the plain versions and against phase 14's
-    unsharded stored solve, with its K2 cycles equal to the live
-    iterations plus the fresh and refresh cycles, then config 3's
-    generator at 4096^2 at SP=4:
+    unsharded stored solve, with the device count of its K2 image cycles
+    equal to the live iterations plus the fresh and refresh cycles and the
+    SP=4 solve timed on the graph route and the host loop in turns, then
+    config 3's generator at 4096^2 at SP=4:
     one float32 solve of the sharded and the unsharded banded engine (the
     float32 relres floor lies above 1e-4 there), and a float64 leg against
     the unsharded banded solve; one warm-up and three timed solves a leg,
@@ -100,8 +108,9 @@ non-zero):
     (mgcg) on two 2048^2 images against ``Devices: 1``, ``Devices: 2, DP:
     2`` on phase 10's 64 images against phase 10's table, and the dry-run
     twin (``parallel/dryrun.py``) on four shards;
-29. K8/K9 times (CUDA events) at B=1 and B=4 x 2048^2, SP=4 and SP=1, then
-    one sharded config-3 solve under ``torch.profiler``.
+29. K8/K9 times (CUDA events) at B=1 and B=4 x 2048^2, SP=4 and SP=1 (K9
+    on the graph route and the host loop in turns), then one sharded
+    config-3 solve under ``torch.profiler``.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -246,22 +255,34 @@ def cycle_work(levels, bsz, itemsize, nu):
 
 
 def k1_bytes_per_cell(levels, itemsize, nu):
-    """Reckoned bytes a K1 iteration moves per level-0 cell, ``(before,
-    after)`` the three-pass redesign, from the kernels' loads and stores
-    (each plane a pass reads or writes counted once; a quarter plane for the
-    restricted residual and the coarse correction).  Level 0, before: q = A
-    p (5 planes), the x/r update (6), pre_first (5), the residual and
-    restriction (5.25), post_first (6.25), the second post-sweep (6), the
-    dot products (2), the p update (3): 38.5.  After: pass P (7), pass X
-    (10.25), pass Z (6.25): 23.5.  Each coarse level of the cycle, in both:
+    """Reckoned bytes a K1 iteration moves per level-0 cell, ``(with
+    per-sweep K2 levels, now)``, from the kernels' loads and stores (each
+    plane a pass reads or writes counted once; a quarter plane for a
+    restricted residual or a coarse correction).  Level 0, both: pass P 7 planes, pass X 10.25, pass
+    Z 6.25: 23.5.  K2's levels from 1, one global pass a sweep (before):
     pre_first 5, 6 for each further pre-sweep, the residual and restriction
-    5.25, post_first 6.25, 6 for each further post-sweep; the coarsest level
-    5 (its sweeps stay in one block)."""
-    cells = [c.diag.shape[-2] * c.diag.shape[-1] for c in levels]
+    5.25, post_first 6.25, 6 for each further post-sweep; the coarsest 5.
+    Now: a DOWN pass (r and three coefficient planes read, e and a quarter
+    plane written: 5.25) and an UP pass (e, r, the coefficients and a
+    quarter plane read, the correction written: 6.25) for each level above
+    the resident bottom; the bottom reads the three coefficient planes of
+    its levels and its first level's right-hand side and writes that level's
+    correction."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import \
+        cycle_resident_from
+
+    shapes = [tuple(c.diag.shape[-2:]) for c in levels]
+    cells = [h * w for h, w in shapes]
+    if len(cells) == 1:
+        return (itemsize * 23.5,) * 2
     per_level = 5 + 6 * (nu - 2 if nu > 2 else 0) + 5.25 + 6.25 + 6 * (nu - 1)
-    coarse = sum(per_level * n for n in cells[1:-1]) + 5 * cells[-1]
-    coarse = coarse / cells[0] if len(cells) > 1 else 0.0
-    return (itemsize * (38.5 + coarse), itemsize * (23.5 + coarse))
+    old = sum(per_level * n for n in cells[1:-1]) + 5 * cells[-1]
+    lb = max(1, cycle_resident_from(shapes, itemsize))
+    new = 11.5 * sum(cells[1:min(lb, len(cells) - 1)])
+    new += (3 * sum(cells[lb:]) + 2 * cells[lb] if lb < len(cells)
+            else 5 * cells[-1])
+    return (itemsize * (23.5 + old / cells[0]),
+            itemsize * (23.5 + new / cells[0]))
 
 
 def phase(n, t0, text):
@@ -353,20 +374,22 @@ def tiled_work(levels, bsz, itemsize, nu, k=None, mf=False):
     return nbytes, k * (ops + n0 * (22 + (75 if mf else 0)))
 
 
+# K2's kernels (csrc/vcycle.cu; the last three run in K1 at level 0 when
+# nu > 2)
+K2_KERNELS = ("level_down", "level_up", "bottom_kernel", "coarse_solve",
+              "smooth_kernel", "resid_restrict", "post_first")
 # kernel-name fragments -> the group a profile reports them under
 PROFILE_GROUPS = (
     ("K5 pass A", "pass_a_kernel"), ("K5 pass B", "pass_b_kernel"),
     ("K5 pass C", "pass_c_kernel"),
     ("K5 scalars", ("fin_", "abs_parts", "pin_kernel", "copy_back")),
     ("K4 T1/T2", ("tiled_pre", "tiled_post")),
-    ("K2 levels", ("pre_first", "smooth_kernel", "resid_restrict",
-                   "coarse_solve", "post_first")),
+    ("K2 levels", K2_KERNELS),
 )
 PROFILE_GROUPS_K1 = (
     ("K1 pass P", "pass_p_kernel"), ("K1 pass X", "pass_x_kernel"),
     ("K1 pass Z", "pass_z_kernel"), ("K1 scalars", ("fin_", "set_act")),
-    ("K2 levels", ("pre_first", "smooth_kernel", "resid_restrict",
-                   "coarse_solve", "post_first")),
+    ("K2 levels", K2_KERNELS),
     ("memset", ("emset",)),
 )
 PROFILE_GROUPS_K3 = (("K3 resident", "jacobi_resident"),
@@ -1212,9 +1235,9 @@ def volume_phases(dev, card, lib):
 PROFILE_GROUPS_SHARDED = (
     ("K9 passes", ("shard_pass_a", "shard_pass_b", "shard_pass_c")),
     ("K8 T1/T2", ("shard_t1", "shard_t2")),
-    ("K9 finalize", ("fin_init", "fin_alpha", "fin_live", "shard_abs_parts")),
-    ("K2 tail", ("pre_first", "smooth_kernel", "resid_restrict",
-                 "coarse_solve", "post_first")),
+    ("K9 finalize", ("fin_init", "fin_alpha", "fin_live", "shard_abs_parts",
+                     "select_kernel")),
+    ("K2 tail", K2_KERNELS),
     ("strip and gather copies", ("Memcpy", "copy_kernel", "CatArray")),
 )
 C4K_SIZE = 4096                       # phase 25/27: a sharded level 1 too
@@ -1264,7 +1287,7 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
         batch_sum, cg_steps)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_sharded import (
-        cg_steps_sharded, cg_steps_sharded_reference)
+        ShardWorkspace, cg_steps_sharded, cg_steps_sharded_reference)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import \
         cg_steps_tiled
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
@@ -1293,6 +1316,16 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
 
     def joined(shards):
         return torch.cat(list(shards), dim=-2)
+
+    def host_loop(fn):
+        """Run fn with K9 on its host loop (every workspace made meanwhile
+        takes graph=False), to compare the two routes."""
+        init = ShardWorkspace.__init__
+        init.__defaults__ = (False,)
+        try:
+            return fn()
+        finally:
+            init.__defaults__ = (True,)
 
     # -- 25: K8 against its plain version, one application of the cycle
     t0 = time.perf_counter()
@@ -1365,9 +1398,15 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
                  over=MG3["over"])
         return [joined(out[i]) for i in range(3)] + list(out[3:])
 
+    r0 = cg_steps_sharded.replays
     got = k9_run(cg_steps_sharded, False)
+    replays = cg_steps_sharded.replays - r0
+    loop = host_loop(lambda: k9_run(cg_steps_sharded, False))
     ref = k9_run(cg_steps_sharded_reference, True)
     torch.cuda.synchronize()
+    check(replays == 5, f"K9 graph route: {replays} replays")
+    check(all(bool(torch.equal(g, h)) for g, h in zip(got, loop)),
+          "K9 graph route != host loop")
     kd = got[4].tolist()
     check(kd == ref[4].tolist(), f"K9 k_done {kd} != plain {ref[4].tolist()}")
     check(kd[:3] == [5, 0, 0] and kd[3] >= 1, f"K9 k_done {kd}")
@@ -1385,8 +1424,10 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         check(bool(torch.equal(g[1], s0[1])), "K9 frozen image changed")
     phase(26, t0, f"K9 vs plain, B=4 x {C3_SIZE}^2 fp32, SP=4, k=5: k_done "
           f"{kd}, "
-          f"max abs err x/r/p {k9_err:.3e}, rz max rel err {rz_err:.3e}")
-    del got, ref
+          f"max abs err x/r/p {k9_err:.3e}, rz max rel err {rz_err:.3e}; "
+          f"graph route ({replays} replays) bit-equal to the host loop in "
+          f"x, r, p, rz and k_done")
+    del got, ref, loop
 
     # -- 27: BASELINE config 3 through sharded_solve_mgcg
     t0 = time.perf_counter()
@@ -1427,13 +1468,15 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         m = mesh.make_mesh(sp, devices=[dev] * sp)
         torch.cuda.synchronize()
         zero_counts()
-        cyc0 = lib.deff_cycle_count()
+        cyc0 = lib.deff_image_cycle_count()
+        rep0 = cg_steps_sharded.replays
         t1 = time.perf_counter()
         res = halo.sharded_solve_mgcg(c, s, x0, m, **kw)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t1
         launched = counts()
-        cycles = lib.deff_cycle_count() - cyc0
+        replays = cg_steps_sharded.replays - rep0
+        cycles = lib.deff_image_cycle_count() - cyc0
         if main_launches is None:
             main_launches = launched
         check(launched["K9"] > 0 and launched["K8 T1"] > 0
@@ -1443,11 +1486,14 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         conv, deff, iters = float(res.conv), float(res.deff), int(res.iters)
         check(np.isfinite(deff) and conv <= C3_KW["tol"],
               f"config 3 {name}: relres {conv}, Deff {deff}")
-        # one gathered K2 tail cycle per live iteration, plus one for the
-        # fresh start and one for the refresh after each of the K9 windows
+        # one gathered K2 tail cycle that does work per live iteration
+        # (the device count; the replays after the image died are gated),
+        # plus one for the fresh start and one for the refresh after each
+        # of the K9 windows
         check(cycles == iters + launched["K9"] + 1,
-              f"config 3 {name}: {cycles} K2 cycles for {iters} live "
+              f"config 3 {name}: {cycles} K2 image cycles for {iters} live "
               f"iterations and {launched['K9']} windows")
+        check(replays > 0, f"config 3 {name}: no K9 graph replays")
         if size == C3_SIZE:
             plain = halo.sharded_solve_mgcg(c, s, x0, m, plain=True, **kw)
             p_deff, p_iters = float(plain.deff), int(plain.iters)
@@ -1476,6 +1522,26 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t1)
         peak = torch.cuda.max_memory_allocated()
+        turns = ""
+        if name == "SP=4":
+            # the graph route against the host loop, in turns
+            def solve(graph):
+                t1 = time.perf_counter()
+                out = (halo.sharded_solve_mgcg(c, s, x0, m, **kw) if graph
+                       else host_loop(lambda: halo.sharded_solve_mgcg(
+                           c, s, x0, m, **kw)))
+                torch.cuda.synchronize()
+                return time.perf_counter() - t1, out
+            solve(False)                                        # warm-up
+            tt = [solve(g) for g in (True, False, False, True)]
+            loop_res = tt[1][1]
+            check(float(loop_res.deff) == deff
+                  and int(loop_res.iters) == iters,
+                  f"config 3 {name} host loop: Deff {float(loop_res.deff)}, "
+                  f"{int(loop_res.iters)} iterations")
+            turns = (f"; in turns graph, host loop, host loop, graph "
+                     f"{', '.join(f'{t:.4f}' for t, _ in tt)} s (the host "
+                     f"loop's Deff and iterations equal)")
         phase(27, t0, f"BASELINE config 3 sharded {name} {card}: "
               f"{size}^2, {iters} iterations, relres {conv:.3e}, Deff "
               f"{deff:.6f} ({vs_plain}{u_name} solve {u_iters} iterations, "
@@ -1483,9 +1549,10 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
               f"{iters - u_iters:+d}), first run {t_first:.4f} s, timed "
               f"{', '.join(f'{t:.4f}' for t in times)} s, "
               f"{min(times) / iters * 1e3:.4f} ms/iteration, peak memory "
-              f"{peak / 2**30:.3f} GiB, launches {launched}, K2 cycles "
+              f"{peak / 2**30:.3f} GiB, launches {launched}, K9 graph "
+              f"replays {replays}, K2 image cycles (device count) "
               f"{cycles} = {iters} live iterations + {launched['K9'] + 1} "
-              f"fresh and refresh")
+              f"fresh and refresh{turns}")
         t0 = time.perf_counter()
         del res
     del c, s, x0
@@ -1576,23 +1643,38 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
             zero = torch.zeros(bsz, device=dev)
             inf = torch.full((bsz,), float("inf"), device=dev)
 
-            def k9(fn, plain, reps):
+            def k9(fn, plain, reps, graph=True):
+                """A K9 call of K9_TIME_K iterations on fresh shards; the
+                kernel calls share one workspace (the graph route captures
+                in the first, the warm-up) and one coarse callable."""
                 states = [[mesh.shard_rows(m, t)[0] for t in (xb, rb, pb)]
                           for _ in range(reps)]
+                work = []
+
+                def coarse(rc, live):
+                    return fused2d.v_cycle_sharded_fused(
+                        hier, cw, rc, level=1, tail=tail, plain=plain,
+                        live=live, **MG3)
 
                 def call():
                     xs, rs_, ps = states.pop()
+                    kw9 = {}
+                    if not plain:
+                        if not work:
+                            work.append(ShardWorkspace(cw[0], xs, graph))
+                        kw9 = dict(workspace=work[0])
                     fn(cw[0], xs, rs_, ps, rzb, ones, zero, inf, K9_TIME_K,
-                       coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
-                           hier, cw, rc, level=1, tail=tail, plain=plain,
-                           live=live, **MG3), omega=MG3["omega"], nu=MG3["nu"],
-                       over=MG3["over"])
+                       coarse=coarse, omega=MG3["omega"], nu=MG3["nu"],
+                       over=MG3["over"], **kw9)
                 return call
 
             n0 = lib.deff_launch_count()
-            k9(cg_steps_sharded, False, 1)()
+            k9(cg_steps_sharded, False, 1, graph=False)()
             per_iter = (lib.deff_launch_count() - n0) / K9_TIME_K
-            ms9 = cuda_ms(k9(cg_steps_sharded, False, 4), 3)
+            # the graph route and the host loop in turns
+            tt = [cuda_ms(k9(cg_steps_sharded, False, 4, graph=g), 3)
+                  for g in (True, False, False, True)]
+            ms9, ms9_loop = min(tt[0], tt[3]), min(tt[1], tt[2])
             ms9_p = cuda_ms(k9(cg_steps_sharded_reference, True, 2), 1)
             bd9 = bound(*sharded_work(hier, tail, sp, bsz, item, MG3["nu"],
                                       K9_TIME_K), item)
@@ -1600,9 +1682,12 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
             lines.append(
                 f"B={bsz} SP={sp}: K8 cycle {ms:.4f} ms (plain {ms_p:.4f} "
                 f"ms, bound {bd[0]:.4f} ms by {bd[1]}); K9 k={K9_TIME_K} "
-                f"{ms9:.4f} ms ({ms9 / K9_TIME_K:.4f} ms/iteration; plain "
+                f"graph route {ms9:.4f} ms ({ms9 / K9_TIME_K:.4f} "
+                f"ms/iteration), host loop {ms9_loop:.4f} ms "
+                f"({ms9_loop / K9_TIME_K:.4f}; turns graph, loop, loop, "
+                f"graph {', '.join(f'{t:.4f}' for t in tt)} ms); plain "
                 f"{ms9_p:.4f} ms, bound {bd9[0]:.4f} ms by {bd9[1]}, "
-                f"{per_iter:g} library launches/iteration)")
+                f"{per_iter:g} library launches/iteration")
             del hier, cw, tail, rs, pb
     phase(29, t0, f"K8/K9 times {card}, {C3_SIZE}^2 fp32: " + "; ".join(lines))
     t0 = time.perf_counter()
@@ -1658,7 +1743,7 @@ def main():
     from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
         jacobi_resident_fits, jacobi_sweeps, jacobi_sweeps_reference)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
-        v_cycle, v_cycle_reference)
+        cycle_launches, cycle_resident_from, v_cycle, v_cycle_reference)
     from effectivediffusivityfvm_tpu_torch.pipeline import batch, single
     from effectivediffusivityfvm_tpu_torch.solvers import (dispatch, driver,
                                                            jacobi_pallas,
@@ -1685,22 +1770,55 @@ def main():
           f"spill bytes {sum(spills)}")
     lib = _build.load_library()
 
-    # -- 3: K2 against its plain version, B=8 x 512^2
+    # -- 3: K2 against its plain version, bit for bit: B=8 x 512^2 in fp32
+    # and fp64 with images 2 and 5 gated, and config 3's K2 tail (levels 1..
+    # of the banded 2048^2 hierarchy, B=1), each in the rule's launches
     t0 = time.perf_counter()
     imgs = bench_images(BATCH, SIZE)
-    c8, _, x8 = build_problem(imgs[:8], dev)
-    lv8 = multigrid.build_hierarchy(c8, min_size=8, pad_levels=True)
-    x8 = x8.contiguous()
-    r8 = lv8[0].b - fvm.apply_operator(lv8[0], x8)
-    z_k = v_cycle(lv8, r8, **MG)
-    z_p = v_cycle_reference(lv8, r8, **MG)
-    torch.cuda.synchronize()
-    k2_err = float((z_k - z_p).abs().max())
-    k2_scale = float(z_p.abs().max())
-    check(k2_err <= 1e-4 * k2_scale,
-          f"K2 max|z_k - z_p| {k2_err} > 1e-4 * {k2_scale}")
-    phase(3, t0, f"K2 vs plain: max abs err {k2_err:.3e} "
-          f"(max|z| {k2_scale:.3e}, {len(lv8)} levels)")
+    gate = torch.ones(8, dtype=torch.int32, device=dev)
+    gate[2] = gate[5] = 0
+    rng = np.random.default_rng(C3_SEED)
+    d_c3, c_c3, _, x_c3 = c3_problem(correlated_binary(rng, C3_SIZE, C3_SIZE)
+                                     [None], dev)
+    tail_c3 = tiled_setup(d_c3, c_c3, x_c3, C3_KW["min_size"])[0][1:]
+    r_tail = torch.tensor(rng.standard_normal(
+        (1,) + tuple(tail_c3[0].diag.shape[-2:])), dtype=torch.float32,
+        device=dev)
+    k2_err, lines = 0.0, []
+    for label, dtype in ((f"B=8 x {SIZE}^2 fp32", torch.float32),
+                         (f"B=8 x {SIZE}^2 fp64", torch.float64),
+                         (f"config 3's tail B=1 x {tuple(r_tail.shape[-2:])}"
+                          " fp32", None)):
+        if dtype is None:
+            lv_k, r_k, act, mg = tail_c3, r_tail, None, MG3
+        else:
+            c_k, _, x_k = build_problem(imgs[:8], dev, dtype)
+            lv_k = multigrid.build_hierarchy(c_k, min_size=8, pad_levels=True)
+            r_k = lv_k[0].b - fvm.apply_operator(lv_k[0], x_k.contiguous())
+            act, mg = gate, MG
+        shapes = [tuple(c.diag.shape[-2:]) for c in lv_k]
+        item = r_k.element_size()
+        n0 = lib.deff_launch_count()
+        z_k = v_cycle(lv_k, r_k, active=act, **mg)
+        torch.cuda.synchronize()
+        per_cycle = lib.deff_launch_count() - n0
+        check(per_cycle == cycle_launches(shapes, item),
+              f"K2 {label}: {per_cycle} launches, the rule's "
+              f"{cycle_launches(shapes, item)}")
+        z_p = v_cycle_reference(lv_k, r_k, active=act, **mg)
+        err = float((z_k - z_p).abs().max())
+        check(bool(torch.equal(z_k, z_p)), f"K2 {label}: max|z_k - z_p| "
+              f"{err} (must be bit-equal)")
+        k2_err = max(k2_err, err)
+        lines.append(f"{label}: max abs err {err:.3e} (max|z| "
+                     f"{float(z_p.abs().max()):.3e}), {len(shapes)} levels, "
+                     f"resident from level "
+                     f"{cycle_resident_from(shapes, item)}, {per_cycle} "
+                     f"launches a cycle")
+        if dtype == torch.float32:
+            lv8, r8, x8 = lv_k, r_k, x_k.contiguous()
+    phase(3, t0, "K2 vs plain: " + "; ".join(lines))
+    del d_c3, c_c3, x_c3, tail_c3, r_tail, lv_k, r_k, z_k, z_p
 
     # -- 4: K1 against its plain version, B=8 x 512^2, k=5
     t0 = time.perf_counter()
@@ -1741,13 +1859,17 @@ def main():
     check(float(got[5][5]) == 0.0, "K1 frozen sum|r_true| != 0")
     k1_bit = all(bool(torch.equal(g, e)) for g, e in zip(got[:3], ref[:3]))
     k1_bpc = k1_bytes_per_cell(lv8, 4, MG["nu"])
+    shapes8 = [tuple(c.diag.shape[-2:]) for c in lv8]
+    check(k1_per_iter == 5 + cycle_launches(shapes8, 4, 1),
+          f"K1 {k1_per_iter} launches an iteration: three passes, two "
+          f"finalizes and {cycle_launches(shapes8, 4, 1)} for the cycle")
     phase(4, t0, f"K1 vs plain: k_done {kd}, max abs err x/r/p {k1_err:.3e} "
           f"(bit-equal {k1_bit}), rz max rel err "
           f"{float(((got[3] - ref[3]) / ref[3]).abs().max()):.3e}; "
           f"{k1_per_iter:g} launches/iteration; reckoned "
-          f"{k1_bpc[1]:.1f} B/cell an iteration (eight-pass design "
+          f"{k1_bpc[1]:.1f} B/cell an iteration (with per-sweep K2 levels "
           f"{k1_bpc[0]:.1f})")
-    del c8, lv8, x8, r8, z_k, z_p, p8, got, ref, state
+    del lv8, x8, r8, p8, got, ref, state
 
     # -- 5: the MGCG slice at B=512 x 512^2
     t0 = time.perf_counter()
@@ -1815,9 +1937,11 @@ def main():
     lv = multigrid.build_hierarchy(coeffs, min_size=8, pad_levels=True)
     x = x0.contiguous().clone()
     r = lv[0].b - fvm.apply_operator(lv[0], x)
+    shapes = [tuple(c.diag.shape[-2:]) for c in lv]
     n0 = lib.deff_launch_count()
     v_cycle(lv, r, **MG)
     per_cycle = lib.deff_launch_count() - n0
+    check(per_cycle == cycle_launches(shapes, 4), f"K2 {per_cycle} launches")
     ms_k2 = cuda_ms(lambda: v_cycle(lv, r, **MG), 10, warm=2)
     ms_k2p = cuda_ms(lambda: v_cycle_reference(lv, r, **MG), 3)
     p = v_cycle(lv, r, **MG)
@@ -1857,8 +1981,9 @@ def main():
           f"{per_iter:g} launches/iteration, reckoned {k1_bpc[1]:.1f} "
           f"B/cell an iteration: {k1_bpc[1] * BATCH * SIZE**2 / 1e9:.2f} GB, "
           f"{k1_bpc[1] * BATCH * SIZE**2 / HBM_BPS * 1e3:.3f} ms at "
-          f"{HBM_BPS / 1e12:.2f} TB/s; eight-pass design "
-          f"{k1_bpc[0]:.1f} B/cell)")
+          f"{HBM_BPS / 1e12:.2f} TB/s; with per-sweep K2 levels "
+          f"{k1_bpc[0]:.1f} B/cell; the cycle from level 1 "
+          f"{cycle_launches(shapes, 4, 1)} launches)")
     prof_k1 = profile_solve(lambda: k1(cg_steps), PROFILE_GROUPS_K1)
     prof_slice = profile_solve(
         lambda: multigrid.solve_mgcg_batched(coeffs, spec, x0, **SOLVE_KW),
@@ -2140,7 +2265,7 @@ def main():
          "ms": ms_k1, "plain_ms": ms_k1p, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "v_cycle", "route": "cuda",
-         "source": "effectivediffusivityfvm_tpu_torch/csrc/vcycle.cuh",
+         "source": "effectivediffusivityfvm_tpu_torch/csrc/vcycle.cu",
          "replaces": "effectivediffusivityfvm_tpu/ops/kernels/vcycle_vmem.py:276",
          "launches": launches["v_cycle"], "max_abs_err": k2_err,
          "ms": ms_k2, "plain_ms": ms_k2p, "bound_ms": k2_bound[0],

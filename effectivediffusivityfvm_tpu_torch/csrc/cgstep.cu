@@ -28,7 +28,8 @@
 //      and partials of <r, z> and sum|r|.  Reads e, e_c, r, a_w, a_n,
 //      diag_inv; writes z (25 B/cell).
 // That is 94 B/cell at level 0 an iteration (the eight passes this
-// replaces moved 154), plus the coarse levels' ~30.  V(1,1) fuses the same
+// replaces moved 154), plus K2's levels from 1 (~15 at 512^2: two tile
+// passes a level above the resident bottom).  V(1,1) fuses the same
 // way with one sweep each side; for nu > 2 the passes do the first two
 // pre-sweeps and the last two post-sweeps, and K2's smooth, residual-
 // restriction and prolongation kernels do the rest.  A one-level hierarchy
@@ -83,23 +84,6 @@ struct TileAt {
 
 inline int tiles_for(int ny, int nx) {
   return ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
-}
-
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src, bool ok) {
-  const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = ok ? (int)sizeof(T) : 0;     // 0 bytes read: zero-fill
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(sa),
-                 "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
 }
 
 // Stage an image plane's tile with an H-cell halo; cells beyond the grid
@@ -455,20 +439,6 @@ constexpr int x_smem() {
 template <bool PROLONG, int SWEEPS>
 constexpr int z_smem() {
   return (SWEEPS == 2 ? 6 : 5) * Reg<SWEEPS>::N + (PROLONG ? CN : 0);
-}
-
-// Allow a kernel its dynamic shared memory (above 48 KB it must ask), once
-// per device.
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes, unsigned* done) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 32 && (*done >> dev & 1u)) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bytes);
-  if (e == cudaSuccess && dev < 32) *done |= 1u << dev;
-  return e;
 }
 
 // Scratch per image in elements of `elem_bytes` (4 or 8): three double

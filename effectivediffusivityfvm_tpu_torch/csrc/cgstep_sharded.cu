@@ -1,33 +1,38 @@
 // K9: the three passes of one multigrid-preconditioned CG iteration on one
 // row shard, with per-image scalars summed over every shard of an image on
 // the device.  Loaded with ctypes by
-// effectivediffusivityfvm_tpu_torch/ops/kernels/cgstep_sharded.py, whose
-// host loop launches, per iteration: pass A on every shard, the alpha
-// finalize, pass B on every shard, the coarse levels (K8 / K2, through the
-// caller), pass C on every shard and the live finalize, with the halo
-// strips exchanged between the passes and no host synchronisation.
+// effectivediffusivityfvm_tpu_torch/ops/kernels/cgstep_sharded.py, which
+// runs an iteration as: pass A on every shard, the alpha finalize, pass B on
+// every shard, the coarse levels (K8 / K2, through the caller), pass C on
+// every shard and the live finalize, with the halo strips exchanged between
+// the passes and no host synchronisation -- captured once per solve as a
+// CUDA graph for each parity of the p/r ping-pong when the shards share one
+// device, launched from a host loop when they span several.
 //
 // Replaces effectivediffusivityfvm_tpu/parallel/fused2d_cg.py
 // (_cg_steps_sharded: _pa_cg, _pb_cg, _pc_cg; _cg_steps_sharded_banded:
 // cgstep_tiled's _pass_a, _pass_b and _pc_cg_banded).  Per iteration, for
 // every live image:
-//   A  beta = rz/rz_prev (0 on the first iteration or if rz_prev <= 0);
-//      p = z + beta p_old on the window, q = A p, partials of <p, q>;
+//   A  beta = rz/rz_prev (0 on the image's first iteration of the window,
+//      k_done = 0, or if rz_prev <= 0); p = z + beta p_old on the window,
+//      q = A p, partials of <p, q>;
 //   .  alpha = rz/<p,q> summed over all shards (0 unless it is > 0);
 //   B  x += alpha p; r -= alpha q with q recomputed from p on the window;
 //      T1 (tiled.cuh) on the new r; partials of sum|r|;
 //   C  T2 from the coarse correction gives z; partials of <r, z>;
-//   .  rz_prev = rz, rz = <r, z>, k_done += 1, live &= stop < sum|r| < hi.
+//   .  rz_prev = rz, rz = <r, z>, k_done += 1, par ^= 1,
+//      live &= stop < sum|r| < hi.
 // The TPU's band split existed for VMEM; here a shard is tiled as any plane
 // and the window loader reads the neighbours' rows from the exchanged
 // strips (tiled.cuh, Rows).
 //
-// Freeze contract, as the TPU kernels' skip branches: a non-live image's
-// pass A copies p_old to p, pass B copies r_old to r, keeps x and writes
-// e = rc = 0, and pass C returns at once, leaving z as it was (the TPU
-// driver's z_keep).  With those copies p and r change buffers on every
-// iteration for every image, so the host knows which buffer is current and
-// exchanges its strips with plain copies.
+// Freeze contract, as K5's: every pass of a non-live image returns at once,
+// so an iteration after the last image died costs only the gated launches.
+// p and r alternate between two buffers for the live images; `par` (per
+// image, on the device) says which one holds an image's current p and r,
+// and select_kernel copies them to the caller's planes after the window.
+// All live images of a window share the iteration's parity, so the host
+// passes each pass the buffers of that parity.
 //
 // Scalars: each pass writes one double partial per tile into slot
 // [b][shard * tiles + tile] of a (B, S * tiles) buffer; the finalize
@@ -110,38 +115,21 @@ shard_abs_parts_kernel(const T* __restrict__ r, int py, int px, double* part,
     part[(size_t)blockIdx.y * ntiles + poff + blockIdx.x] = s;
 }
 
-// Copy the tile's cells of image b from src to dst.
-template <typename T>
-__device__ void copy_interior(T* __restrict__ dst, const T* __restrict__ src,
-                              const Tile& t, int b) {
-  const size_t off = (size_t)b * t.py * t.px;
-  for (int c = threadIdx.x; c < TY * TX; c += blockDim.x) {
-    const int gi = t.ty0 + c / TX, gj = t.tx0 + c % TX;
-    if (gi < t.py && gj < t.px) {
-      const size_t g = off + (size_t)gi * t.px + gj;
-      dst[g] = src[g];
-    }
-  }
-}
-
 // Pass A: p = z + beta p_old, q = A p, partials of <p, q>.
 template <typename T>
 __global__ void __launch_bounds__(TILE_THREADS)
 shard_pass_a_kernel(ShardCoef<T> f, Rows<T> z, Rows<T> pold, int py, int px,
-                    T* __restrict__ pnew, int first, CgState<T> s, int poff,
-                    int h) {
+                    T* __restrict__ pnew, CgState<T> s, int poff, int h) {
   __shared__ double sh[TILE_THREADS];
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.y;
+  if (!s.live[b]) return;
   const Tile t = make_tile(py, px, h);
-  if (!s.live[b]) {
-    copy_interior(pnew, pold.body, t, b);
-    return;
-  }
   T* S = reinterpret_cast<T*>(smem_raw);
   const int n = t.wy * t.wx;
   T *AW = S, *AN = S + n, *DI = S + 2 * n, *P = S + 3 * n;
   const T rzp = s.rz_prev[b], rzc = s.rz[b];
+  const bool first = s.k_done[b] == 0;
   const T beta = (!first && rzp > T(0)) ? rzc / rzp : T(0);
   coeff_windows_rows(f, b, t, AW, AN, DI);
   for (int c = threadIdx.x; c < n; c += blockDim.x) {
@@ -182,22 +170,9 @@ shard_pass_b_kernel(ShardCoef<T> f, T* __restrict__ x, Rows<T> p,
   __shared__ double sh[TILE_THREADS];
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.y;
+  if (!s.live[b]) return;
   const Tile t = make_tile(py, px, h);
   const size_t off = (size_t)b * py * px;
-  if (!s.live[b]) {
-    copy_interior(rnew, rold.body, t, b);
-    for (int c = threadIdx.x; c < TY * TX; c += blockDim.x) {
-      const int gi = t.ty0 + c / TX, gj = t.tx0 + c % TX;
-      if (gi < py && gj < px) e[off + (size_t)gi * px + gj] = T(0);
-    }
-    T* rcb = rc + (size_t)b * (py / 2) * (px / 2);
-    for (int cc = threadIdx.x; cc < (TY / 2) * (TX / 2); cc += blockDim.x) {
-      const int gi = t.ty0 + 2 * (cc / (TX / 2));
-      const int gj = t.tx0 + 2 * (cc % (TX / 2));
-      if (gi < py && gj < px) rcb[(size_t)(gi / 2) * (px / 2) + gj / 2] = T(0);
-    }
-    return;
-  }
   T* S = reinterpret_cast<T*>(smem_raw);
   const int n = t.wy * t.wx;
   T *AW = S, *AN = S + n, *DI = S + 2 * n, *P = S + 3 * n, *R = S + 4 * n;
@@ -271,6 +246,22 @@ shard_pass_c_kernel(ShardCoef<T> f, Rows<T> e, Rows<T> r, Rows<T> ec,
     s.part_c[(size_t)b * s.ntiles + poff + blockIdx.x] = sum;
 }
 
+// The caller's p and r of every image from the buffer its parity names:
+// dst = par ? src1 : src0.
+template <typename T>
+__global__ void select_kernel(T* dst_r, const T* r0, const T* r1, T* dst_p,
+                              const T* p0, const T* p1, int n,
+                              const int* par) {
+  const size_t off = (size_t)blockIdx.y * n;
+  const bool one = par[blockIdx.y] != 0;
+  for (int k = 0; k < CPT; ++k) {
+    const int c = blockIdx.x * TILE + k * THREADS + threadIdx.x;
+    if (c >= n) break;
+    dst_r[off + c] = (one ? r1 : r0)[off + c];
+    dst_p[off + c] = (one ? p1 : p0)[off + c];
+  }
+}
+
 bool bad_shard(int B, int py, int px, int sh, int nu) {
   return B < 1 || py < 2 || px < 2 || py % 2 || px % 2 || sh % 2 ||
          nu < 1 || nu + 2 > sh || nu > MAX_NU - 2;
@@ -316,8 +307,8 @@ int fin_entry(int kind, int B, const void* const* st, int ntiles,
 // in: aw, awN, awS, an, anN, anS, dinv, dinvN, dinvS, z, zN, zS, p, pN, pS
 template <typename T>
 int pass_a_entry(int B, int py, int px, int sh, const void* const* in,
-                 void* pnew, int first, const void* const* st, int ntiles,
-                 int poff, int nu, void* stream) {
+                 void* pnew, const void* const* st, int ntiles, int poff,
+                 int nu, void* stream) {
   if (bad_shard(B, py, px, sh, nu)) return cudaErrorInvalidValue;
   const int h = nu + 2;
   size_t smem;
@@ -327,7 +318,7 @@ int pass_a_entry(int B, int py, int px, int sh, const void* const* in,
                                        TILE_THREADS, smem,
                                        static_cast<cudaStream_t>(stream)>>>(
       coef_of<T>(in, sh), rows_of<T>(in + 9, sh), rows_of<T>(in + 12, sh), py,
-      px, static_cast<T*>(pnew), first, state_of<T>(st, ntiles), poff, h));
+      px, static_cast<T*>(pnew), state_of<T>(st, ntiles), poff, h));
   return cudaSuccess;
 }
 
@@ -372,6 +363,19 @@ int pass_c_entry(int B, int py, int px, int sh, const void* const* in,
   return cudaSuccess;
 }
 
+template <typename T>
+int select_entry(int B, int n, void* dst_r, const void* r0, const void* r1,
+                 void* dst_p, const void* p0, const void* p1, const int* par,
+                 void* stream) {
+  if (B < 1 || n < 1) return cudaErrorInvalidValue;
+  DEFF_LAUNCH(select_kernel<T><<<dim3(blocks_for(n), B), THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<T*>(dst_r), static_cast<const T*>(r0),
+      static_cast<const T*>(r1), static_cast<T*>(dst_p),
+      static_cast<const T*>(p0), static_cast<const T*>(p1), n, par));
+  return cudaSuccess;
+}
+
 }  // namespace
 }  // namespace deff
 
@@ -391,11 +395,17 @@ int deff_shard_tiles(int py, int px) { return deff::tiles_for(py, px); }
     return deff::fin_entry<T>(kind, B, st, ntiles, active, stream);           \
   }                                                                           \
   int deff_shard_pass_a_##SUF(int B, int py, int px, int sh,                  \
-                              const void* const* in, void* pnew, int first,   \
+                              const void* const* in, void* pnew,              \
                               const void* const* st, int ntiles, int poff,    \
                               int nu, void* stream) {                         \
-    return deff::pass_a_entry<T>(B, py, px, sh, in, pnew, first, st, ntiles,  \
-                                 poff, nu, stream);                           \
+    return deff::pass_a_entry<T>(B, py, px, sh, in, pnew, st, ntiles, poff,   \
+                                 nu, stream);                                 \
+  }                                                                           \
+  int deff_shard_select_##SUF(int B, int n, void* dst_r, const void* r0,      \
+                              const void* r1, void* dst_p, const void* p0,    \
+                              const void* p1, const int* par, void* stream) { \
+    return deff::select_entry<T>(B, n, dst_r, r0, r1, dst_p, p0, p1, par,     \
+                                 stream);                                     \
   }                                                                           \
   int deff_shard_pass_b_##SUF(int B, int py, int px, int sh,                  \
                               const void* const* in, void* x, void* rnew,     \

@@ -43,10 +43,12 @@ _D = ctypes.c_double
 # goes as c_void_p so ctypes never narrows it to a 32-bit int.
 _ENTRIES = {
     "deff_cycle_scratch_elems": ([_I, _P, _P], ctypes.c_longlong),
+    "deff_cycle_resident_from": ([_I, _P, _P, _I], _I),
     "deff_cg_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
     "deff_cg_tiled_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
     "deff_launch_count": ([], ctypes.c_longlong),
     "deff_cycle_count": ([], ctypes.c_longlong),
+    "deff_image_cycle_count": ([], ctypes.c_longlong),
     "deff_cycle3_count": ([], ctypes.c_longlong),
     "deff_cycle3_scratch_elems": ([_I, _P, _P, _P], ctypes.c_longlong),
     "deff_cg3d_scratch_elems": ([_I, _P, _P, _P, _I], ctypes.c_longlong),
@@ -71,8 +73,13 @@ for _t in ("f32", "f64"):
          _P, _P], _I)               # active (init only), stream
     _ENTRIES[f"deff_shard_pass_a_{_t}"] = (
         [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
-         _P, _P, _I,                # planes[], p (out), first
+         _P, _P,                    # planes[], p (out)
          _P, _I, _I, _I, _P], _I)   # state[], per image, offset, nu, stream
+    _ENTRIES[f"deff_shard_select_{_t}"] = (
+        [_I, _I,                    # B, cells a plane
+         _P, _P, _P,                # r (out), r buffers 0 and 1
+         _P, _P, _P,                # p (out), p buffers 0 and 1
+         _P, _P], _I)               # parity per image, stream
     _ENTRIES[f"deff_shard_pass_b_{_t}"] = (
         [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
          _P, _P, _P, _P, _P,        # planes[], x, r (out), e, coarse residual

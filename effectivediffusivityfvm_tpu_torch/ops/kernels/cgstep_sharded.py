@@ -2,8 +2,9 @@
 of shards, each iteration three passes per shard with the per-image scalars
 summed over the shards between them -- the CUDA kernels
 (``csrc/cgstep_sharded.cu`` over ``csrc/tiled.cuh`` and
-``csrc/cgscalars.cuh``) driven by a host loop, and its plain PyTorch
-version.
+``csrc/cgscalars.cuh``), replayed from CUDA graphs when the shards share a
+device and launched from a host loop when they do not, and its plain
+PyTorch version.
 
 Replaces ``effectivediffusivityfvm_tpu/parallel/fused2d_cg.py``
 (``_cg_steps_sharded``: ``_pa_cg``, ``_pb_cg``, ``_pc_cg``; and the banded
@@ -20,7 +21,8 @@ Replaces ``effectivediffusivityfvm_tpu/parallel/fused2d_cg.py``
   T2 fused into pass C), ``rz = <r, z>``, ``k_done += 1``, ``live = stop <
   sum|r| < hi``;
 * the window ends after the iteration in which the last image died (the
-  JAX loop's ``(i < k) & reduce_any(live)``), so a dead iteration costs
+  JAX loop's ``(i < k) & reduce_any(live)``): the plain version and the
+  host loop leave it, the graph route replays gated iterations that change
   nothing; ``coarse(rcs, live)`` gets the per-shard live flags and skips
   the images whose flag is 0;
 * no refresh: the caller refreshes between windows.
@@ -37,6 +39,8 @@ versions update x, r and p in place and return them.
 
 from __future__ import annotations
 
+import inspect
+import weakref
 from typing import Callable, List, Sequence
 
 import torch
@@ -48,7 +52,8 @@ from .vcycle_sharded import (HALO, MAX_NU, check_coarse, check_shard,
                              pointers, window)
 from .vcycle_tiled import post_reference, pre_reference
 
-__all__ = ["cg_steps_sharded_reference", "cg_steps_sharded"]
+__all__ = ["cg_steps_sharded_reference", "cg_steps_sharded",
+           "ShardWorkspace"]
 
 
 def _dsum(v):
@@ -154,31 +159,110 @@ class _DeviceState:
     """The per-image scalars and partial buffers of the shards on one
     device (every device holding shards of the row keeps its own copy)."""
 
-    def __init__(self, bsz, ntot, dt, dev, rz, stop, hi, active):
+    def __init__(self, bsz, ntot, dt, dev):
         f = dict(dtype=dt, device=dev)
         i = dict(dtype=torch.int32, device=dev)
-        self.rz = rz.to(**f).clone()
+        self.rz = torch.empty(bsz, **f)
         self.rz_prev = torch.empty(bsz, **f)
         self.alpha = torch.zeros(bsz, **f)
-        self.stop = stop.to(**f).contiguous()
-        self.hi = hi.to(**f).contiguous()
-        self.active = active.to(**f).contiguous()
-        self.live = torch.empty(bsz, **i)
-        self.par = torch.empty(bsz, **i)
-        self.k_done = torch.empty(bsz, **i)
+        self.stop = torch.empty(bsz, **f)
+        self.hi = torch.empty(bsz, **f)
+        self.active = torch.empty(bsz, **f)
+        self.live = torch.zeros(bsz, **i)
+        self.par = torch.zeros(bsz, **i)
+        self.k_done = torch.zeros(bsz, **i)
         d = dict(dtype=torch.float64, device=dev)
         self.parts = [torch.zeros(bsz * ntot, **d) for _ in range(3)]
         self.ptrs = pointers([self.rz, self.rz_prev, self.alpha, self.stop,
                               self.hi, self.live, self.par, self.k_done,
                               *self.parts])
-        with torch.cuda.device(dev):
-            self.stream = torch.cuda.current_stream().cuda_stream
+
+    def load(self, rz, stop, hi, active):
+        for dst, src in ((self.rz, rz), (self.stop, stop), (self.hi, hi),
+                         (self.active, active)):
+            dst.copy_(src)
+
+
+class ShardWorkspace:
+    """The buffers of K9's windows on one row of shards, for a whole solve.
+
+    Every address stays fixed across the windows: x, the p and r ping-pong,
+    z, e, the restricted residual, the halo strips, the scalar state of each
+    device and the ctypes pointer arrays of passes A and B.  A window copies
+    the caller's x, r, p and scalars in and the results out.  When every
+    shard lies on one device (the graph route) the workspace also holds the
+    two CUDA graphs of an iteration, one for each parity of the p/r
+    ping-pong, captured at the first window with the ``coarse`` callable,
+    omega, nu and over of that window; a later window with other ones
+    captures anew.  ``graph=False`` takes the host loop on one device too
+    (to compare the two routes).  ``run_mgcg_sharded_fused`` keeps one per
+    mesh row for a solve; :func:`cg_steps_sharded` makes one for a call
+    without one."""
+
+    def __init__(self, coefs, xs, graph=True):
+        from ._build import load_library
+
+        lib = load_library()
+        n = len(xs)
+        bsz, ny, nx = xs[0].shape
+        self.shape, self.dtype = tuple(xs[0].shape), xs[0].dtype
+        self.devices = [x.device for x in xs]
+        self.graphed = graph and len(set(self.devices)) == 1
+        # the graphs read the coefficients by address: hold them
+        self.coefs = [tuple(c) for c in coefs]
+        self.nt = lib.deff_shard_tiles(ny, nx)
+        self.ntot = n * self.nt
+        self.states = {}
+        for d in self.devices:
+            if d not in self.states:
+                self.states[d] = _DeviceState(bsz, self.ntot, self.dtype, d)
+        self.st = [self.states[d] for d in self.devices]
+
+        def planes():
+            return [torch.empty_like(x) for x in xs]
+
+        def strips(rows, cols):
+            return tuple([x.new_zeros((bsz, rows, cols)) for x in xs]
+                         for _ in range(2))
+
+        self.x = planes()
+        self.P = [planes(), planes()]
+        self.R = [planes(), planes()]
+        self.z = planes()
+        self.e = planes()
+        self.rc = [x.new_empty((bsz, ny // 2, nx // 2)) for x in xs]
+        self.strips = {nm: strips(HALO, nx) for nm in ("p", "r", "e", "z")}
+        self.ecs_strips = strips(HALO // 2, nx // 2)
+        # passes A and B read fixed planes: their pointer arrays per parity
+        self.ptrs_a = [[pointers(self.coefs[s] + self.rows("z", self.z, s)
+                                 + self.rows("p", self.P[c], s))
+                        for s in range(n)] for c in (0, 1)]
+        self.ptrs_b = [[pointers(self.coefs[s]
+                                 + self.rows("p", self.P[1 - c], s)
+                                 + self.rows("r", self.R[c], s))
+                        for s in range(n)] for c in (0, 1)]
+        self.graphs = None
+        self.graph_key = None
+
+    def rows(self, nm, planes, s):
+        north, south = self.strips[nm]
+        return (planes[s], north[s], south[s])
+
+    def check(self, coefs, xs):
+        def ptrs(cs):
+            return [tuple(t.data_ptr() for t in c) for c in cs]
+
+        if (tuple(xs[0].shape) != self.shape or xs[0].dtype != self.dtype
+                or [x.device for x in xs] != self.devices
+                or ptrs(coefs) != ptrs(self.coefs)):
+            raise ValueError("cg_steps_sharded: the workspace belongs to "
+                             "other shards or coefficients")
 
 
 def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
                      rs: List[torch.Tensor], ps: List[torch.Tensor], rz,
                      active, stop, hi, k: int, *, coarse: Callable, omega,
-                     nu: int, over: float):
+                     nu: int, over: float, workspace=None):
     """Run up to ``k`` sharded MGCG iterations on one dp group's shards.
 
     Args:
@@ -194,16 +278,26 @@ def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
         ``(B, ny_l/2, nx/2)`` to their coarse corrections (the cycle from
         level 1); ``live`` holds each shard's per-image flags on its device
         (the images whose flag is 0 may skip the cycle: their corrections
-        are not read).
+        are not read).  It must not synchronise with the device.
+      workspace: a :class:`ShardWorkspace` of these shards and coefficients
+        kept across the windows of a solve (None: one for this call).
     Returns:
       ``(xs, rs, ps, rz, k_done)``; ``k_done`` is int32 ``(B,)`` on shard
       0's device.
 
     CPU tensors run the plain version; CUDA tensors launch the kernels
-    (float32 or float64, ``nu <= 4``) or raise.  The host reads ``any(live)``
-    once before each iteration (one synchronisation, against the ~1 ms of
-    launches, exchanges and coarse tail that a dead iteration would cost)
-    and ends the window when no image is live.
+    (float32 or float64, ``nu <= 4``) or raise.  Placement decides the
+    route.  When every shard lies on one device, the iteration -- passes,
+    exchanges, finalizes and ``coarse`` -- is captured once per workspace
+    as a CUDA graph for each parity of the p/r ping-pong and replayed ``k``
+    times when an image is live at the window's start (one read of
+    ``any(live)``), with no host read-back between the iterations: an
+    iteration after the last image died runs only gated launches and the
+    copies around them.  When the shards span several
+    devices (a graph cannot hold the copies between them), a host loop
+    launches the iteration, reading ``any(live)`` before each one and
+    ending the window when no image is live.  A failed capture raises.
+    ``cg_steps_sharded.replays`` counts the replays.
     """
     if nu < 1 or nu > MAX_NU:
         raise ValueError(f"cg_steps_sharded: nu={nu} must be in 1..{MAX_NU}")
@@ -226,43 +320,27 @@ def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
             check_plane(t, f"{nm}[{s}]", like.shape, like)
         if like.shape != xs[0].shape or like.dtype != xs[0].dtype:
             raise ValueError("cg_steps_sharded: shards differ in shape/dtype")
-    lib = load_library()
     bsz, ny, nx = xs[0].shape
-    dt = xs[0].dtype
-    sfx = _CTYPE[dt]
-    nt = lib.deff_shard_tiles(ny, nx)
-    ntot = n * nt
     for name, t in (("rz", rz), ("active", active), ("stop", stop),
                     ("hi", hi)):
         if tuple(t.shape) != (bsz,):
             raise ValueError(f"cg_steps_sharded: {name} shape "
                              f"{tuple(t.shape)}, expected ({bsz},)")
-    states = {}
-    for x in xs:
-        if x.device not in states:
-            states[x.device] = _DeviceState(bsz, ntot, dt, x.device, rz, stop,
-                                            hi, active)
-    st = [states[x.device] for x in xs]
+    lib = load_library()
+    w = ShardWorkspace(coefs, xs) if workspace is None else workspace
+    w.check(coefs, xs)
+    sfx = _CTYPE[w.dtype]
+    nt, ntot, st, states = w.nt, w.ntot, w.st, w.states
     ws = weights(omega, nu)
+    pass_a = getattr(lib, f"deff_shard_pass_a_{sfx}")
+    pass_b = getattr(lib, f"deff_shard_pass_b_{sfx}")
+    pass_c = getattr(lib, f"deff_shard_pass_c_{sfx}")
 
-    def scratch(rows, cols):
-        return [x.new_zeros((bsz, rows, cols)) for x in xs]
-
-    P = [list(ps), [torch.empty_like(x) for x in xs]]
-    R = [list(rs), [torch.empty_like(x) for x in xs]]
-    zbuf = [torch.empty_like(x) for x in xs]
-    ebuf = [torch.empty_like(x) for x in xs]
-    rcbuf = [x.new_empty((bsz, ny // 2, nx // 2)) for x in xs]
-    strips = {nm: (scratch(HALO, nx), scratch(HALO, nx))
-              for nm in ("p", "r", "e", "z")}
-    ecs_strips = (scratch(HALO // 2, nx // 2), scratch(HALO // 2, nx // 2))
+    def stream(s):
+        return torch.cuda.current_stream(w.devices[s]).cuda_stream
 
     def exchange(nm, planes):
-        halo_strips(planes, HALO, out=strips[nm])
-
-    def rows(nm, planes, s):
-        north, south = strips[nm]
-        return (planes[s], north[s], south[s])
+        halo_strips(planes, HALO, out=w.strips[nm])
 
     def sync_parts(which):
         """Copy each shard's partial slots to every other device."""
@@ -276,69 +354,143 @@ def cg_steps_sharded(coefs: Sequence, xs: List[torch.Tensor],
                     st[s].parts[which].view(bsz, n, nt)[:, s])
 
     def fin(kind):
-        for sd in states.values():
+        for dev, sd in states.items():
             check(getattr(lib, f"deff_shard_fin_{sfx}")(
-                kind, bsz, sd.ptrs, ntot, sd.active.data_ptr(), sd.stream),
+                kind, bsz, sd.ptrs, ntot, sd.active.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream),
                 "cg_steps_sharded (finalize)")
 
-    exchange("p", P[0])
-    exchange("r", R[0])
-    for s in range(n):
-        check(getattr(lib, f"deff_shard_abs_parts_{sfx}")(
-            bsz, ny, nx, R[0][s].data_ptr(), st[s].parts[1].data_ptr(), ntot,
-            s * nt, st[s].stream), "cg_steps_sharded (sum|r|)")
-    sync_parts(1)
-    fin(0)
-    pass_a = getattr(lib, f"deff_shard_pass_a_{sfx}")
-    pass_b = getattr(lib, f"deff_shard_pass_b_{sfx}")
-    pass_c = getattr(lib, f"deff_shard_pass_c_{sfx}")
-    ran = 0
-    for i in range(k):
-        if not bool(st[0].live.any()):
-            break
-        ran += 1
-        cur, nxt = i % 2, 1 - i % 2
-        znm, zsrc = ("p", P[cur]) if i == 0 else ("z", zbuf)
+    def iteration(c):
+        """One iteration reading the p and r buffers of parity c."""
+        nxt = 1 - c
         for s in range(n):
-            planes = pointers(tuple(coefs[s]) + rows(znm, zsrc, s)
-                              + rows("p", P[cur], s))
-            check(pass_a(bsz, ny, nx, HALO, planes, P[nxt][s].data_ptr(),
-                         1 if i == 0 else 0, st[s].ptrs, ntot, s * nt, nu,
-                         st[s].stream), "cg_steps_sharded (pass A)")
-        exchange("p", P[nxt])
+            check(pass_a(bsz, ny, nx, HALO, w.ptrs_a[c][s],
+                         w.P[nxt][s].data_ptr(), st[s].ptrs, ntot, s * nt,
+                         nu, stream(s)), "cg_steps_sharded (pass A)")
+        exchange("p", w.P[nxt])
         sync_parts(0)
         fin(1)
         for s in range(n):
-            planes = pointers(tuple(coefs[s]) + rows("p", P[nxt], s)
-                              + rows("r", R[cur], s))
-            check(pass_b(bsz, ny, nx, HALO, planes, xs[s].data_ptr(),
-                         R[nxt][s].data_ptr(), ebuf[s].data_ptr(),
-                         rcbuf[s].data_ptr(), st[s].ptrs, ntot, s * nt, ws,
-                         nu, st[s].stream), "cg_steps_sharded (pass B)")
-        exchange("r", R[nxt])
-        exchange("e", ebuf)
-        ecs = coarse(rcbuf, [sd.live for sd in st])
-        ecn, ecss = halo_strips(ecs, HALO // 2, out=ecs_strips)
+            check(pass_b(bsz, ny, nx, HALO, w.ptrs_b[c][s], w.x[s].data_ptr(),
+                         w.R[nxt][s].data_ptr(), w.e[s].data_ptr(),
+                         w.rc[s].data_ptr(), st[s].ptrs, ntot, s * nt, ws,
+                         nu, stream(s)), "cg_steps_sharded (pass B)")
+        exchange("r", w.R[nxt])
+        exchange("e", w.e)
+        ecs = coarse(w.rc, [sd.live for sd in st])
+        ecn, ecss = halo_strips(ecs, HALO // 2, out=w.ecs_strips)
         for s in range(n):
-            if i == 0:
-                check_coarse(ecs[s], ecn[s], ecss[s], xs[s],
-                             "cg_steps_sharded")
-            planes = pointers(tuple(coefs[s]) + rows("e", ebuf, s)
-                              + rows("r", R[nxt], s)
+            check_coarse(ecs[s], ecn[s], ecss[s], xs[s], "cg_steps_sharded")
+            planes = pointers(tuple(coefs[s]) + w.rows("e", w.e, s)
+                              + w.rows("r", w.R[nxt], s)
                               + (ecs[s], ecn[s], ecss[s]))
-            check(pass_c(bsz, ny, nx, HALO, planes, zbuf[s].data_ptr(),
+            check(pass_c(bsz, ny, nx, HALO, planes, w.z[s].data_ptr(),
                          float(over), st[s].ptrs, ntot, s * nt, ws, nu,
-                         st[s].stream), "cg_steps_sharded (pass C)")
-        exchange("z", zbuf)
+                         stream(s)), "cg_steps_sharded (pass C)")
+        exchange("z", w.z)
         sync_parts(1)
         sync_parts(2)
         fin(2)
-    if ran % 2:                         # the last iteration wrote P[1], R[1]
-        for s in range(n):
-            ps[s].copy_(P[1][s])
-            rs[s].copy_(R[1][s])
+
+    key = (tuple(ws), nu, float(over))
+    if w.graphed and (w.graph_key is None or w.graph_key[0]() != coarse
+                      or w.graph_key[1:] != key):
+        w.graphs = _capture(iteration, w)
+        # weakly: the coarse callable's owner may hold the workspace (a
+        # bound method of the solve's row), and a dead one never matches
+        w.graph_key = ((weakref.WeakMethod if inspect.ismethod(coarse)
+                        else weakref.ref)(coarse),) + key
+
+    # the window's state; z = p on entry
+    for s in range(n):
+        w.x[s].copy_(xs[s])
+        w.P[0][s].copy_(ps[s])
+        w.R[0][s].copy_(rs[s])
+        w.z[s].copy_(ps[s])
+    for sd in states.values():
+        sd.load(rz, stop, hi, active)
+    exchange("p", w.P[0])
+    exchange("r", w.R[0])
+    exchange("z", w.z)
+    for s in range(n):
+        check(getattr(lib, f"deff_shard_abs_parts_{sfx}")(
+            bsz, ny, nx, w.R[0][s].data_ptr(), st[s].parts[1].data_ptr(),
+            ntot, s * nt, stream(s)), "cg_steps_sharded (sum|r|)")
+    sync_parts(1)
+    fin(0)
+    if w.graphed:
+        # the loop's test before its first iteration; none between them
+        if k > 0 and bool(st[0].live.any()):
+            for i in range(k):
+                w.graphs[i % 2].replay()
+            cg_steps_sharded.replays += k
+    else:
+        for i in range(k):
+            if not bool(st[0].live.any()):
+                break
+            iteration(i % 2)
+    # each image's p and r from the buffer its parity names
+    select = getattr(lib, f"deff_shard_select_{sfx}")
+    for s in range(n):
+        check(select(bsz, ny * nx, rs[s].data_ptr(), w.R[0][s].data_ptr(),
+                     w.R[1][s].data_ptr(), ps[s].data_ptr(),
+                     w.P[0][s].data_ptr(), w.P[1][s].data_ptr(),
+                     st[s].par.data_ptr(), stream(s)),
+              "cg_steps_sharded (parity copy)")
+        xs[s].copy_(w.x[s])
     cg_steps_sharded.launches += 1
-    return xs, rs, ps, st[0].rz, st[0].k_done
+    return xs, rs, ps, st[0].rz.clone(), st[0].k_done.clone()
+
+
+# Per device, the stream every K9 capture runs on and an anchor graph (one
+# memset) that holds one memory pool for the process: each solve's graphs
+# capture into that pool and die with their workspace, and the next
+# solve's captures reuse the blocks they leave free there (the allocator
+# keeps free blocks by stream and pool), where a pool per solve would stay
+# reserved until the allocator's cache is emptied.  A graph's temporaries
+# are made and consumed within one replay and its results go to its
+# workspace's buffers, and graphs replay on one stream, so graphs that
+# share the pool may reuse each other's free memory.
+_SIDE = {}
+_ANCHOR = {}
+
+
+def _capture(iteration, w):
+    """The two graphs of an iteration (parity 0 and 1) on the workspace's
+    device, after one eager run with every image dead (it moves no data but
+    the scratch's) so that first-use work, such as loading a kernel, stays
+    out of the capture.  Captured with ``capture_begin`` and ``capture_end``
+    (``torch.cuda.graph`` would also synchronise, collect garbage and empty
+    the allocator's cache, twice a solve)."""
+    dev = w.devices[0]
+    for sd in w.states.values():
+        sd.live.zero_()
+    main = torch.cuda.current_stream(dev)
+    if dev not in _SIDE:
+        _SIDE[dev] = torch.cuda.Stream(dev)
+    side = _SIDE[dev]
+    side.wait_stream(main)
+    graphs = [torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()]
+    with torch.cuda.device(dev), torch.cuda.stream(side):
+        iteration(0)
+        if dev not in _ANCHOR:
+            anchor = torch.cuda.CUDAGraph()
+            anchor.capture_begin(capture_error_mode="thread_local")
+            try:
+                torch.empty(1, device=dev).zero_()
+            finally:
+                anchor.capture_end()
+            _ANCHOR[dev] = anchor
+        for c, g in enumerate(graphs):
+            g.capture_begin(pool=_ANCHOR[dev].pool(),
+                            capture_error_mode="thread_local")
+            try:
+                iteration(c)
+            finally:
+                g.capture_end()
+    main.wait_stream(side)
+    return graphs
 
 
 cg_steps_sharded.launches = 0
+cg_steps_sharded.replays = 0

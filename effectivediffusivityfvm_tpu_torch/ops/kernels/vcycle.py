@@ -20,7 +20,11 @@ step for step:
   scaled by ``over``.
 
 On a CUDA tensor :func:`v_cycle` launches the kernel (or raises); on a CPU
-tensor it runs :func:`v_cycle_reference`.
+tensor it runs :func:`v_cycle_reference`.  The kernel runs each level above
+the bottom of the pyramid as two shared-memory tile passes (down: the pre-
+sweeps, residual and restriction; up: the prolongation and post-sweeps) and
+the bottom, from :func:`cycle_resident_from` down, in one launch with each
+image's pyramid resident in one CTA's shared memory.
 """
 
 from __future__ import annotations
@@ -33,7 +37,43 @@ import torch.nn.functional as F
 
 from ..fvm import StencilCoeffs, guarded_inverse
 
-__all__ = ["smoothing_schedule", "v_cycle_reference", "v_cycle"]
+__all__ = ["smoothing_schedule", "v_cycle_reference", "v_cycle",
+           "cycle_resident_from", "cycle_launches", "MAX_NU"]
+
+MAX_NU = 8              # sweeps a leg the kernel's tile passes take
+RESIDENT_SMEM = 231424  # bytes of one CTA the resident bottom's planes take
+RESIDENT_LEVELS = 16    # levels the resident bottom holds at most
+
+
+def cycle_resident_from(shapes, itemsize: int) -> int:
+    """The level from which K2 runs the rest of the pyramid resident in one
+    CTA per image: the first level ``l`` whose planes from ``l`` down --
+    ``a_w``, ``a_n``, ``diag_inv``, right-hand side and correction of each
+    level, plus one ping-pong plane of level ``l``'s size, ``itemsize`` bytes
+    a cell -- fit ``RESIDENT_SMEM`` bytes in at most ``RESIDENT_LEVELS``
+    levels; ``len(shapes)`` when even the coarsest level does not fit (its
+    sweeps then run from global memory).  Shape and element size alone
+    decide it, as the JAX package's ``vcycle_fits_vmem`` does; the kernel
+    (``csrc/vcycle.cuh``) applies the same rule.  On an H100 the B=512 x 512^2
+    hierarchy (min_size 8) starts it at 64^2 in float32 and at 32^2 in
+    float64."""
+    cells = 0
+    n_lv = len(shapes)
+    for l in range(n_lv - 1, -1, -1):
+        n = shapes[l][0] * shapes[l][1]
+        cells += 5 * n
+        if ((cells + n) * itemsize > RESIDENT_SMEM
+                or n_lv - l > RESIDENT_LEVELS):
+            return l + 1
+    return 0
+
+
+def cycle_launches(shapes, itemsize: int, l0: int = 0) -> int:
+    """Kernel launches of one K2 cycle from level ``l0``: two tile passes for
+    each level above the resident bottom, and one for the bottom (or, when
+    not even the coarsest level fits, for the coarsest level's sweeps)."""
+    lb = max(l0, cycle_resident_from(shapes, itemsize))
+    return 2 * (min(lb, len(shapes) - 1) - l0) + 1
 
 
 def smoothing_schedule(omega, nu):
@@ -177,7 +217,11 @@ def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
     ``(B, ny_l, nx_l)``.  ``active`` (optional, ``(B,)`` on ``r``'s device):
     an image whose flag is 0 does no work and comes back as zeros.  A CPU
     tensor runs the plain version; a CUDA tensor launches the CUDA kernel
-    (float32 or float64).
+    (float32 or float64, ``nu <= MAX_NU``): two shared-memory tile passes a
+    level down to level :func:`cycle_resident_from` ``(shapes, itemsize)``,
+    then one launch for the rest, each image's remaining pyramid resident in
+    one CTA (:func:`cycle_launches` counts them).  The rule is by shape and
+    dtype; a launch the card refuses raises.
     """
     if r.device.type == "cpu":
         return v_cycle_reference(levels, r, omega=omega,
@@ -185,6 +229,8 @@ def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
                                  active=active)
     if r.device.type != "cuda":
         raise ValueError(f"v_cycle: unsupported device {r.device}")
+    if nu < 1 or nu > MAX_NU:
+        raise ValueError(f"v_cycle: nu={nu} must be in 1..{MAX_NU}")
     from ._build import check, load_library
 
     lib = load_library()

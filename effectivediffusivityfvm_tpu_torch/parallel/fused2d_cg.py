@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.kernels.cgstep_sharded import (cg_steps_sharded,
+from ..ops.kernels.cgstep_sharded import (ShardWorkspace, cg_steps_sharded,
                                           cg_steps_sharded_reference)
 from ..ops.kernels.vcycle_sharded import HALO
 from .fused2d import (_coef_windows, build_fused_tail, shard_band,
@@ -55,6 +55,20 @@ class _Row:
         self.tail = build_fused_tail(self.hier.sharded, min_size)
         self.kw = dict(nu=nu, tail=self.tail, plain=plain, **mg)
         self.npts = ny_l * c_row[0].diag.shape[-1] * len(c_row)
+        self.k9 = None          # K9's workspace, kept for the whole solve
+
+    def coarse(self, rcs, live):
+        """K9's coarse callable: the cycle from level 1."""
+        return self.cycle(rcs, level=1, live=live)
+
+    def cg_kwargs(self, xs):
+        """The keywords of K9's windows: on a card, the solve's workspace
+        (its buffers and graphs live as long as the solve)."""
+        if self.kw["plain"] or xs[0].device.type != "cuda":
+            return {}
+        if self.k9 is None:
+            self.k9 = ShardWorkspace(self.coef_wins[0], xs)
+        return dict(workspace=self.k9)
 
     def cycle(self, rs, level=0, live=None):
         return v_cycle_sharded_fused(self.hier, self.coef_wins, rs,
@@ -161,9 +175,8 @@ def run_mgcg_sharded_fused(c_rows, s_rows, x_rows, *, tol, max_iter,
             out = cg_fn([c for c in row.coef_wins[0]], x[d], r[d], p[d],
                         part(rz, d), part(active.to(dtype), d),
                         part(stop_sum, d), part(hi_sum, d), k,
-                        coarse=lambda rc, live, row=row: row.cycle(
-                            rc, level=1, live=live),
-                        omega=mg_omega, nu=nu, over=over)
+                        coarse=row.coarse, omega=mg_omega, nu=nu, over=over,
+                        **row.cg_kwargs(x[d]))
             x[d], r[d], p[d] = out[0], out[1], out[2]
             rz_rows.append(out[3])
             kd_rows.append(out[4])

@@ -33,7 +33,8 @@ from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
 from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
     jacobi_resident_fits, jacobi_sweeps, jacobi_sweeps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
-    v_cycle, v_cycle_reference)
+    LevelArgs, cycle_launches, cycle_resident_from, v_cycle,
+    v_cycle_reference)
 from effectivediffusivityfvm_tpu_torch.solvers import multigrid, solvers3d
 
 pytestmark = pytest.mark.gpu
@@ -75,6 +76,49 @@ def test_v_cycle_kernel_matches_plain(cuda, dtype, shape):
     torch.cuda.synchronize()
     assert v_cycle.launches == before + 1
     assert _rel_err(z, v_cycle_reference(levels, r, **MG)) <= TOL[dtype]
+
+
+SCHEDULES = {1: (0.8,), 2: (1.281, 0.5584), 3: (1.2, 0.7, 0.9),
+             4: (1.3, 0.6, 0.9, 0.75)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nu", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape,min_size,resident_from", [
+    ((40, 52), 4, {4: 0, 8: 0}),        # the whole pyramid resident
+    ((130, 70), 4, {4: 1, 8: 1}),       # level 0 in tile passes, partial tiles
+    ((300, 260), 8, {4: 2, 8: 3}),      # padded coarse levels in passes
+    ((160, 144), 200, {4: 1, 8: 1}),    # one level, too large for one CTA
+])
+def test_v_cycle_kernel_bit_equal_across_the_resident_rule(
+        cuda, dtype, nu, shape, min_size, resident_from):
+    """K2 equals its plain version bit for bit for nu = 1..4 on both sides of
+    the resident rule, with a gated image, in the launches the rule gives:
+    two tile passes a level above the bottom and one launch for the rest."""
+    rng = np.random.default_rng(nu)
+    d = torch.tensor(np.exp(rng.uniform(0, np.log(1e4), (3,) + shape)),
+                     dtype=dtype, device=cuda)
+    levels = multigrid.build_hierarchy(fvm.fvm_coefficients(d, 0.0, 1.0),
+                                       min_size=min_size, pad_levels=True)
+    shapes = [tuple(c.diag.shape[-2:]) for c in levels]
+    item = d.element_size()
+    lb = cycle_resident_from(shapes, item)
+    assert lb == resident_from[item]
+    la = LevelArgs(levels, d)
+    lib = _build.load_library()
+    assert lib.deff_cycle_resident_from(len(shapes), la.ny, la.nx, item) == lb
+    r = torch.tensor(rng.standard_normal((3,) + shapes[0]), dtype=dtype,
+                     device=cuda)
+    active = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    mg = dict(omega=SCHEDULES[nu], nu=nu, coarse_iters=5, over=1.8,
+              active=active)
+    n0 = lib.deff_launch_count()
+    z = v_cycle(levels, r, **mg)
+    torch.cuda.synchronize()
+    assert lib.deff_launch_count() - n0 == cycle_launches(shapes, item)
+    ref = v_cycle_reference(levels, r, **mg)
+    assert torch.equal(z, ref), float((z - ref).abs().max())
+    assert not bool(z[1].any())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -555,8 +599,9 @@ def test_sharded_solve_on_gpu_matches_plain_on_cpu(cuda):
 
 def test_shard_cg_steps_window_ends_with_the_last_live_image(cuda):
     """K9 on two images that both reach their stop at iteration 3 of a k=10
-    window: three iterations run, with one gated K2 tail cycle each (not
-    ten), and x/r/p equal a k=3 window's."""
+    window: the K2 tail does work in three iterations for each image (the
+    device count of image cycles; the other seven replays are gated), and
+    x/r/p equal a k=3 window's."""
     from effectivediffusivityfvm_tpu_torch.ops.kernels import cgstep_sharded
     from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
 
@@ -570,7 +615,7 @@ def test_shard_cg_steps_window_ends_with_the_last_live_image(cuda):
 
     def run(k, stop):
         xs, rs, ps = (mesh.shard_rows(m, t.clone())[0] for t in (x, r, p))
-        c0 = lib.deff_cycle_count()
+        c0 = lib.deff_image_cycle_count()
         out = cgstep_sharded.cg_steps_sharded(
             cw[0], xs, rs, ps, rz, ones, stop, float("inf") * ones, k,
             coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
@@ -579,18 +624,74 @@ def test_shard_cg_steps_window_ends_with_the_last_live_image(cuda):
             omega=0.8, nu=2, over=1.8)
         torch.cuda.synchronize()
         return ([torch.cat(out[i], dim=-2) for i in range(3)],
-                out[4].tolist(), lib.deff_cycle_count() - c0)
+                out[4].tolist(), lib.deff_image_cycle_count() - c0)
 
     srs = [r.abs().sum(dim=(-2, -1))]
     for k in (1, 2, 3):
         planes, kd, cyc = run(k, 0 * ones)
-        assert kd == [k, k] and cyc == k
+        assert kd == [k, k] and cyc == 2 * k
         srs.append(planes[1].abs().sum(dim=(-2, -1)))
     first = torch.stack(srs[:3]).min(dim=0).values
     stop = (srs[3] + first) / 2
     assert bool(torch.all((srs[3] < stop) & (stop < first)))
+    r0 = cgstep_sharded.cg_steps_sharded.replays
     got, kd, cycles = run(10, stop)
     assert kd == [3, 3]
-    assert cycles == 3                          # live iterations, no more
+    assert cgstep_sharded.cg_steps_sharded.replays == r0 + 10
+    assert cycles == 2 * 3                      # live iterations, no more
     for g, w in zip(got, planes):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sp", [1, 4])
+def test_shard_cg_steps_graph_route_equals_host_loop(cuda, sp, dtype):
+    """K9's graph route (shards on one device) against its host loop, bit for
+    bit in x, r, p, rz and k_done, over two windows of one workspace (the
+    second replays the graphs captured in the first): image 0 runs both
+    windows, 1 is frozen, 2 exits at iteration 0, 3 trips its hi."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import cgstep_sharded
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
+
+    m, c, hier, cw, tail, x, r = _sharded_problem(cuda, dtype, 4, 64, 40, sp,
+                                                  seed=1)
+    p = r * c.diag_inv
+    rz = torch.sum(r * p, dim=(-2, -1))
+    sr0 = torch.sum(r.abs(), dim=(-2, -1))
+    rz[3] *= 1e3
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=dtype, device=cuda)
+    stop = torch.zeros_like(sr0)
+    stop[2] = 10 * sr0[2]
+    hi = torch.full_like(sr0, float("inf"))
+    hi[3] = 2 * sr0[3]
+
+    def coarse(rc, live):
+        return fused2d.v_cycle_sharded_fused(hier, cw, rc, nu=2, level=1,
+                                             tail=tail, live=live, **SHARD_MG)
+
+    def run(graph):
+        xs, rs, ps = (mesh.shard_rows(m, t)[0] for t in (x, r, p))
+        w = cgstep_sharded.ShardWorkspace(cw[0], xs, graph=graph)
+        rzw, outs = rz.clone(), []
+        for k in (3, 5):
+            out = cgstep_sharded.cg_steps_sharded(
+                cw[0], xs, rs, ps, rzw, active, stop, hi, k, coarse=coarse,
+                omega=0.8, nu=2, over=1.8, workspace=w)
+            rzw = out[3]
+            outs.append([torch.cat(out[i], dim=-2).clone() for i in range(3)]
+                        + [out[3].clone(), out[4].clone()])
+        return w, outs
+
+    r0 = cgstep_sharded.cg_steps_sharded.replays
+    wg, graphed = run(True)
+    assert wg.graphed and cgstep_sharded.cg_steps_sharded.replays == r0 + 8
+    wl, looped = run(False)
+    assert not wl.graphed and cgstep_sharded.cg_steps_sharded.replays == r0 + 8
+    torch.cuda.synchronize()
+    assert graphed[0][4].tolist() == [3, 0, 0, 1]
+    assert graphed[1][4].tolist() == [5, 0, 0, 0]
+    for g_win, l_win in zip(graphed, looped):
+        for g, h in zip(g_win, l_win):
+            assert torch.equal(g, h)
+    for g, s in zip(graphed[1][:3], (x, r, p)):
+        assert torch.equal(g[1], s[1])          # frozen: bit-unchanged

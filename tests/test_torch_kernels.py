@@ -25,7 +25,8 @@ from effectivediffusivityfvm_tpu_torch.ops import fvm as tfvm
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
     cg_steps, cg_steps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
-    smoothing_schedule, v_cycle, v_cycle_reference)
+    cycle_launches, cycle_resident_from, smoothing_schedule, v_cycle,
+    v_cycle_reference)
 from effectivediffusivityfvm_tpu_torch.solvers.multigrid import \
     build_hierarchy
 
@@ -92,6 +93,41 @@ def test_smoothing_schedule():
     assert smoothing_schedule((1.281, 0.5584), 2) == (1.281, 0.5584)
     with pytest.raises(ValueError):
         smoothing_schedule((1.0, 0.5), 3)
+
+
+# K2's resident rule on the hierarchies the card runs (shapes only; the
+# padded-even coarsening of build_hierarchy): the MGCG slice (512^2,
+# min_size 8; K1 runs the cycle from level 1), config 3's K2 tail (levels
+# 1.. of the banded 2048^2 hierarchy, min_size 32) and the gathered tails of
+# the sharded engine (config 3 at SP=4 gathers level 1, 1024^2; 4096^2
+# gathers level 2, also 1024^2).
+SLICE = [(512, 512), (256, 256), (128, 128), (64, 64), (32, 32), (16, 16),
+         (8, 8)]
+TAIL_1024 = [(1024, 1024), (512, 512), (256, 256), (128, 128), (64, 64),
+             (32, 32)]
+
+
+@pytest.mark.parametrize("shapes,l0,item,resident,launches", [
+    (SLICE, 1, 4, 3, 5),          # 256, 128 in passes; 64^2 down resident
+    (SLICE, 1, 8, 4, 7),          # float64: 64^2 no longer fits one CTA
+    (SLICE, 0, 4, 3, 7),          # the whole cycle (fresh, refresh)
+    (TAIL_1024, 0, 4, 4, 9),      # config 3's tail and the sharded tail
+    (TAIL_1024, 0, 8, 5, 11),     # the 4096^2 float64 sharded tail
+    ([(160, 144)], 0, 4, 1, 1),   # one level too large: global sweeps
+    ([(8, 8)], 0, 8, 0, 1),       # one level, resident
+], ids=["slice-f32", "slice-f64", "slice-whole", "tail-f32", "tail-f64",
+        "one-level-global", "one-level-resident"])
+def test_cycle_resident_rule(shapes, l0, item, resident, launches):
+    assert cycle_resident_from(shapes, item) == resident
+    assert cycle_launches(shapes, item, l0) == launches
+
+
+def test_cycle_resident_rule_on_built_hierarchy():
+    """The slice's shapes above are build_hierarchy's at 512^2."""
+    d = torch.ones((1, 512, 512), dtype=torch.float32)
+    levels = build_hierarchy(tfvm.fvm_coefficients(d, 0.0, 1.0), min_size=8,
+                             pad_levels=True)
+    assert [tuple(c.diag.shape[-2:]) for c in levels] == SLICE
 
 
 @pytest.fixture(scope="module")

@@ -339,6 +339,54 @@ def test_k9_plain_leaves_the_window_when_none_is_live():
         np.testing.assert_array_equal(got, want)
 
 
+def test_k9_plain_k40_equals_k10_once_every_image_died():
+    """The gating contract K9's graph route relies on: once every image has
+    died (here by iteration 8 at the latest: two reach their stops, one is
+    frozen), more iterations change nothing -- x, r, p, rz and k_done of a
+    k=40 window equal a k=10 window's."""
+    ny, nx, n = 32, 16, 2
+    (c, _, x0), _ = _systems(_medium(7, (3, ny, nx), contrast=10.0))
+    r = c.b - fvm.apply_operator(c, x0)
+    p = r * c.diag_inv
+    rz = torch.sum(r * p, dim=(-2, -1))
+    row = _port_row(c, n)
+    hier = halo._build_sharded_hierarchy_2d(row, ny // n, min_size=4)
+    cw = fused2d._coef_windows(hier.sharded)
+    tail = fused2d.build_fused_tail(hier.sharded, 4)
+    m = _cpu_mesh(n)
+    active = torch.tensor([1.0, 1.0, 0.0], dtype=torch.float64)
+    inf = torch.full((3,), np.inf, dtype=torch.float64)
+
+    def run(k, stop):
+        xs, rs, ps = (mesh.shard_rows(m, t.clone())[0] for t in (x0, r, p))
+        out = cgstep_sharded.cg_steps_sharded(
+            cw[0], xs, rs, ps, rz.clone(), active, stop, inf, k,
+            coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
+                hier, cw, rc, level=1, tail=tail, live=live, **MG),
+            omega=0.8, nu=2, over=1.8)
+        return [_joined(out[i]) for i in range(3)] + [out[3], out[4]]
+
+    # sum|r| after 0..8 iterations; image 0 stops at the first new least
+    # value from iteration 2 on, image 1 at the first from iteration 5 on,
+    # each halfway between that value and the least before it
+    srs = [np.abs(r.numpy()).sum(axis=(-2, -1))]
+    for k in range(1, 9):
+        srs.append(np.abs(run(k, torch.zeros(3, dtype=torch.float64))[1])
+                   .sum(axis=(-2, -1)))
+    srs = np.array(srs)
+    stop, died = np.zeros(3), [0, 0, 0]
+    for b, first in ((0, 2), (1, 5)):
+        died[b] = next(i for i in range(first, 9)
+                       if srs[i, b] < srs[:i, b].min())
+        stop[b] = (srs[died[b], b] + srs[:died[b], b].min()) / 2
+    stop = torch.tensor(stop)
+    got10, got40 = run(10, stop), run(40, stop)
+    assert got10[4].tolist() == got40[4].tolist() == died
+    for a, b in zip(got10[:3], got40[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(got10[3], got40[3])
+
+
 # ----------------------------------------------------------- whole solves
 
 @pytest.mark.parametrize("layout", ["sp4", "dp2_sp2"])

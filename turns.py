@@ -1,0 +1,148 @@
+#!/usr/bin/env python3
+"""Time the port's main-path kernels and solves with the package of one
+checkout, to compare two checkouts on one card in turns.
+
+    python3 turns.py [--tree DIR]
+
+imports ``effectivediffusivityfvm_tpu_torch`` from DIR (default: this
+checkout; its kernels build into DIR/build/kernels) and prints one JSON
+line with the card and, on the problems of ``chip_smoke.py`` (this
+checkout's):
+
+* K2's whole cycle at B=512 x 512^2 fp32 (ms by CUDA events, launches a
+  cycle) and K1's k=5 call there (ms, launches an iteration);
+* the MGCG slice (bench.py's problem): solves/s, best of three, and the
+  iterations;
+* BASELINE config 3 stored (one 2048^2 image): seconds, best of three;
+* config 3 through ``sharded_solve_mgcg`` on four shards of the card and on
+  one: seconds, best of three, iterations and Deff.
+
+To compare a parent commit with this tree, unpack it under ``build/`` and
+run the two alternately in one call on the card:
+
+    mkdir -p build/parent && git archive PARENT | tar -x -C build/parent
+    for t in build/parent . . build/parent; do python3 turns.py --tree $t; done
+
+It needs a CUDA device and exits non-zero without one.
+"""
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(HERE))
+    tree = Path(ap.parse_args().tree).resolve()
+    sys.path.insert(0, str(tree))
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("turns: no CUDA device; nothing was run")
+    import effectivediffusivityfvm_tpu_torch as pkg
+    from effectivediffusivityfvm_tpu_torch.ops import fvm
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import _build
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
+        batch_sum, cg_steps)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.parallel import halo, mesh
+    from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+
+    if Path(pkg.__file__).resolve().parents[1] != tree:
+        raise SystemExit(f"turns: imported {pkg.__file__}, not from {tree}")
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    t_build = time.perf_counter()
+    lib = _build.load_library()
+    out = {"tree": str(tree), "card": smi,
+           "build_s": time.perf_counter() - t_build}
+
+    def best_of_3(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        return min(times), times, res
+
+    # the MGCG slice's problem, B=512 x 512^2 (images cached for the turns)
+    cache = HERE / "build" / "turns_images.npy"
+    if cache.exists():
+        imgs = np.load(cache)
+    else:
+        imgs = cs.bench_images(cs.BATCH, cs.SIZE)
+        cache.parent.mkdir(parents=True, exist_ok=True)
+        np.save(cache, imgs)
+    coeffs, spec, x0 = cs.build_problem(imgs, dev)
+    lv = multigrid.build_hierarchy(coeffs, min_size=8, pad_levels=True)
+    x = x0.contiguous().clone()
+    r = lv[0].b - fvm.apply_operator(lv[0], x)
+    n0 = lib.deff_launch_count()
+    v_cycle(lv, r, **cs.MG)
+    out["k2_launches_a_cycle"] = lib.deff_launch_count() - n0
+    out["k2_ms"] = cs.cuda_ms(lambda: v_cycle(lv, r, **cs.MG), 10, warm=2)
+    p = v_cycle(lv, r, **cs.MG)
+    b = x.shape[0]
+    ones, zero = torch.ones(b, device=dev), torch.zeros(b, device=dev)
+    inf = torch.full((b,), float("inf"), device=dev)
+    rz = batch_sum(r * p)
+
+    def k1(k=5):
+        return cg_steps(lv, x, r, p, rz, ones, zero, inf, k, **cs.MG)
+
+    n0 = lib.deff_launch_count()
+    k1(0)
+    n1 = lib.deff_launch_count()
+    k1(5)
+    out["k1_launches_an_iteration"] = (lib.deff_launch_count() - n1
+                                       - (n1 - n0)) / 5
+    out["k1_ms"] = cs.cuda_ms(k1, 3)
+    del lv, x, r, p
+    t, times, res = best_of_3(lambda: multigrid.solve_mgcg_batched(
+        coeffs, spec, x0, **cs.SOLVE_KW))
+    iters = res.iters.cpu().numpy()
+    out["slice_solves_per_s"] = cs.BATCH / t
+    out["slice_runs_s"] = times
+    out["slice_iterations"] = [int(iters.min()), int(iters.max())]
+    del coeffs, spec, x0, res
+    torch.cuda.empty_cache()
+
+    # BASELINE config 3, unsharded (stored) and sharded
+    rng = np.random.default_rng(cs.C3_SEED)
+    img = cs.correlated_binary(rng, cs.C3_SIZE, cs.C3_SIZE)
+    _, c, s, x0 = cs.c3_problem(img, dev)
+    kw = dict(cs.C3_KW, first_window=0)
+    t, times, res = best_of_3(lambda: multigrid.solve_mgcg(c, s, x0, **kw))
+    out["config3_s"], out["config3_runs_s"] = t, times
+    out["config3_iterations"] = int(res.iters)
+    for sp in (4, 1):
+        m = mesh.make_mesh(sp, devices=[dev] * sp)
+        t, times, res = best_of_3(
+            lambda: halo.sharded_solve_mgcg(c, s, x0, m, **kw))
+        out[f"config3_sp{sp}_s"], out[f"config3_sp{sp}_runs_s"] = t, times
+        out[f"config3_sp{sp}_iterations"] = int(res.iters)
+        out[f"config3_sp{sp}_deff"] = float(res.deff)
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -49,9 +49,10 @@ non-zero):
 12. K4 (the banded V-cycle) against its plain version on the card: B=2 at
     2048^2 and at 2007x1002 (padded to 2048x1024) in fp32, B=2 at 256x320
     in fp64;
-13. K5 (the banded CG steps) against its plain version on the card, B=4 x
-    2048^2, k=5, stored and matrix-free, with a frozen image, one that
-    exits at iteration 0 and one tripped by its divergence threshold;
+13. K5 (the banded CG steps, three tile passes an iteration) against its
+    plain version on the card, B=4 x 2048^2, k=5, stored and matrix-free,
+    with a frozen image, one that exits at iteration 0 and one tripped by
+    its divergence threshold, bit for bit;
 14. BASELINE config 3 (one 2048^2 image, contrast 1e-6, fp32, relresidual
     1e-4) through ``solve_mgcg`` with the engine left to the auto rule,
     stored and matrix-free, each against the same solve on the plain
@@ -60,7 +61,9 @@ non-zero):
     mgcg`` on the config-3 image, and ``batch_sim`` on two 2048^2 images
     with ``Pallas: auto`` (K4/K5) and ``Pallas: force`` (K1/K2); then the
     force batch in float64 through "cgstep" (K1/K2) and "tiled" (K4/K5);
-16. K4/K5 times (CUDA events) at B=1 and B=4 x 2048^2 fp32;
+16. K4/K5 times (CUDA events) at B=1 and B=4 x 2048^2 fp32, with K5's
+    launches an iteration, its reckoned bytes a cell an iteration and the
+    bounds (level 0 counted in every pass that must read it);
 17. one config-3 solve per leg under ``torch.profiler``: device busy time,
     the span of its kernels and the idle share, and device time by kernel
     group;
@@ -68,9 +71,10 @@ non-zero):
     x 64^3 fp32 with nu=2, B=2 x 40x36x52 fp64 with nu=1 (bit for bit);
 19. K6 banded against its plain version: B=1 x 256^3 fp32 nu=2, B=2 x
     100x64x90 fp32 (padded by ``pad_shape_3d``), B=1 x 48^3 fp64 nu=3;
-20. K7 (the three-pass 3D CG steps) against its plain version, B=4 x
-    256^3 fp32, k=5, stored and matrix-free, with a frozen volume, one that
-    exits at iteration 0 and one tripped by its divergence threshold;
+20. K7 (the three z-marching passes of the 3D CG steps) against its plain
+    version, B=4 x 256^3 fp32, k=5, stored and matrix-free, with a frozen
+    volume, one that exits at iteration 0 and one tripped by its divergence
+    threshold, bit for bit; then B=1 x 256^3 float64 at nu=3;
 21. BASELINE config 5 (``benchmarks/bench3d.py``'s problem: one 256^3
     volume, contrast 1e-6, fp32, relresidual 1e-4, V(2,2)) through
     ``solve_mgcg_3d`` with the engine left to the auto rule, matrix-free
@@ -82,7 +86,8 @@ non-zero):
     against their analytic Deff; ``RunBatch: 1`` on ``ImageDir/00000.npy``
     ... ``00003.npy`` (4 x 64^3) against the four single solves;
 23. K6/K7 times (CUDA events) at B=1 and B=4 x 256^3 fp32, stored and
-    matrix-free;
+    matrix-free, with K7's launches an iteration, its reckoned bytes a cell
+    an iteration and the bounds;
 24. one config-5 solve per leg under ``torch.profiler``;
 25. K8 (the row-sharded cycle: per-shard T1/T2 around the gathered K2
     tail) against its plain version on the card, one application of
@@ -268,21 +273,49 @@ def k1_bytes_per_cell(levels, itemsize, nu):
     the resident bottom; the bottom reads the three coefficient planes of
     its levels and its first level's right-hand side and writes that level's
     correction."""
-    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import \
-        cycle_resident_from
-
     shapes = [tuple(c.diag.shape[-2:]) for c in levels]
     cells = [h * w for h, w in shapes]
     if len(cells) == 1:
         return (itemsize * 23.5,) * 2
     per_level = 5 + 6 * (nu - 2 if nu > 2 else 0) + 5.25 + 6.25 + 6 * (nu - 1)
     old = sum(per_level * n for n in cells[1:-1]) + 5 * cells[-1]
-    lb = max(1, cycle_resident_from(shapes, itemsize))
-    new = 11.5 * sum(cells[1:min(lb, len(cells) - 1)])
-    new += (3 * sum(cells[lb:]) + 2 * cells[lb] if lb < len(cells)
-            else 5 * cells[-1])
+    new = k2_tail_cells(shapes, itemsize)
     return (itemsize * (23.5 + old / cells[0]),
             itemsize * (23.5 + new / cells[0]))
+
+
+def k2_tail_cells(shapes, itemsize):
+    """Reckoned elements K2's cycle moves from level 1 of the 2D hierarchy
+    ``shapes`` down (K1's and K5's coarse tail): a DOWN pass (r and three
+    coefficient planes read, e and a quarter plane written: 5.25 planes) and
+    an UP pass (e, r, the coefficients and a quarter plane read, the
+    correction written: 6.25) for each level above the resident bottom; the
+    bottom reads the three coefficient planes of its levels and its first
+    level's right-hand side and writes that level's correction."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import \
+        cycle_resident_from
+
+    cells = [h * w for h, w in shapes]
+    lb = max(1, cycle_resident_from(shapes, itemsize))
+    new = 11.5 * sum(cells[1:min(lb, len(cells) - 1)])
+    return new + (3 * sum(cells[lb:]) + 2 * cells[lb] if lb < len(cells)
+                  else 5 * cells[-1])
+
+
+def k5_bytes_per_cell(levels, itemsize, mf=False):
+    """Reckoned bytes a K5 iteration moves per level-0 cell, from the
+    kernels' loads and stores (each plane a pass reads or writes counted
+    once; a quarter plane for the restricted residual and the coarse
+    correction).  Level 0 stored: pass P 7 planes (z, p_old, a_w, a_n,
+    diag_inv in; p, q out), pass X 10.25 (r, q, x, p and the coefficients
+    in; x, r, e and a quarter plane out), pass Z 6.25 (e, r, the
+    coefficients and a quarter plane in; z out): 23.5.  Matrix-free the
+    three coefficient planes of each pass become one D plane: 17.5.  Plus
+    K2's cycle on levels[1:] (k2_tail_cells)."""
+    shapes = [tuple(c.diag.shape[-2:]) for c in levels]
+    return itemsize * ((17.5 if mf else 23.5)
+                       + k2_tail_cells(shapes, itemsize) / (shapes[0][0]
+                                                            * shapes[0][1]))
 
 
 def phase(n, t0, text):
@@ -360,18 +393,30 @@ def tiled_setup(d, coeffs, x0, min_size):
 
 
 def tiled_work(levels, bsz, itemsize, nu, k=None, mf=False):
-    """Bytes and operations of one banded cycle (``k=None``), or of a K5
-    call of ``k`` iterations with every image live: the cycle's reckoning
-    (cycle_work) per iteration, 22 operations a cell for the CG updates,
-    products and sums, and when matrix-free 25 a cell in each of the three
-    passes to rebuild the coefficients; a K5 call reads the hierarchy (level
-    0 as D when matrix-free), x, r and p once and writes x, r and p."""
-    nbytes, ops, cells = cycle_work(levels, bsz, itemsize, nu)
-    if k is None:
-        return nbytes, ops
+    """``(bytes, operations, bytes with level 0 read once a call)`` of one banded
+    cycle (``k=None``: K4) or of a K5 call of ``k`` iterations with every
+    image live.  Operations: the cycle's reckoning (cycle_work), and for K5
+    per iteration 22 a cell for the CG updates, products and sums and, when
+    matrix-free, 25 a cell in each of the three passes to rebuild the
+    coefficients.  Bytes: level 0's working set is larger than L2 at the
+    main path's sizes (a 2048^2 fp32 plane is 16.8 MB, seven or more of them
+    live), so level 0 counts in every pass that must read it.  K4: T1 and T2
+    each read r and the three coefficient planes, and z is written (9
+    planes); e, which crosses the coarse tail from T1 to T2, counts no more
+    than it does in K5 (T2 could rebuild it from r and the coefficients), so
+    its round trip is a cost of the design, not of the function.  K5, each
+    iteration: x, r, p, z and the coefficient planes (one D plane when
+    matrix-free) read once and x, r, p, z written once.  Both plus K2's
+    cycle on levels[1:] once a cycle (cycle_work).  The earlier reckoning
+    read level 0 once a call."""
+    once, ops, cells = cycle_work(levels, bsz, itemsize, nu)
+    tail = cycle_work(levels[1:], bsz, itemsize, nu)[0]
     n0 = bsz * cells[0]
-    nbytes += itemsize * n0 * (6 - 2 - (2 if mf else 0))
-    return nbytes, k * (ops + n0 * (22 + (75 if mf else 0)))
+    if k is None:
+        return itemsize * n0 * 9 + tail, ops, once
+    old = once + itemsize * n0 * (6 - 2 - (2 if mf else 0))
+    per_iter = itemsize * n0 * (8 + (1 if mf else 3)) + tail
+    return (k * per_iter, k * (ops + n0 * (22 + (75 if mf else 0))), old)
 
 
 # K2's kernels (csrc/vcycle.cu; the last three run in K1 at level 0 when
@@ -380,8 +425,8 @@ K2_KERNELS = ("level_down", "level_up", "bottom_kernel", "coarse_solve",
               "smooth_kernel", "resid_restrict", "post_first")
 # kernel-name fragments -> the group a profile reports them under
 PROFILE_GROUPS = (
-    ("K5 pass A", "pass_a_kernel"), ("K5 pass B", "pass_b_kernel"),
-    ("K5 pass C", "pass_c_kernel"),
+    ("K5 pass P", "tile_p_kernel"), ("K5 pass X", "tile_x_kernel"),
+    ("K5 pass Z", "tile_z_kernel"),
     ("K5 scalars", ("fin_", "abs_parts", "pin_kernel", "copy_back")),
     ("K4 T1/T2", ("tiled_pre", "tiled_post")),
     ("K2 levels", K2_KERNELS),
@@ -451,7 +496,8 @@ def large_grid_phases(dev, card, lib):
         batch_sum, cg_steps)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
         cg_steps_tiled, cg_steps_tiled_reference)
-    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
+        cycle_launches, v_cycle)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import (
         v_cycle_tiled, v_cycle_tiled_reference)
     from effectivediffusivityfvm_tpu_torch.pipeline import batch, single
@@ -541,13 +587,54 @@ def large_grid_phases(dev, card, lib):
                 err_m = max(err_m, err)
         rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
         check(rz_err <= 1e-3, f"K5 {mode} rz rel err {rz_err}")
+        # float32 products summed in double and rounded once: bit for bit
+        bit = all(bool(torch.equal(g, e)) for g, e in zip(got[:4], ref[:4]))
+        check(bit, f"K5 {mode}: x/r/p/rz not bit-equal to the plain "
+              f"version (max abs err {err_m})")
         for g, e in zip(got[:4], ref[:4]):
             check(bool(torch.equal(g[1], e[1])), f"K5 {mode} frozen image")
         k5_err = max(k5_err, err_m)
         lines.append(f"{mode}: k_done {kd}, max abs err x/r/p {err_m:.3e}, "
-                     f"rz max rel err {rz_err:.3e}")
+                     f"rz max rel err {rz_err:.3e}, bit-equal {bit}")
     phase(13, t0, "K5 vs plain, B=4 x 2048^2, k=5: " + "; ".join(lines))
     del got, ref, state, levels4, x4, mf4, r4, p4
+
+    # the float64 instantiation at nu = 3 on config 3's first image, B=1:
+    # float64 products summed in another order than the plain version's
+    # (torch.sum), so within 1e-9 of max|.|, not bit for bit
+    t0 = time.perf_counter()
+    d64, c64, _, x064 = c3_problem(imgs4[:1], dev, torch.float64)
+    lv64, x64, mf64 = tiled_setup(d64, c64, x064, C3_KW["min_size"])
+    r64 = lv64[0].b - fvm.apply_operator(lv64[0], x64)
+    mg3 = dict(MG3, nu=3)
+    p64 = v_cycle_tiled(lv64, r64, **mg3)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    state = (x64, r64, p64, batch_sum(r64 * p64), one, 0 * one,
+             one * float("inf"))
+    lines = []
+    for mode, extra in (("stored", {}), ("matrix-free", mf64)):
+        got = cg_steps_tiled(lv64, *(t.clone() for t in state), 5, **mg3,
+                             **extra)
+        ref = cg_steps_tiled_reference(lv64, *(t.clone() for t in state), 5,
+                                       **mg3, **extra)
+        torch.cuda.synchronize()
+        kd = got[4].tolist()
+        check(kd == ref[4].tolist() == [5], f"K5 fp64 {mode} k_done {kd}")
+        err_m = 0.0
+        for nm, g, e in zip("xrp", got[:3], ref[:3]):
+            err = float((g - e).abs().max())
+            check(err <= 1e-9 * float(e.abs().max()),
+                  f"K5 fp64 {mode} {nm} err {err}")
+            err_m = max(err_m, err)
+        rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
+        check(rz_err <= 1e-9, f"K5 fp64 {mode} rz rel err {rz_err}")
+        bit = all(bool(torch.equal(g, e)) for g, e in zip(got[:4], ref[:4]))
+        lines.append(f"{mode}: k_done {kd}, max abs err x/r/p {err_m:.3e}, "
+                     f"rz rel err {rz_err:.3e}, bit-equal {bit}")
+        del got, ref
+    phase(13, t0, "K5 vs plain, B=1 x 2048^2 fp64 nu=3, k=5: "
+          + "; ".join(lines))
+    del d64, c64, x064, lv64, x64, mf64, r64, p64, state
 
     # -- 14: BASELINE config 3 through solve_mgcg, engine by the auto rule
     t0 = time.perf_counter()
@@ -683,11 +770,13 @@ def large_grid_phases(dev, card, lib):
         n0 = lib.deff_launch_count()
         v_cycle_tiled(levels, r, **MG3)
         per_cycle = lib.deff_launch_count() - n0
-        times[("K4", bsz)] = (ms, ms_p, bound(*tiled_work(levels, bsz, item,
-                                                          MG3["nu"]), item))
+        work = tiled_work(levels, bsz, item, MG3["nu"])
+        times[("K4", bsz)] = (ms, ms_p, bound(*work[:2], item))
         lines.append(f"B={bsz} K4 cycle {ms:.4f} ms (plain {ms_p:.4f} ms, "
                      f"bound {times[('K4', bsz)][2][0]:.4f} ms by "
-                     f"{times[('K4', bsz)][2][1]}, {per_cycle} launches)")
+                     f"{times[('K4', bsz)][2][1]}, level 0 read once "
+                     f"{bound(work[2], work[1], item)[0]:.4f} ms; "
+                     f"{per_cycle} launches)")
         p = v_cycle_tiled(levels, r, **MG3)
         rz = batch_sum(r * p)
         ones = torch.ones(bsz, device=dev)
@@ -705,15 +794,25 @@ def large_grid_phases(dev, card, lib):
             n1 = lib.deff_launch_count()
             k5(cg_steps_tiled, K5_TIME_K, 1)()
             per_iter = (lib.deff_launch_count() - n1 - (n1 - n0)) / K5_TIME_K
+            shapes = [tuple(c.diag.shape[-2:]) for c in levels]
+            want = 5 + cycle_launches(shapes[1:], item)
+            check(per_iter == want, f"K5 {per_iter} launches an iteration: "
+                  f"three passes, two finalizes and {want - 5} for K2's tail")
             ms = cuda_ms(k5(cg_steps_tiled), 3)
             ms_p = cuda_ms(k5(cg_steps_tiled_reference, reps=2), 1)
-            bd = bound(*tiled_work(levels, bsz, item, MG3["nu"], K5_TIME_K,
-                                   mf=bool(extra)), item)
+            work = tiled_work(levels, bsz, item, MG3["nu"], K5_TIME_K,
+                              mf=bool(extra))
+            bd = bound(*work[:2], item)
             times[(mode, bsz)] = (ms, ms_p, bd)
             lines.append(f"B={bsz} K5 {mode} k={K5_TIME_K} {ms:.4f} ms "
                          f"({ms / K5_TIME_K:.4f} ms/iteration; plain "
-                         f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
-                         f"{per_iter:g} launches/iteration)")
+                         f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]} "
+                         f"(level 0 read once a call: "
+                         f"{bound(work[2], work[1], item)[0]:.4f} ms), "
+                         f"{per_iter:g} launches/iteration (three passes, "
+                         f"two finalizes, {want - 5} for K2's tail), "
+                         f"reckoned {k5_bytes_per_cell(levels, item, bool(extra)):.1f}"
+                         f" B/cell an iteration)")
         del levels, x, mf, r, p
     phase(16, t0, f"K4/K5 times {card}, 2048^2 fp32: " + "; ".join(lines))
 
@@ -756,7 +855,8 @@ def large_grid_phases(dev, card, lib):
 
 # kernel-name fragments -> the group a 3D profile reports them under
 PROFILE_GROUPS_3D = (
-    ("K7 pass A", "pass_a3_kernel"), ("K7 x/r update", "update_xr3_kernel"),
+    ("K7 pass P", "march_p3_kernel"), ("K7 pass X", "march_x3_kernel"),
+    ("K7 pass Z", "march_z3_kernel"),
     ("3D pre-smooth (T1, tails)", "pre_first3_kernel"),
     ("3D residual + restriction (T1, tails)", "resid_restrict3_kernel"),
     ("3D prolong + post-smooth (T2, tails)", "post_first3_kernel"),
@@ -816,17 +916,69 @@ def cycle3_work(levels, bsz, itemsize, nu):
     return nbytes, ops, cells
 
 
+def banded3_work(levels, bsz, itemsize, nu):
+    """``(bytes, operations, bytes with level 0 read once a call)`` of one banded 3D
+    cycle (K6 banded): level 0's working set is larger than L2 at 256^3 (a
+    fp32 volume is 67 MB), so T1 and T2 each read r and the four coefficient
+    volumes, and z is written (11 volumes; e's round trip from T1 to T2 is
+    a cost of the design, as in tiled_work), plus K6's whole cycle on
+    levels[1:] (cycle3_work)."""
+    once, ops, cells = cycle3_work(levels, bsz, itemsize, nu)
+    tail = cycle3_work(levels[1:], bsz, itemsize, nu)[0]
+    return itemsize * bsz * cells[0] * 11 + tail, ops, once
+
+
 def cg3_work(levels, bsz, itemsize, nu, k, mf=False):
-    """Bytes and operations of a K7 call of ``k`` iterations with every
-    volume live: the cycle's reckoning per iteration, 40 operations a cell
-    for the CG updates, products and sums, and when matrix-free 30 a cell
-    in each of the three passes to rebuild the coefficients; a call reads
-    the hierarchy (level 0 as D when matrix-free), x, r and p once and
-    writes x, r and p."""
-    nbytes, ops, cells = cycle3_work(levels, bsz, itemsize, nu)
+    """``(bytes, operations, bytes with level 0 read once a call)`` of a K7 call of
+    ``k`` iterations with every volume live.  Operations: the cycle's
+    reckoning per iteration, 40 a cell for the CG updates, products and
+    sums and, when matrix-free, 30 a cell in each of the three passes to
+    rebuild the coefficients.  Bytes, each iteration: x, r, p, z and the
+    four coefficient volumes (one D volume when matrix-free) of level 0 read
+    once and x, r, p, z written once (level 0's working set is larger than
+    L2), plus K6's whole cycle on levels[1:].  The earlier reckoning read the
+    hierarchy, x, r and p once a call."""
+    once, ops, cells = cycle3_work(levels, bsz, itemsize, nu)
+    tail = cycle3_work(levels[1:], bsz, itemsize, nu)[0]
     n0 = bsz * cells[0]
-    nbytes += itemsize * n0 * (6 - 2 - (3 if mf else 0))
-    return nbytes, k * (ops + n0 * (40 + (90 if mf else 0)))
+    old = once + itemsize * n0 * (6 - 2 - (3 if mf else 0))
+    per_iter = itemsize * n0 * (8 + (1 if mf else 4)) + tail
+    return (k * per_iter, k * (ops + n0 * (40 + (90 if mf else 0))), old)
+
+
+def k6_tail_cells(cells, nu):
+    """Reckoned elements K6's whole cycle moves over the 3D levels ``cells``
+    (one global pass a stencil step, vcycle3d.cuh): a level above the
+    coarsest runs pre_first (r and four coefficient volumes read, e written:
+    6), nu - 2 further pre-sweeps (7 each), the residual and restriction
+    (6.125), post_first (7.125) and nu - 1 post-sweeps (7 each); the coarsest
+    reads its coefficients and right-hand side and writes its correction
+    (6)."""
+    per = 6 + 7 * max(nu - 2, 0) + 6.125 + 7.125 + 7 * (nu - 1)
+    return per * sum(cells[:-1]) + 6 * cells[-1]
+
+
+def k6_launches(n_levels, nu):
+    """Launches of K6's whole cycle over ``n_levels`` 3D levels: pre_first,
+    nu - 2 further pre-sweeps, the residual and restriction, post_first and
+    nu - 1 post-sweeps a level above the coarsest; one for the coarsest."""
+    return (n_levels - 1) * (3 + max(nu - 2, 0) + nu - 1) + 1
+
+
+def k7_bytes_per_cell(levels, itemsize, nu, mf=False):
+    """Reckoned bytes a K7 iteration moves per level-0 cell, from the
+    kernels' loads and stores (each volume a pass reads or writes counted
+    once; an eighth volume for the restricted residual and the coarse
+    correction).  Level 0 stored: pass P 8 volumes (z, p_old and the four
+    coefficient volumes in; p, q out), pass X 11.125 (r, q, x, p and the
+    coefficients in; x, r, e and an eighth out), pass Z 7.125 (e, r, the
+    coefficients and an eighth in; z out): 26.25.  Matrix-free the four
+    coefficient volumes of each pass become one D volume: 17.25.  Plus K6's
+    whole cycle on levels[1:] (k6_tail_cells).  The eight launches of K7's
+    first form moved ~42 volumes at level 0 (168 B/cell fp32, stored)."""
+    cells = [c.diag[0].numel() for c in levels]
+    return itemsize * ((17.25 if mf else 26.25)
+                       + k6_tail_cells(cells[1:], nu) / cells[0])
 
 
 def volume_phases(dev, card, lib):
@@ -959,14 +1111,56 @@ def volume_phases(dev, card, lib):
                 err_m = max(err_m, err)
         rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
         check(rz_err <= 1e-3, f"K7 {mode} rz rel err {rz_err}")
+        # float32 products summed in double and rounded once: bit for bit
+        bit = all(bool(torch.equal(g, e)) for g, e in zip(got[:4], ref[:4]))
+        check(bit, f"K7 {mode}: x/r/p/rz not bit-equal to the plain "
+              f"version (max abs err {err_m})")
         for g, e in zip(got[:4], ref[:4]):
             check(bool(torch.equal(g[1], e[1])), f"K7 {mode} frozen volume")
         k7_err = max(k7_err, err_m)
         lines.append(f"{mode}: k_done {kd}, max abs err x/r/p {err_m:.3e}, "
-                     f"rz max rel err {rz_err:.3e}")
+                     f"rz max rel err {rz_err:.3e}, bit-equal {bit}")
         del got, ref
     phase(20, t0, "K7 vs plain, B=4 x 256^3 fp32, k=5: " + "; ".join(lines))
     del state, levels4, x4, mf4, r4, p4
+    torch.cuda.empty_cache()
+
+    # the float64 instantiation at nu = 3 (the deepest chain a pass runs) on
+    # config 5's volume, B=1: float64 products summed in another order than
+    # the plain version's, so within 1e-9 of max|.|
+    t0 = time.perf_counter()
+    d64, c64, _, x064 = c5_problem(fluid5[None], dev, torch.float64)
+    lv64, x64, mf64 = tiled3d_setup(d64, c64, x064)
+    r64 = resid(lv64, x64)
+    mg3 = dict(MG5, nu=3)
+    p64 = v3.v_cycle3d_tiled(lv64, r64, **mg3)
+    one = torch.ones(1, dtype=torch.float64, device=dev)
+    state = (x64, r64, p64, batch_sum(r64 * p64), one, 0 * one,
+             one * float("inf"))
+    lines = []
+    for mode, extra in (("stored", {}), ("matrix-free", mf64)):
+        got = cg_steps3d(lv64, *(t.clone() for t in state), 5, **mg3,
+                         **extra)
+        ref = cg_steps3d_reference(lv64, *(t.clone() for t in state), 5,
+                                   **mg3, **extra)
+        torch.cuda.synchronize()
+        kd = got[4].tolist()
+        check(kd == ref[4].tolist() == [5], f"K7 fp64 {mode} k_done {kd}")
+        err_m = 0.0
+        for nm, g, e in zip("xrp", got[:3], ref[:3]):
+            err = float((g - e).abs().max())
+            check(err <= 1e-9 * float(e.abs().max()),
+                  f"K7 fp64 {mode} {nm} err {err}")
+            err_m = max(err_m, err)
+        rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
+        check(rz_err <= 1e-9, f"K7 fp64 {mode} rz rel err {rz_err}")
+        bit = all(bool(torch.equal(g, e)) for g, e in zip(got[:4], ref[:4]))
+        lines.append(f"{mode}: k_done {kd}, max abs err x/r/p {err_m:.3e}, "
+                     f"rz rel err {rz_err:.3e}, bit-equal {bit}")
+        del got, ref
+    phase(20, t0, "K7 vs plain, B=1 x 256^3 fp64 nu=3, k=5: "
+          + "; ".join(lines))
+    del d64, c64, x064, lv64, x64, mf64, r64, p64, state
     torch.cuda.empty_cache()
 
     # -- 21: BASELINE config 5 through solve_mgcg_3d, engine by the auto rule
@@ -1147,11 +1341,13 @@ def volume_phases(dev, card, lib):
         n0 = lib.deff_launch_count()
         v3.v_cycle3d_tiled(levels, r, **MG5)
         per_cycle = lib.deff_launch_count() - n0
-        bd = bound(*cycle3_work(levels, bsz, item, MG5["nu"])[:2], item)
+        work = banded3_work(levels, bsz, item, MG5["nu"])
+        bd = bound(*work[:2], item)
         times[("K6 banded", bsz)] = (ms, ms_p, bd)
         lines.append(f"B={bsz} K6 banded cycle {ms:.4f} ms (plain "
                      f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
-                     f"{per_cycle} launches)")
+                     f"level 0 read once {bound(work[2], work[1], item)[0]:.4f}"
+                     f" ms; {per_cycle} launches)")
         # the whole cycle as the main path calls it: the tail on levels[1:]
         r1 = torch.randn(levels[1].diag.shape, dtype=r.dtype, device=dev)
         ms = cuda_ms(lambda: v3.v_cycle3d(levels[1:], r1, **MG5), 5, warm=1)
@@ -1179,15 +1375,25 @@ def volume_phases(dev, card, lib):
             n1 = lib.deff_launch_count()
             k7(cg_steps3d, K7_TIME_K, 1)()
             per_iter = (lib.deff_launch_count() - n1 - (n1 - n0)) / K7_TIME_K
+            tail = k6_launches(len(levels) - 1, MG5["nu"])
+            check(per_iter == 5 + tail, f"K7 {per_iter} launches an "
+                  f"iteration: three passes, two finalizes and {tail} for "
+                  "K6's tail")
             ms = cuda_ms(k7(cg_steps3d), 2)
             ms_p = cuda_ms(k7(cg_steps3d_reference, reps=2), 1)
-            bd = bound(*cg3_work(levels, bsz, item, MG5["nu"], K7_TIME_K,
-                                 mf=bool(extra)), item)
+            work = cg3_work(levels, bsz, item, MG5["nu"], K7_TIME_K,
+                            mf=bool(extra))
+            bd = bound(*work[:2], item)
             times[(mode, bsz)] = (ms, ms_p, bd)
             lines.append(f"B={bsz} K7 {mode} k={K7_TIME_K} {ms:.4f} ms "
                          f"({ms / K7_TIME_K:.4f} ms/iteration; plain "
-                         f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
-                         f"{per_iter:g} launches/iteration)")
+                         f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]} "
+                         f"(level 0 read once a call: "
+                         f"{bound(work[2], work[1], item)[0]:.4f} ms), "
+                         f"{per_iter:g} launches/iteration (three passes, "
+                         f"two finalizes, {tail} for K6's tail), reckoned "
+                         f"{k7_bytes_per_cell(levels, item, MG5['nu'], bool(extra)):.1f}"
+                         f" B/cell an iteration)")
         del levels, x, mf, r, r1, p
         torch.cuda.empty_cache()
     phase(23, t0, f"K6/K7 times {card}, 256^3 fp32: " + "; ".join(lines))

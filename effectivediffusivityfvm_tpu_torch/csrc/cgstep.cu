@@ -52,80 +52,13 @@
 // (active <= 0), moves no data.  p and r ping-pong between the caller's
 // planes and scratch planes (a tile's halo must read the old values), and
 // the refresh writes the caller's r and p for every active image.
-#include "vcycle.cuh"
+#include "tile2d.cuh"
 
 namespace deff {
 namespace {
 
-constexpr int TX = 64;   // tile columns
-constexpr int TY = 16;   // tile rows
-static_assert(TX * TY == THREADS * 4, "four tile cells a thread");
-static_assert((TX / 2) * (TY / 2) == THREADS, "one coarse cell a thread");
-
-// A tile with an h-cell halo, as a (TY + 2h) x (TX + 2h) array.
-template <int H>
-struct Reg {
-  static constexpr int W = TX + 2 * H;
-  static constexpr int N = W * (TY + 2 * H);
-};
 constexpr int CW = TX / 2 + 2;           // coarse region of a tile: one
 constexpr int CN = CW * (TY / 2 + 2);    // coarse cell around it
-
-// The origin of the tile of blockIdx.x (tiles in row-major order).
-struct TileAt {
-  int i0, j0;
-  __device__ TileAt(int nx) {
-    const int ntx = (nx + TX - 1) / TX;
-    const int t = blockIdx.x;
-    i0 = (t / ntx) * TY;
-    j0 = (t - (t / ntx) * ntx) * TX;
-  }
-};
-
-inline int tiles_for(int ny, int nx) {
-  return ((ny + TY - 1) / TY) * ((nx + TX - 1) / TX);
-}
-
-// Stage an image plane's tile with an H-cell halo; cells beyond the grid
-// read as 0.
-template <int H, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* img, int i0, int j0,
-                                      int ny, int nx) {
-  for (int e = threadIdx.x; e < Reg<H>::N; e += THREADS) {
-    const int li = e / Reg<H>::W, lj = e - li * Reg<H>::W;
-    const int gi = i0 - H + li, gj = j0 - H + lj;
-    const bool ok = gi >= 0 && gi < ny && gj >= 0 && gj < nx;
-    cp_async(dst + e, ok ? img + (size_t)gi * nx + gj : img, ok);
-  }
-}
-
-// nbsum (vcycle.cuh) on staged arrays of row width W: the same terms in the
-// same order, with the grid bounds taken from the global index.
-template <typename T, typename V>
-__device__ __forceinline__ T nbsum_s(const T* aw, const T* an, V v, int e,
-                                     int W, int gi, int gj, int ny, int nx) {
-  T s = (gj > 0) ? aw[e] * v(e - 1) : T(0);
-  if (gj + 1 < nx) s = s + aw[e + 1] * v(e + 1);
-  if (gi > 0) s = s + an[e] * v(e - W);
-  if (gi + 1 < ny) s = s + an[e + W] * v(e + W);
-  return s;
-}
-
-// Run f(e, gi, gj) on every in-grid cell of the tile grown by h (h <= H)
-// inside an H-halo array (both compile-time, so the index division is by
-// a constant).
-template <int H, int h, typename F>
-__device__ __forceinline__ void for_cells(int i0, int j0, int ny, int nx,
-                                          F f) {
-  static_assert(0 <= h && h <= H, "a ring inside the staged halo");
-  constexpr int w = TX + 2 * h, n = w * (TY + 2 * h);
-  for (int c = threadIdx.x; c < n; c += THREADS) {
-    const int a = c / w, bcol = c - a * w;
-    const int gi = i0 - h + a, gj = j0 - h + bcol;
-    if (gi < 0 || gi >= ny || gj < 0 || gj >= nx) continue;
-    f((a + H - h) * Reg<H>::W + (bcol + H - h), gi, gj);
-  }
-}
 
 __device__ double block_sum(double v, double* sh) {
   sh[threadIdx.x] = v;
@@ -192,7 +125,7 @@ pass_p_kernel(Level<T> lv, const T* __restrict__ v_in,
   for_cells<1, 0>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
     const size_t c = off + (size_t)gi * nx + gj;
     const T av = diag_of(dis[e]) * vs[e] -
-                 nbsum_s(aws, ans, v, e, RG::W, gi, gj, ny, nx);
+                 nbsum_s<RG::W>(aws, ans, v, e, gi, gj, ny, nx);
     if (MODE == 2) {
       p_out[c] = b[c] - av;
     } else {
@@ -252,7 +185,7 @@ pass_x_kernel(Level<T> lv, int nyc, int nxc, T* __restrict__ x,
   auto e0 = [&](int e) { return (w0 * dis[e]) * rs[e]; };
   if constexpr (SWEEPS == 2) {
     for_cells<H, H - 1>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
-      const T nb = nbsum_s(aws, ans, e0, e, RG::W, gi, gj, ny, nx);
+      const T nb = nbsum_s<RG::W>(aws, ans, e0, e, gi, gj, ny, nx);
       e1[e] = omw1 * e0(e) + (rs[e] + nb) * (w1 * dis[e]);
     });
     __syncthreads();
@@ -271,7 +204,7 @@ pass_x_kernel(Level<T> lv, int nyc, int nxc, T* __restrict__ x,
   auto res = [&](int gi, int gj) {
     const int e = (gi - t.i0 + H) * RG::W + (gj - t.j0 + H);
     return rs[e] - (diag_of(dis[e]) * ev(e) -
-                    nbsum_s(aws, ans, ev, e, RG::W, gi, gj, ny, nx));
+                    nbsum_s<RG::W>(aws, ans, ev, e, gi, gj, ny, nx));
   };
   const int i = 2 * I, j = 2 * J;
   rc[(size_t)blockIdx.y * nyc * nxc + (size_t)I * nxc + J] =
@@ -330,7 +263,7 @@ pass_z_kernel(Level<T> lv, int nyc, int nxc, const T* __restrict__ es,
   auto s1v = [&](int e) { return s1[e]; };
   if constexpr (SWEEPS == 2) {
     for_cells<H, 1>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
-      const T nb = nbsum_s(aws, ans, sv, e, RG::W, gi, gj, ny, nx);
+      const T nb = nbsum_s<RG::W>(aws, ans, sv, e, gi, gj, ny, nx);
       s1[e] = omwa * ss[e] + (rs[e] + nb) * (wa * dis[e]);
     });
     __syncthreads();
@@ -339,10 +272,10 @@ pass_z_kernel(Level<T> lv, int nyc, int nxc, const T* __restrict__ es,
   for_cells<H, 0>(t.i0, t.j0, ny, nx, [&](int e, int gi, int gj) {
     T zc;
     if (SWEEPS == 2) {
-      const T nb = nbsum_s(aws, ans, s1v, e, RG::W, gi, gj, ny, nx);
+      const T nb = nbsum_s<RG::W>(aws, ans, s1v, e, gi, gj, ny, nx);
       zc = omwb * s1[e] + (rs[e] + nb) * (wb * dis[e]);
     } else if (SWEEPS == 1) {
-      const T nb = nbsum_s(aws, ans, sv, e, RG::W, gi, gj, ny, nx);
+      const T nb = nbsum_s<RG::W>(aws, ans, sv, e, gi, gj, ny, nx);
       zc = omwa * ss[e] + (rs[e] + nb) * (wa * dis[e]);
     } else {
       zc = ss[e];

@@ -1,50 +1,79 @@
 // K7: up to k multigrid-preconditioned CG iterations per volume on the
-// banded 3D engine, each iteration three passes over level 0 with the
-// per-volume scalars computed on the device between them, as one host loop
-// of batch-wide launches on one stream (no host synchronisation inside the
-// window).  No refresh: the solver refreshes through K6 between windows.
+// banded 3D engine, each iteration three z-marching passes over level 0
+// with the per-volume scalars computed on the device between them, as one
+// host loop of batch-wide launches on one stream (no host synchronisation
+// inside the window).  No refresh: the solver refreshes through K6 between
+// windows.
 //
 // Replaces effectivediffusivityfvm_tpu/ops/kernels/cgstep3d.py
 // (cg_steps3d_tiled: _pass_a3, _pass_b3, _pass_c3).  Per iteration, for
 // every live volume:
-//   A  beta = rz/rz_prev (0 on the first iteration or if rz_prev <= 0);
-//      p = z + beta p_old (recomputed at the 7 stencil points), q = A p,
-//      partials of <p, q>;
+//   P  beta = rz/rz_prev (0 on the first iteration or if rz_prev <= 0);
+//      p = z + beta p_old, q = A p, both written; partials of <p, q>;
 //   .  alpha = rz/<p,q> (0 unless <p,q> > 0);
-//   B  x += alpha p; r -= alpha q with q recomputed from p, partials of
-//      sum|r|; then T1 (vcycle3d.cuh's down leg) on the new r;
-//   .  the coarse tail: K6's whole cycle on levels[1:];
-//   C  T2 (the up leg) gives z, pinned to 0 where D == 0 when matrix-free,
-//      with the partials of <r, z> in its last sweep;
+//   X  x += alpha p; r_new = r - alpha q; partials of sum|r_new|; then T1
+//      on r_new: e0 = (w0 dinv) r_new recomputed where the next sweep
+//      reads it, the nu - 1 further pre-sweeps, the residual r_new - A e and
+//      its 2x2x2 restriction.  Writes x, r_new, e and the coarse residual;
+//   .  the coarse tail: K6's whole cycle on levels[1:] (vcycle3d.cuh);
+//   Z  e + over P e_c recomputed on the window, then the nu post-sweeps:
+//      z, pinned to 0 where D <= 0 when matrix-free, with partials of
+//      <r_new, z>;
 //   .  rz_prev = rz, rz = <r, z>, k_done += 1, live &= stop < sum|r| < hi.
 // On entry z = p, live = active > 0 & stop < sum|r_in| < hi; when
 // matrix-free, x, r and p are first multiplied by (D > 0), as the TPU
-// kernel does for every volume.  Level 0's coefficients are the stored
-// volumes or, matrix-free, rebuilt from D at every use (vcycle3d.cuh's
-// FromD3), term for term as the TPU kernel's _coeffs_from_dwin.
+// kernel does for every volume.
 //
-// On the TPU the passes read p_old and wrote p slab by slab in order; here
-// blocks run in parallel and read their neighbours, so p alternates
-// between the caller's volume and a scratch volume, volume by volume
-// (`par`), and goes back to the caller's volume at the end.  x and r are
-// read only at their own cell by the pass that writes them, so they are
-// updated in place.  A frozen or retired volume's blocks return at once,
-// which also keeps its z.  Reductions: per-block partials in double, summed
-// in a fixed order by one block per volume (cgscalars.cuh, shared with K5).
+// Each pass marches along z through (y, x) tiles (march3d.cuh): a CTA holds
+// rings of z-slices of each intermediate field in shared memory, stage s
+// running s slices behind stage s - 1, so a pass reads each input slice
+// from HBM once.  Halos: P 1 (q = A p), X nu (nu - 1 sweeps and the
+// residual), Z nu (nu sweeps).  Every operand a stage reads comes from
+// shared memory, staged one step ahead by cp.async: the windows, and the
+// tile's x and p (X) and the coarse window of e_c and the pin's D (Z);
+// e0 = (w0 dinv) r_new is kept in a ring rather than recomputed at the
+// stencil points.  Matrix-free, the passes rebuild a_w, a_n, a_u and
+// diag_inv from D once a pass (march3d.cuh's Coefs), term for term as
+// ops/kernels/vcycle3d.py's coeffs_from_d3.
 //
-// Bounds on an H100: memory bandwidth.  Stored level 0, fp32, per
-// iteration at nu = 2 the passes move about 42 volumes (A: z, p_old and four
-// coefficient volumes in, p out; the x/r update: x, p, r and the
-// coefficients in, x and r out; T1: two sweeps' worth and the restriction;
-// T2: two sweeps), plus the coarse tail on levels[1:] (~1/7 of a cycle).
-// Matrix-free, the four coefficient volumes of every pass become one D
-// volume, at the cost of rebuilding them (divisions) at every stencil
-// point.
+// The TPU passes read p_old and r and wrote p and r slab by slab in order;
+// here CTAs run in parallel and read their neighbours' halos, so p and r
+// alternate between the caller's volume and a scratch volume, volume by
+// volume (`par`), and go back to the caller's volumes at the end.  x is
+// read only at its own cell and is updated in place.  A frozen or retired
+// volume's CTAs return at once, which also keeps its z.  Reductions:
+// per-CTA partials in double, summed in a fixed order by one block per
+// volume (cgscalars.cuh, shared with K5).
+//
+// Bounds on an H100: memory bandwidth.  Stored level 0, fp32, reckoned per
+// iteration and cell: P reads z, p_old and four coefficient volumes and
+// writes p and q (32 B); X reads r, q, x, p and the coefficients and writes
+// x, r, e and an eighth volume (44.5 B); Z reads e, r, the coefficients and
+// an eighth volume and writes z (28.5 B): ~105 B/cell, against ~168 for the
+// eight launches this replaces, plus K6's tail on levels[1:].
+// Matrix-free the four coefficient volumes become one D volume in each
+// pass: ~69 B/cell, at 4 divisions a cell a pass (plus the halo) for the
+// rebuild.
 #include "cgscalars.cuh"
-#include "vcycle3d.cuh"
+#include "march3d.cuh"
 
 namespace deff {
 namespace {
+
+using march::Coefs;
+using march::Geo;
+using march::NT;
+using march::TX;
+using march::Tile3;
+using march::Vol0;
+using march::for_win;
+using march::nb7;
+using march::stage_slice;
+
+// The pre-smoothing schedule ws[0..nu-1], by value into the kernels.
+struct W3 {
+  double w[3];
+};
 
 // Per-block partials of sum|r| over the volume.
 template <typename T>
@@ -63,121 +92,560 @@ __global__ void abs_parts3_kernel(const T* __restrict__ r, int n,
   if (threadIdx.x == 0) part[(size_t)blockIdx.y * nblk + blockIdx.x] = s;
 }
 
-// Pass A: p = z + beta p_old, q = A p, partials of <p, q>.
-template <typename T, typename C>
-__global__ void pass_a3_kernel(C co, Dims3 dm, T* p0, T* p1, const T* zbuf,
-                               int first, CgState<T> s) {
+// Three slices k - 1, k, k + 1 of a ring of NS window slices, read as
+// v(dz, e).
+template <typename T>
+struct Tri {
+  const T* m;
+  const T* c;
+  const T* p;
+  __device__ __forceinline__ T operator()(int dz, int i) const {
+    return dz < 0 ? m[i] : dz > 0 ? p[i] : c[i];
+  }
+};
+
+template <int N, int NS, typename T>
+__device__ __forceinline__ Tri<T> tri(const T* base, int k) {
+  return Tri<T>{base + ((k + NS - 1) % NS) * N, base + (k % NS) * N,
+                base + ((k + 1) % NS) * N};
+}
+
+// One damped-Jacobi sweep of slice k, out = (1 - w) in + (w (rhs +
+// nbsum(in))) dinv, on the window shrunk by S; f(e, gi, gj, value).
+template <int S, typename T, int H, int NC, bool MF, typename V, typename F>
+__device__ __forceinline__ void sweep_slice(const Coefs<T, H, NC, MF>& co,
+                                            V in, const T* rhs, int k, T w,
+                                            T omw, const Dims3& dm, F f) {
+  using G = Geo<T, H>;
+  const T* aw = co.AW(k);
+  const T* an = co.AN(k);
+  const T* au = co.AU(k);
+  const T* au1 = co.AU(k + 1);
+  const T* di = co.DI(k);
+  for_win<G, S>(co.gi0, co.gj0, [&](int e, int gi, int gj) {
+    const T nb = nb7<G::WX>(aw, an, au, au1, in, e, k, dm);
+    f(e, gi, gj, omw * in(0, e) + (w * (rhs[e] + nb)) * di[e]);
+  });
+}
+
+// Stage the first commit group (the coefficient rings' prime and the slices
+// of steps t0 .. t0 + PD - 1), wait for it, and rebuild slice t0's faces
+// (matrix-free).
+template <typename CO, typename T, typename I>
+__device__ __forceinline__ void prologue(const CO& co, const Vol0<T>& v,
+                                         size_t off, int t0, I issue) {
+  co.prime(v, off, t0);
+  for (int j = 0; j < march::PD; ++j) issue(t0 + j);
+  march::cp_commit();
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  co.first_faces(v, t0);
+  __syncthreads();
+}
+
+// ---- pass P: p = z + beta p_old on the window, q = A p on the tile;
+// writes p and q, partials of <p, q>.
+template <typename T, bool MF>
+__global__ void __launch_bounds__(NT)
+march_p3_kernel(Vol0<T> v, T* p0, T* p1, const T* zbuf, T* qbuf, int first,
+                CgState<T> s, int seglen) {
+  constexpr int H = 1, NC = march::coef_slots(0, 1);
+  using G = Geo<T, H>;
   __shared__ double sh[THREADS];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.y;
   if (!s.live[b]) return;
-  const int n = dm.cells();
-  const size_t off = (size_t)b * n;
+  const Dims3 dm = v.dm;
+  const Tile3 tl = march::tile3<G::TY>(dm, seglen);
+  const size_t off = (size_t)b * dm.cells();
   const int par = s.par[b];
-  const T* pold = par ? p1 : p0;
-  T* pnew = par ? p0 : p1;
-  const T* z = first ? pold : zbuf;
+  const T* pold = (par ? p1 : p0) + off;
+  T* pnew = (par ? p0 : p1) + off;
+  const T* z = first ? pold : zbuf + off;
+  T* q = qbuf + off;
   const T rzp = s.rz_prev[b], rzc = s.rz[b];
   const T beta = (!first && rzp > T(0)) ? rzc / rzp : T(0);
-  auto pv = [&](size_t g) { return z[g] + beta * pold[g]; };
+  const int gi0 = tl.i0 - H, gj0 = tl.j0 - H;
+  T* sp = reinterpret_cast<T*>(smem_raw);
+  const Coefs<T, H, NC, MF> co(sp, gi0, gj0);
+  constexpr int NZ = 3 + march::PD, NO = 1 + march::PD;
+  T* PZ = sp;                          // z, then p in place: NZ slices
+  T* PO = sp + NZ * G::N;              // p_old: NO slices
+  const int t0 = tl.zs - H > 0 ? tl.zs - H : 0;
+  const int t1 = tl.ze - 1 + H < dm.nz - 1 ? tl.ze - 1 + H : dm.nz - 1;
+  auto issue = [&](int k) {
+    if (k > t1) return;
+    stage_slice<G::WY, G::WX>(PZ + (k % NZ) * G::N, z, k, gi0, gj0, dm);
+    if (!first)
+      stage_slice<G::WY, G::WX>(PO + (k % NO) * G::N, pold, k, gi0, gj0, dm);
+    co.issue(v, off, k);
+  };
+  prologue(co, v, off, t0, issue);
   double acc = 0.0;
-  for (int kk = 0; kk < CPT; ++kk) {
-    const int c = blockIdx.x * TILE + kk * THREADS + threadIdx.x;
-    if (c >= n) break;
-    const size_t g = off + c;
-    const Cell q = cell_of(c, dm);
-    const T pc = pv(g);
-    const T qv = diag_of(co.di(g, q, dm)) * pc - nbsum3<T>(co, pv, g, q, dm);
-    pnew[g] = pc;
-    const T prod = pc * qv;
-    acc += (double)prod;
+  for (int t = t0; t <= tl.ze - 1 + H; ++t) {
+    issue(t + march::PD);
+    march::cp_commit();
+    march::cp_wait_step();
+    if (t <= t1) {
+      co.rebuild(v, t);
+      T* pt = PZ + (t % NZ) * G::N;
+      const T* ot = first ? pt : PO + (t % NO) * G::N;
+      for (int e = threadIdx.x; e < G::N; e += NT) pt[e] = pt[e] + beta * ot[e];
+      __syncthreads();
+    }
+    const int k = t - 1;
+    if (k >= tl.zs && k < tl.ze) {
+      const Tri<T> pv = tri<G::N, NZ>(PZ, k);
+      const T* aw = co.AW(k);
+      const T* an = co.AN(k);
+      const T* au = co.AU(k);
+      const T* au1 = co.AU(k + 1);
+      const T* di = co.DI(k);
+      const size_t ks = (size_t)k * dm.plane();
+      for_win<G, 1>(gi0, gj0, [&](int e, int gi, int gj) {
+        const T pc = pv.c[e];
+        const T qv = diag_of(di[e]) * pc -
+                     nb7<G::WX>(aw, an, au, au1, pv, e, k, dm);
+        if (!march::in_plane(gi, gj, dm)) return;
+        const size_t g = ks + (size_t)gi * dm.nx + gj;
+        pnew[g] = pc;
+        q[g] = qv;
+        const T prod = pc * qv;
+        acc += (double)prod;
+      });
+    }
+    __syncthreads();
   }
   const double sum = block_sum_fixed(acc, sh);
   if (threadIdx.x == 0) s.part_a[(size_t)b * s.ntiles + blockIdx.x] = sum;
 }
 
-// Pass B's update: x += alpha p, r -= alpha q (in place), partials of
-// sum|r|.
-template <typename T, typename C>
-__global__ void update_xr3_kernel(C co, Dims3 dm, T* __restrict__ x,
-                                  const T* p0, const T* p1, T* __restrict__ r,
-                                  CgState<T> s) {
+// ---- pass X: x += alpha p, r_new = r - alpha q (partials of sum|r_new|),
+// then T1 on r_new: the nu pre-sweeps into e and the residual restricted
+// 2x2x2 into rc (the coarse shape dc).
+template <typename T, int NU, bool MF>
+__global__ void __launch_bounds__(NT)
+march_x3_kernel(Vol0<T> v, T* __restrict__ x, const T* p0, const T* p1,
+                T* r0, T* r1, const T* __restrict__ qbuf,
+                T* __restrict__ ebuf, T* __restrict__ rc, Dims3 dc,
+                CgState<T> s, W3 ws, int seglen) {
+  constexpr int H = NU, NR = NU + 1 + march::PD;
+  constexpr int NQ = 1 + march::PD, NC = march::coef_slots(1, NU);
+  using G = Geo<T, H>;
   __shared__ double sh[THREADS];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   const int b = blockIdx.y;
   if (!s.live[b]) return;
-  const int n = dm.cells();
-  const size_t off = (size_t)b * n;
-  const T* p = s.par[b] ? p0 : p1;
+  const Dims3 dm = v.dm;
+  const Tile3 tl = march::tile3<G::TY>(dm, seglen);
+  const size_t off = (size_t)b * dm.cells();
+  const int par = s.par[b];
+  const T* p = (par ? p0 : p1) + off;
+  const T* rold = (par ? r1 : r0) + off;
+  T* rnew = (par ? r0 : r1) + off;
+  const T* qb = qbuf + off;
+  T* xb = x + off;
+  T* eb = ebuf + off;
+  T* rcb = rc + (size_t)b * dc.cells();
   const T alpha = s.alpha[b];
-  auto pv = [&](size_t g) { return p[g]; };
+  const T w0 = (T)ws.w[0];
+  const int gi0 = tl.i0 - H, gj0 = tl.j0 - H;
+  T* sp = reinterpret_cast<T*>(smem_raw);
+  const Coefs<T, H, NC, MF> co(sp, gi0, gj0);
+  T* RR = sp;                          // r, then r_new in place: NR slices
+  T* QQ = RR + NR * G::N;              // q: NQ slices
+  T* E0 = QQ + NQ * G::N;              // e0 = (w0 dinv) r_new: 3 slices
+  T* EE = E0 + 3 * G::N;               // sweep s (1..nu-1): 3 slices each
+  constexpr int TN = G::TY * TX, NT1 = 1 + march::PD;
+  T* XS = EE + 3 * (NU - 1) * G::N;    // x at the tile: NT1 slices
+  T* PS = XS + NT1 * TN;               // p at the tile: NT1 slices
+  T* RS = PS + NT1 * TN;               // the tile's residuals of a slice
+  const int t0 = tl.zs - H > 0 ? tl.zs - H : 0;
+  const int t1 = tl.ze - 1 + H < dm.nz - 1 ? tl.ze - 1 + H : dm.nz - 1;
+  auto issue = [&](int k) {
+    if (k > t1) return;
+    stage_slice<G::WY, G::WX>(RR + (k % NR) * G::N, rold, k, gi0, gj0, dm);
+    stage_slice<G::WY, G::WX>(QQ + (k % NQ) * G::N, qb, k, gi0, gj0, dm);
+    if (k >= tl.zs && k < tl.ze) {
+      march::stage_block<G::TY, TX>(XS + (k % NT1) * TN, xb, k, tl.i0, tl.j0,
+                                    dm.ny, dm.nx);
+      march::stage_block<G::TY, TX>(PS + (k % NT1) * TN, p, k, tl.i0, tl.j0,
+                                    dm.ny, dm.nx);
+    }
+    co.issue(v, off, k);
+  };
+  // a cell of the tile on the plane (what this CTA stores)
+  auto tile_cell = [&](int gi, int gj) {
+    return gi >= tl.i0 && gi < tl.i0 + G::TY && gj >= tl.j0 &&
+           gj < tl.j0 + TX && gi < dm.ny && gj < dm.nx;
+  };
+  prologue(co, v, off, t0, issue);
   double acc = 0.0;
-  for (int kk = 0; kk < CPT; ++kk) {
-    const int c = blockIdx.x * TILE + kk * THREADS + threadIdx.x;
-    if (c >= n) break;
-    const size_t g = off + c;
-    const Cell q = cell_of(c, dm);
-    const T qv = diag_of(co.di(g, q, dm)) * p[g] - nbsum3<T>(co, pv, g, q, dm);
-    x[g] = x[g] + alpha * p[g];
-    const T rv = r[g] - alpha * qv;
-    r[g] = rv;
-    acc += (double)(rv < T(0) ? -rv : rv);
+  T zsum[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
+  for (int t = t0; t <= tl.ze - 1 + H; ++t) {
+    issue(t + march::PD);
+    march::cp_commit();
+    march::cp_wait_step();
+    if (t <= t1) {
+      co.rebuild(v, t);
+      T* R = RR + (t % NR) * G::N;
+      const T* Q = QQ + (t % NQ) * G::N;
+      T* e0 = E0 + (t % 3) * G::N;
+      const T* xs = XS + (t % NT1) * TN;
+      const T* ps = PS + (t % NT1) * TN;
+      const T* di = co.DI(t);
+      const bool own = t >= tl.zs && t < tl.ze;
+      const size_t ks = (size_t)t * dm.plane();
+      for_win<G, 0>(gi0, gj0, [&](int e, int gi, int gj) {
+        const T rv = R[e] - alpha * Q[e];
+        R[e] = rv;
+        const T ev = (w0 * di[e]) * rv;
+        e0[e] = ev;
+        if (own && tile_cell(gi, gj)) {
+          const size_t g = ks + (size_t)gi * dm.nx + gj;
+          const int ti = (gi - tl.i0) * TX + (gj - tl.j0);
+          xb[g] = xs[ti] + alpha * ps[ti];
+          rnew[g] = rv;
+          acc += (double)(rv < T(0) ? -rv : rv);
+          if (NU == 1) eb[g] = ev;
+        }
+      });
+      __syncthreads();
+    }
+    if constexpr (NU >= 2) {             // sweep 1 on slice t - 1
+      const int k = t - 1;
+      if (k >= 0 && k >= tl.zs - (NU - 1) && k < tl.ze + (NU - 1) &&
+          k < dm.nz) {
+        T* out = EE + (k % 3) * G::N;
+        const bool own = k >= tl.zs && k < tl.ze;
+        const size_t ks = (size_t)k * dm.plane();
+        sweep_slice<1>(co, tri<G::N, 3>(E0, k), RR + (k % NR) * G::N, k,
+                       (T)ws.w[1],
+                       (T)(1.0 - ws.w[1]), dm,
+                       [&](int e, int gi, int gj, T val) {
+                         out[e] = val;
+                         if (NU == 2 && own && tile_cell(gi, gj))
+                           eb[ks + (size_t)gi * dm.nx + gj] = val;
+                       });
+      }
+      __syncthreads();
+    }
+    if constexpr (NU >= 3) {             // sweep 2 on slice t - 2
+      const int k = t - 2;
+      if (k >= 0 && k >= tl.zs - (NU - 2) && k < tl.ze + (NU - 2) &&
+          k < dm.nz) {
+        T* out = EE + (3 + k % 3) * G::N;
+        const bool own = k >= tl.zs && k < tl.ze;
+        const size_t ks = (size_t)k * dm.plane();
+        sweep_slice<2>(co, tri<G::N, 3>(EE, k), RR + (k % NR) * G::N, k,
+                       (T)ws.w[2], (T)(1.0 - ws.w[2]), dm,
+                       [&](int e, int gi, int gj, T val) {
+                         out[e] = val;
+                         if (own && tile_cell(gi, gj))
+                           eb[ks + (size_t)gi * dm.nx + gj] = val;
+                       });
+      }
+      __syncthreads();
+    }
+    // the residual r_new - A e on the tile of slice t - nu, then summed
+    // over z pairs in registers and restricted at each odd slice (one
+    // thread a coarse cell)
+    const int k = t - NU;
+    if (k >= tl.zs && k < tl.ze) {
+      const T* R = RR + (k % NR) * G::N;
+      const T* di = co.DI(k);
+      const T* aw = co.AW(k);
+      const T* an = co.AN(k);
+      const T* au = co.AU(k);
+      const T* au1 = co.AU(k + 1);
+      const Tri<T> ev = NU == 1 ? tri<G::N, 3>(E0, k)
+                                : tri<G::N, 3>(EE + 3 * (NU - 2) * G::N, k);
+      for_win<G, H>(gi0, gj0, [&](int e, int gi, int gj) {
+        RS[(gi - tl.i0) * TX + (gj - tl.j0)] =
+            R[e] - (diag_of(di[e]) * ev(0, e) -
+                    nb7<G::WX>(aw, an, au, au1, ev, e, k, dm));
+      });
+      __syncthreads();
+      constexpr int CX = TX / 2, CN = (G::TY / 2) * CX;
+      const int I = tl.i0 / 2 + threadIdx.x / CX;
+      const int J = tl.j0 / 2 + threadIdx.x % CX;
+      if (threadIdx.x < CN && 2 * I < dm.ny && 2 * J < dm.nx) {
+        const int c0 = (2 * I - tl.i0) * TX + (2 * J - tl.j0);
+        for (int a = 0; a < 2; ++a)
+          for (int cc = 0; cc < 2; ++cc) {
+            const T rv = RS[c0 + a * TX + cc];
+            zsum[a][cc] = (k & 1) ? zsum[a][cc] + rv : rv;
+          }
+        if (k & 1)
+          rcb[((size_t)(k >> 1) * dc.ny + I) * dc.nx + J] =
+              (zsum[0][0] + zsum[1][0]) + (zsum[0][1] + zsum[1][1]);
+      }
+    }
+    __syncthreads();
   }
   const double sum = block_sum_fixed(acc, sh);
   if (threadIdx.x == 0) s.part_b[(size_t)b * s.ntiles + blockIdx.x] = sum;
 }
 
+// ---- pass Z: src = e + over e_c[k/2, i/2, j/2] on the window, then the nu
+// post-sweeps (ws reversed) give z, pinned to 0 where D <= 0 when
+// matrix-free; partials of <r_new, z>.
+template <typename T, int NU, bool MF>
+__global__ void __launch_bounds__(NT)
+march_z3_kernel(Vol0<T> v, const T* r0, const T* r1,
+                const T* __restrict__ ebuf, const T* __restrict__ ec,
+                Dims3 dc, T over, T* __restrict__ zbuf, CgState<T> s, W3 ws,
+                int seglen) {
+  constexpr int H = NU, NS = 3 + march::PD, NR = NU + 1 + march::PD;
+  constexpr int NC = march::coef_slots(2, NU);
+  using G = Geo<T, H>;
+  __shared__ double sh[THREADS];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.y;
+  if (!s.live[b]) return;
+  const Dims3 dm = v.dm;
+  const Tile3 tl = march::tile3<G::TY>(dm, seglen);
+  const size_t off = (size_t)b * dm.cells();
+  const T* rnew = (s.par[b] ? r0 : r1) + off;
+  const T* eb = ebuf + off;
+  const T* ecb = ec + (size_t)b * dc.cells();
+  T* zb = zbuf + off;
+  const int gi0 = tl.i0 - H, gj0 = tl.j0 - H;
+  T* sp = reinterpret_cast<T*>(smem_raw);
+  const Coefs<T, H, NC, MF> co(sp, gi0, gj0);
+  T* SS = sp;                          // e, then e + over P e_c: NS slices
+  T* RR = SS + NS * G::N;              // r_new: NR slices
+  T* EE = RR + NR * G::N;              // sweep s (1..nu-1): 3 slices each
+  // e_c under the window of each staged slice (the coarse slice k / 2),
+  // and D at the tile's cells for the pin (matrix-free)
+  constexpr int CR = G::TY / 2 + H + 1, CC = TX / 2 + H + 1;
+  constexpr int NE = 1 + march::PD, TN = G::TY * TX;
+  T* EC = EE + 3 * (NU - 1) * G::N;
+  T* PN = EC + NE * CR * CC;           // NU + 1 tile slices
+  const int ci0 = gi0 >> 1, cj0 = gj0 >> 1;   // floor: gi0 may be < 0
+  const int t0 = tl.zs - H > 0 ? tl.zs - H : 0;
+  const int t1 = tl.ze - 1 + H < dm.nz - 1 ? tl.ze - 1 + H : dm.nz - 1;
+  auto issue = [&](int k) {
+    if (k > t1) return;
+    stage_slice<G::WY, G::WX>(SS + (k % NS) * G::N, eb, k, gi0, gj0, dm);
+    stage_slice<G::WY, G::WX>(RR + (k % NR) * G::N, rnew, k, gi0, gj0, dm);
+    march::stage_block<CR, CC>(EC + (k % NE) * CR * CC, ecb, k >> 1, ci0,
+                               cj0, dc.ny, dc.nx);
+    co.issue(v, off, k);
+  };
+  prologue(co, v, off, t0, issue);
+  double acc = 0.0;
+  for (int t = t0; t <= tl.ze - 1 + H; ++t) {
+    issue(t + march::PD);
+    march::cp_commit();
+    march::cp_wait_step();
+    if (t <= t1) {
+      co.rebuild(v, t);
+      T* S = SS + (t % NS) * G::N;
+      const T* cs = EC + (t % NE) * CR * CC;
+      T* pn = PN + (t % (NU + 1)) * TN;
+      const T* dk = MF ? co.Dk(t) : nullptr;
+      for_win<G, 0>(gi0, gj0, [&](int e, int gi, int gj) {
+        S[e] = S[e] + over * cs[((gi >> 1) - ci0) * CC + ((gj >> 1) - cj0)];
+        if (MF && gi >= tl.i0 && gi < tl.i0 + G::TY && gj >= tl.j0 &&
+            gj < tl.j0 + TX)
+          pn[(gi - tl.i0) * TX + (gj - tl.j0)] =
+              dk[(gi - gi0 + 1) * G::DX + (gj - gj0 + 1)];
+      });
+      __syncthreads();
+    }
+    // sweeps 1..nu-1 (weights ws[nu-1] .. ws[1]) into their rings
+    if constexpr (NU >= 2) {
+      const int k = t - 1;
+      if (k >= 0 && k >= tl.zs - (NU - 1) && k < tl.ze + (NU - 1) &&
+          k < dm.nz) {
+        T* out = EE + (k % 3) * G::N;
+        sweep_slice<1>(co, tri<G::N, NS>(SS, k), RR + (k % NR) * G::N, k,
+                       (T)ws.w[NU - 1], (T)(1.0 - ws.w[NU - 1]), dm,
+                       [&](int e, int, int, T val) { out[e] = val; });
+      }
+      __syncthreads();
+    }
+    if constexpr (NU >= 3) {
+      const int k = t - 2;
+      if (k >= 0 && k >= tl.zs - (NU - 2) && k < tl.ze + (NU - 2) &&
+          k < dm.nz) {
+        T* out = EE + (3 + k % 3) * G::N;
+        sweep_slice<2>(co, tri<G::N, 3>(EE, k), RR + (k % NR) * G::N, k,
+                       (T)ws.w[NU - 2], (T)(1.0 - ws.w[NU - 2]), dm,
+                       [&](int e, int, int, T val) { out[e] = val; });
+      }
+      __syncthreads();
+    }
+    // the last sweep (ws[0]) on the tile of slice t - nu gives z
+    const int k = t - NU;
+    if (k >= tl.zs && k < tl.ze) {
+      const T* R = RR + (k % NR) * G::N;
+      const T* pn = PN + (k % (NU + 1)) * TN;
+      const size_t ks = (size_t)k * dm.plane();
+      auto last = [&](auto in) {
+        sweep_slice<NU>(co, in, R, k, (T)ws.w[0], (T)(1.0 - ws.w[0]), dm,
+                        [&](int e, int gi, int gj, T val) {
+                          if (!march::in_plane(gi, gj, dm)) return;
+                          const size_t g = ks + (size_t)gi * dm.nx + gj;
+                          if (MF && !(pn[(gi - tl.i0) * TX + (gj - tl.j0)] >
+                                      T(0)))
+                            val = T(0);
+                          zb[g] = val;
+                          const T prod = R[e] * val;
+                          acc += (double)prod;
+                        });
+      };
+      if constexpr (NU == 1)
+        last(tri<G::N, NS>(SS, k));
+      else
+        last(tri<G::N, 3>(EE + 3 * (NU - 2) * G::N, k));
+    }
+    __syncthreads();
+  }
+  const double sum = block_sum_fixed(acc, sh);
+  if (threadIdx.x == 0) s.part_c[(size_t)b * s.ntiles + blockIdx.x] = sum;
+}
+
 // Scratch per volume, in elements of `elem_bytes` (4 or 8): the three
 // double partial arrays first (8-byte aligned at the start), then z, the
-// second p, e, a spare volume, the coarse residual, e_c, the coarse tail's
-// scratch, and three scalars (rz_prev, alpha, spare).
+// second p, the second r, e, q, the coarse residual, e_c, the coarse
+// tail's scratch, and three scalars (rz_prev, alpha, spare).
 long long cg3d_scratch_elems(int L, const int* nz, const int* ny,
                              const int* nx, int elem_bytes) {
   if (L < 2) return 0;
   const long long n0 = (long long)nz[0] * ny[0] * nx[0];
   const long long n1 = (long long)nz[1] * ny[1] * nx[1];
-  return 3LL * blocks_for(n0) * (8 / elem_bytes) + 4 * n0 + 2 * n1 +
+  return 3LL * march::part_slots(nz[0], ny[0], nx[0], elem_bytes) *
+             (8 / elem_bytes) +
+         5 * n0 + 2 * n1 +
          cycle3_scratch_elems(L - 1, nz + 1, ny + 1, nx + 1) + 3;
 }
 
-// The k-iteration window for level-0 coefficients `co` (Stored3 or FromD3).
-template <typename T, typename C>
-cudaError_t run_window(int B, int L, const Level3<T>* lv, const C& co,
-                       const T* d, T* x, T* r0, T* p0, CgState<T> s,
-                       T* zbuf, T* p1, T* e, T* spare, T* rc, T* ec, T* cyc,
-                       const T* active, int k, const double* ws, int nu,
-                       int coarse_iters, double over, cudaStream_t st) {
+#define DEFF_TRY3(...)                         \
+  do {                                         \
+    cudaError_t _t = (__VA_ARGS__);            \
+    if (_t != cudaSuccess) return _t;          \
+  } while (0)
+
+// Buffers of one window.
+template <typename T>
+struct Bufs3 {
+  T* x;
+  T* r0;
+  T* r1;
+  T* p0;
+  T* p1;
+  T* z;
+  T* q;
+  T* e;
+  T* rc;
+  T* ec;
+  T* cyc;
+};
+
+// The three passes' launches for one nu and coefficient mode.
+template <typename T, int NU, bool MF>
+struct Passes3 {
+  static cudaError_t p(const Vol0<T>& v, const Bufs3<T>& u, int first,
+                       const CgState<T>& s, dim3 grid, int seglen,
+                       cudaStream_t st) {
+    static unsigned done = 0;
+    const size_t sm = march::smem_bytes(0, sizeof(T), 1, MF);
+    auto kern = march_p3_kernel<T, MF>;
+    DEFF_TRY3(allow_smem(kern, sm, &done));
+    DEFF_LAUNCH(kern<<<grid, NT, sm, st>>>(v, u.p0, u.p1, u.z, u.q, first, s,
+                                           seglen));
+    return cudaSuccess;
+  }
+  static cudaError_t x(const Vol0<T>& v, const Bufs3<T>& u, Dims3 dc,
+                       const CgState<T>& s, W3 ws, dim3 grid, int seglen,
+                       cudaStream_t st) {
+    static unsigned done = 0;
+    const size_t sm = march::smem_bytes(1, sizeof(T), NU, MF);
+    auto kern = march_x3_kernel<T, NU, MF>;
+    DEFF_TRY3(allow_smem(kern, sm, &done));
+    DEFF_LAUNCH(kern<<<grid, NT, sm, st>>>(v, u.x, u.p0, u.p1, u.r0, u.r1,
+                                           u.q, u.e, u.rc, dc, s, ws,
+                                           seglen));
+    return cudaSuccess;
+  }
+  static cudaError_t z(const Vol0<T>& v, const Bufs3<T>& u, Dims3 dc,
+                       T over, const CgState<T>& s, W3 ws, dim3 grid,
+                       int seglen, cudaStream_t st) {
+    static unsigned done = 0;
+    const size_t sm = march::smem_bytes(2, sizeof(T), NU, MF);
+    auto kern = march_z3_kernel<T, NU, MF>;
+    DEFF_TRY3(allow_smem(kern, sm, &done));
+    DEFF_LAUNCH(kern<<<grid, NT, sm, st>>>(v, u.r0, u.r1, u.e, u.ec, dc,
+                                           over, u.z, s, ws, seglen));
+    return cudaSuccess;
+  }
+};
+
+// The k-iteration window for one nu and coefficient mode.
+template <typename T, int NU, bool MF>
+cudaError_t run_window(int B, int L, const Level3<T>* lv, const Vol0<T>& v,
+                       const Bufs3<T>& u, CgState<T> s, const T* active,
+                       int k, const double* ws_, int coarse_iters,
+                       double over, cudaStream_t st) {
+  using P = Passes3<T, NU, MF>;
   const Dims3 d0 = lv[0].dm, d1 = lv[1].dm;
   const int n0 = d0.cells();
-  const dim3 blocks(blocks_for(n0), B), per_image(1, B);
-  if (d != nullptr) {
+  const int seglen = march::seg_len(d0.nz, d0.ny, d0.nx, sizeof(T), NU);
+  const int ncta = march::ctas(d0.nz, d0.ny, d0.nx, sizeof(T), NU);
+  const dim3 grid(ncta, B), per_image(1, B);
+  W3 ws{};
+  for (int i = 0; i < NU; ++i) ws.w[i] = ws_[i];
+  if (MF) {
     const long long n = (long long)B * n0;
     const int nb = (int)((n + THREADS - 1) / THREADS < 65536
                              ? (n + THREADS - 1) / THREADS : 65536);
-    DEFF_LAUNCH(pin_kernel<T><<<nb, THREADS, 0, st>>>(d, x, r0, p0, n));
+    DEFF_LAUNCH(pin_kernel<T><<<nb, THREADS, 0, st>>>(v.d, u.x, u.r0, u.p0,
+                                                      n));
   }
-  DEFF_LAUNCH(abs_parts3_kernel<T><<<blocks, THREADS, 0, st>>>(
-      r0, n0, s.part_b, s.ntiles));
-  DEFF_LAUNCH(fin_init_kernel<T><<<per_image, THREADS, 0, st>>>(s, active));
-  const DotOut<T> dot{d, s.part_c, s.ntiles};
-  cudaError_t err;
+  // the entry's sum|r| by plain blocks, then the passes' partials by CTA
+  CgState<T> s0 = s;
+  s0.ntiles = blocks_for(n0);
+  DEFF_LAUNCH(abs_parts3_kernel<T><<<dim3(s0.ntiles, B), THREADS, 0, st>>>(
+      u.r0, n0, s0.part_b, s0.ntiles));
+  DEFF_LAUNCH(fin_init_kernel<T><<<per_image, THREADS, 0, st>>>(s0, active));
+  s.ntiles = ncta;
+  // pass X writes the coarse cells under the fine volume; those past it
+  // (levels[1]'s even padding) stay 0 for the whole call
+  DEFF_TRY3(cudaMemsetAsync(u.rc, 0, sizeof(T) * B * d1.cells(), st));
   for (int i = 0; i < k; ++i) {
-    DEFF_LAUNCH(pass_a3_kernel<T, C><<<blocks, THREADS, 0, st>>>(
-        co, d0, p0, p1, zbuf, i == 0 ? 1 : 0, s));
+    DEFF_TRY3(P::p(v, u, i == 0 ? 1 : 0, s, grid, seglen, st));
     DEFF_LAUNCH(fin_alpha_kernel<T><<<per_image, THREADS, 0, st>>>(s));
-    DEFF_LAUNCH(update_xr3_kernel<T, C><<<blocks, THREADS, 0, st>>>(
-        co, d0, x, p0, p1, r0, s));
-    err = down3<T>(B, co, d0, r0, e, spare, rc, d1, ws, nu, s.live, st);
-    if (err != cudaSuccess) return err;
-    err = run_cycle3<T>(B, L - 1, lv + 1, rc, ec, cyc, ws, nu, coarse_iters,
-                        over, s.live, st);
-    if (err != cudaSuccess) return err;
-    err = up3<T>(B, co, d0, e, ec, d1, (T)over, r0, zbuf, spare, ws, nu, dot,
-                 s.live, st, nullptr);
-    if (err != cudaSuccess) return err;
+    DEFF_TRY3(P::x(v, u, d1, s, ws, grid, seglen, st));
+    DEFF_TRY3(run_cycle3<T>(B, L - 1, lv + 1, u.rc, u.ec, u.cyc, ws_, NU,
+                            coarse_iters, over, s.live, st));
+    DEFF_TRY3(P::z(v, u, d1, (T)over, s, ws, grid, seglen, st));
     DEFF_LAUNCH(fin_live_kernel<T><<<per_image, THREADS, 0, st>>>(s));
   }
-  DEFF_LAUNCH(copy_back_kernel<T><<<blocks, THREADS, 0, st>>>(
-      nullptr, nullptr, p0, p1, n0, s.par));
+  DEFF_LAUNCH(copy_back_kernel<T><<<dim3(blocks_for(n0), B), THREADS, 0,
+                                    st>>>(u.r0, u.r1, u.p0, u.p1, n0, s.par));
   return cudaSuccess;
+}
+
+template <typename T, bool MF>
+cudaError_t run_nu(int nu, int B, int L, const Level3<T>* lv,
+                   const Vol0<T>& v, const Bufs3<T>& u, CgState<T> s,
+                   const T* active, int k, const double* ws,
+                   int coarse_iters, double over, cudaStream_t st) {
+  switch (nu) {
+    case 1:
+      return run_window<T, 1, MF>(B, L, lv, v, u, s, active, k, ws,
+                                  coarse_iters, over, st);
+    case 2:
+      return run_window<T, 2, MF>(B, L, lv, v, u, s, active, k, ws,
+                                  coarse_iters, over, st);
+    case 3:
+      return run_window<T, 3, MF>(B, L, lv, v, u, s, active, k, ws,
+                                  coarse_iters, over, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -191,24 +659,27 @@ int cg3d_entry(int B, int L, const int* nz, const int* ny, const int* nx,
                void* scratch_, void* iscratch_, void* stream) {
   Level3<T> lv[MAX_LEVELS];
   if (!fill_levels3<T>(L, nz, ny, nx, aw, an, au, dinv, lv) || L < 2 ||
-      B < 1 || k < 0 || nu < 1 || nu > 3)
+      B < 1 || B > 65535 || k < 0 || nu < 1 || nu > 3 || nz[0] % 2 ||
+      ny[0] % 2 || nx[0] % 2)
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const long long n0 = lv[0].dm.cells(), n1 = lv[1].dm.cells();
-  const int nt = blocks_for(n0);
+  const long long np = march::part_slots(nz[0], ny[0], nx[0], sizeof(T));
   CgState<T> s{};
   s.part_a = static_cast<double*>(scratch_);
-  s.part_b = s.part_a + (size_t)B * nt;
-  s.part_c = s.part_b + (size_t)B * nt;
-  T* zbuf = reinterpret_cast<T*>(s.part_c + (size_t)B * nt);
-  T* p1 = zbuf + (size_t)B * n0;
-  T* e = p1 + (size_t)B * n0;
-  T* spare = e + (size_t)B * n0;
-  T* rc = spare + (size_t)B * n0;
-  T* ec = rc + (size_t)B * n1;
-  T* cyc = ec + (size_t)B * n1;
-  s.rz_prev = cyc + (size_t)B * cycle3_scratch_elems(L - 1, nz + 1, ny + 1,
-                                                     nx + 1);
+  s.part_b = s.part_a + (size_t)B * np;
+  s.part_c = s.part_b + (size_t)B * np;
+  Bufs3<T> u{};
+  u.z = reinterpret_cast<T*>(s.part_c + (size_t)B * np);
+  u.p1 = u.z + (size_t)B * n0;
+  u.r1 = u.p1 + (size_t)B * n0;
+  u.e = u.r1 + (size_t)B * n0;
+  u.q = u.e + (size_t)B * n0;
+  u.rc = u.q + (size_t)B * n0;
+  u.ec = u.rc + (size_t)B * n1;
+  u.cyc = u.ec + (size_t)B * n1;
+  s.rz_prev = u.cyc + (size_t)B * cycle3_scratch_elems(L - 1, nz + 1, ny + 1,
+                                                       nx + 1);
   s.alpha = s.rz_prev + B;
   s.rz = static_cast<T*>(rz_);
   s.stop = static_cast<const T*>(stop_);
@@ -216,20 +687,27 @@ int cg3d_entry(int B, int L, const int* nz, const int* ny, const int* nx,
   s.live = static_cast<int*>(iscratch_);
   s.par = s.live + B;
   s.k_done = static_cast<int*>(k_done_);
-  s.ntiles = nt;
-  const T* d = static_cast<const T*>(d_);
-  T* x = static_cast<T*>(x_);
-  T* r = static_cast<T*>(r_);
-  T* p = static_cast<T*>(p_);
+  u.x = static_cast<T*>(x_);
+  u.r0 = static_cast<T*>(r_);
+  u.p0 = static_cast<T*>(p_);
+  Vol0<T> v{};
+  v.aw = lv[0].co.aw;
+  v.an = lv[0].co.an;
+  v.au = lv[0].co.au;
+  v.dinv = lv[0].co.dinv;
+  v.d = static_cast<const T*>(d_);
+  v.fx = (T)fx;
+  v.fy = (T)fy;
+  v.fz = (T)fz;
+  v.bcf = (T)bcf;
+  v.nxr = nxr;
+  v.dm = lv[0].dm;
   const T* active = static_cast<const T*>(active_);
-  if (d == nullptr)
-    return run_window<T>(B, L, lv, lv[0].co, d, x, r, p, s, zbuf, p1, e,
-                         spare, rc, ec, cyc, active, k, ws, nu, coarse_iters,
+  if (v.d == nullptr)
+    return run_nu<T, false>(nu, B, L, lv, v, u, s, active, k, ws,
+                            coarse_iters, over, st);
+  return run_nu<T, true>(nu, B, L, lv, v, u, s, active, k, ws, coarse_iters,
                          over, st);
-  const FromD3<T> co{d, (T)fx, (T)fy, (T)fz, (T)bcf, nxr, lv[0].dm.nx,
-                     lv[0].dm.plane()};
-  return run_window<T>(B, L, lv, co, d, x, r, p, s, zbuf, p1, e, spare, rc,
-                       ec, cyc, active, k, ws, nu, coarse_iters, over, st);
 }
 
 }  // namespace
@@ -240,6 +718,15 @@ extern "C" {
 long long deff_cg3d_scratch_elems(int L, const int* nz, const int* ny,
                                   const int* nx, int elem_bytes) {
   return deff::cg3d_scratch_elems(L, nz, ny, nx, elem_bytes);
+}
+
+// The z-marching rule (march3d.cuh), for the Python twin's card test.
+int deff_march3_seg_len(int nz, int ny, int nx, int itemsize, int nu) {
+  return deff::march::seg_len(nz, ny, nx, itemsize, nu);
+}
+
+long long deff_march3_smem(int pass, int itemsize, int nu, int mf) {
+  return deff::march::smem_bytes(pass, itemsize, nu, mf != 0);
 }
 
 #define DEFF_CG3D_ENTRY(NAME, T)                                              \

@@ -1,8 +1,8 @@
-// Device code shared by the banded (large-grid) engine: K4, the tiled
-// V-cycle (vcycle_tiled.cu), and K5, the three-pass CG iteration
-// (cgstep_tiled.cu); and by the row-sharded engine, K8 (vcycle_sharded.cu)
-// and K9 (cgstep_sharded.cu), whose windows read a shard's halo strips
-// (Rows, at the end of this file).
+// Device code shared by the banded (large-grid) engine's K4, the tiled
+// V-cycle (vcycle_tiled.cu), and by the row-sharded engine, K8
+// (vcycle_sharded.cu) and K9 (cgstep_sharded.cu), whose windows read a
+// shard's halo strips (Rows, at the end of this file).  K5 (cgstep_tiled.cu)
+// runs K1's tile passes instead.
 //
 // The TPU engine (effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py,
 // cgstep_tiled.py) streamed the fine level in row bands of full width with

@@ -65,8 +65,8 @@ int t2_entry(int B, int nz, int ny, int nx, int nz1, int ny1, int nx1,
   return deff::up3<T>(B, stored<T>(aw, an, au, dinv), d0, static_cast<T*>(e),
                       static_cast<const T*>(ec), d1, (T)over,
                       static_cast<const T*>(r), static_cast<T*>(z),
-                      static_cast<T*>(spare), ws, nu, deff::DotOut<T>{},
-                      nullptr, static_cast<cudaStream_t>(stream), nullptr);
+                      static_cast<T*>(spare), ws, nu, nullptr,
+                      static_cast<cudaStream_t>(stream), nullptr);
 }
 
 }  // namespace

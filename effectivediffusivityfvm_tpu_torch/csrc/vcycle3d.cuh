@@ -1,7 +1,6 @@
 // K6: the 7-point voxel V(nu, nu) cycle z = M r over the padded-even 3D
 // hierarchy, as a sequence of batch-wide level kernels; also T1 and T2 of
-// the banded cycle and of K7's passes, with level 0's coefficients stored
-// or rebuilt from the diffusivity volume.
+// the banded cycle.
 //
 // Replaces effectivediffusivityfvm_tpu/ops/kernels/vcycle3d.py
 // (v_cycle3d_pallas / _cycle3d_value, and v_cycle3d_tiled's _t1_kernel3,
@@ -37,7 +36,6 @@
 // (nullptr = all images); a block whose image flag is 0 returns at once.
 #pragma once
 
-#include "cgscalars.cuh"
 #include "vcycle.cuh"
 
 namespace deff {
@@ -92,39 +90,6 @@ __device__ __forceinline__ T hmean3(T a, T b) {
   return s > T(0) ? ((T(2) * a) * b) / s : T(0);
 }
 
-// Level 0 rebuilt from the padded diffusivity volume D (matrix-free), term
-// for term as coeffs_from_d3 does: a_w = hm(D[w], D) fx (0 at j = 0), a_n =
-// hm(D[n], D) fy, a_u = hm(D[u], D) fz, diag = a_w + a_e + a_n + a_s + a_u
-// + a_d plus D bcf at the real columns 0 and nxr - 1, diag_inv = 1/diag
-// where diag > 0.  Each call reads D at the cell and its face neighbours.
-template <typename T>
-struct FromD3 {
-  const T* d;
-  T fx, fy, fz, bcf;
-  int nxr;
-  int nx, plane;
-  __device__ __forceinline__ T w(size_t g, const Cell& q) const {
-    return q.j > 0 ? hmean3(d[g - 1], d[g]) * fx : T(0);
-  }
-  __device__ __forceinline__ T n(size_t g, const Cell& q) const {
-    return q.i > 0 ? hmean3(d[g - nx], d[g]) * fy : T(0);
-  }
-  __device__ __forceinline__ T u(size_t g, const Cell& q) const {
-    return q.k > 0 ? hmean3(d[g - plane], d[g]) * fz : T(0);
-  }
-  __device__ T di(size_t g, const Cell& q, const Dims3& dm) const {
-    const T aw = w(g, q);
-    const T ae = q.j + 1 < dm.nx ? hmean3(d[g], d[g + 1]) * fx : T(0);
-    const T an = n(g, q);
-    const T as = q.i + 1 < dm.ny ? hmean3(d[g], d[g + nx]) * fy : T(0);
-    const T au = u(g, q);
-    const T ad = q.k + 1 < dm.nz ? hmean3(d[g], d[g + plane]) * fz : T(0);
-    T diag = aw + ae + an + as + au + ad;
-    if (q.j == 0 || q.j == nxr - 1) diag = diag + d[g] * bcf;
-    return diag > T(0) ? T(1) / diag : T(0);
-  }
-};
-
 // The symmetric 7-point neighbour sum at cell q (global index g) of the
 // values v(global index), in the plain version's order.
 template <typename T, typename C, typename V>
@@ -148,16 +113,6 @@ __device__ __forceinline__ T nbsum3(const C& co, V v, size_t g, const Cell& q,
   }
   return s;
 }
-
-// An optional epilogue of the sweep that writes z on level 0 in K7: z is
-// pinned to 0 where D <= 0 (pin != nullptr), and each block writes the
-// double partial of <rhs, z> to part[image * nblk + block].
-template <typename T>
-struct DotOut {
-  const T* pin;
-  double* part;
-  int nblk;
-};
 
 // Pre-smoothing: e = (w0 dinv) r, then (two == 1) one sweep at w1 whose
 // neighbour values of e are recomputed from r.
@@ -188,36 +143,22 @@ __global__ void pre_first3_kernel(C co, Dims3 dm, const T* __restrict__ r,
   }
 }
 
-// One damped-Jacobi sweep out = (1 - w) x + (w (rhs + nbsum(x))) dinv,
-// with the optional DotOut epilogue.
+// One damped-Jacobi sweep out = (1 - w) x + (w (rhs + nbsum(x))) dinv.
 template <typename T, typename C>
 __global__ void smooth3_kernel(C co, Dims3 dm, const T* __restrict__ x,
                                const T* __restrict__ rhs, T* __restrict__ out,
-                               T w, T omw, DotOut<T> dot, const int* flag) {
-  __shared__ double sh[THREADS];
+                               T w, T omw, const int* flag) {
   if (gated_off(flag)) return;
   const int n = dm.cells();
   const size_t off = (size_t)blockIdx.y * n;
   auto v = [&](size_t g) { return x[g]; };
-  double acc = 0.0;
   for (int kk = 0; kk < CPT; ++kk) {
     const int c = blockIdx.x * TILE + kk * THREADS + threadIdx.x;
     if (c >= n) break;
     const size_t g = off + c;
     const Cell q = cell_of(c, dm);
     const T nb = nbsum3<T>(co, v, g, q, dm);
-    T val = omw * x[g] + (w * (rhs[g] + nb)) * co.di(g, q, dm);
-    if (dot.part != nullptr) {
-      if (dot.pin != nullptr && !(dot.pin[g] > T(0))) val = T(0);
-      const T prod = rhs[g] * val;
-      acc += (double)prod;
-    }
-    out[g] = val;
-  }
-  if (dot.part != nullptr) {
-    const double s = block_sum_fixed(acc, sh);
-    if (threadIdx.x == 0)
-      dot.part[(size_t)blockIdx.y * dot.nblk + blockIdx.x] = s;
+    out[g] = omw * x[g] + (w * (rhs[g] + nb)) * co.di(g, q, dm);
   }
 }
 
@@ -294,8 +235,7 @@ __global__ void post_first3_kernel(C co, Dims3 dm, const T* __restrict__ es,
                                    const T* __restrict__ ec, Dims3 dc, T over,
                                    const T* __restrict__ rhs,
                                    T* __restrict__ out, T w, T omw,
-                                   DotOut<T> dot, const int* flag) {
-  __shared__ double sh[THREADS];
+                                   const int* flag) {
   if (gated_off(flag)) return;
   const int n = dm.cells();
   const size_t off = (size_t)blockIdx.y * n;
@@ -305,25 +245,13 @@ __global__ void post_first3_kernel(C co, Dims3 dm, const T* __restrict__ es,
     return es[g] +
            over * cb[((q.k >> 1) * dc.ny + (q.i >> 1)) * dc.nx + (q.j >> 1)];
   };
-  double acc = 0.0;
   for (int kk = 0; kk < CPT; ++kk) {
     const int c = blockIdx.x * TILE + kk * THREADS + threadIdx.x;
     if (c >= n) break;
     const size_t g = off + c;
     const Cell q = cell_of(c, dm);
     const T nb = nbsum3<T>(co, v, g, q, dm);
-    T val = omw * v(g) + (w * (rhs[g] + nb)) * co.di(g, q, dm);
-    if (dot.part != nullptr) {
-      if (dot.pin != nullptr && !(dot.pin[g] > T(0))) val = T(0);
-      const T prod = rhs[g] * val;
-      acc += (double)prod;
-    }
-    out[g] = val;
-  }
-  if (dot.part != nullptr) {
-    const double s = block_sum_fixed(acc, sh);
-    if (threadIdx.x == 0)
-      dot.part[(size_t)blockIdx.y * dot.nblk + blockIdx.x] = s;
+    out[g] = omw * v(g) + (w * (rhs[g] + nb)) * co.di(g, q, dm);
   }
 }
 
@@ -351,8 +279,7 @@ cudaError_t down3(int B, const C& co, Dims3 dm, const T* r, T* e, T* spare,
       co, dm, r, cur, (T)ws[0], (T)w1, (T)(1.0 - w1), nu > 1 ? 1 : 0, flag));
   for (int s = 2; s < nu; ++s) {
     DEFF_LAUNCH(smooth3_kernel<T, C><<<grid3(dm.cells(), B), blk, 0, st>>>(
-        co, dm, cur, r, oth, (T)ws[s], (T)(1.0 - ws[s]), DotOut<T>{},
-        flag));
+        co, dm, cur, r, oth, (T)ws[s], (T)(1.0 - ws[s]), flag));
     T* t = cur; cur = oth; oth = t;
   }
   DEFF_LAUNCH(resid_restrict3_kernel<T, C><<<grid3(dc.cells(), B), blk, 0,
@@ -364,27 +291,25 @@ cudaError_t down3(int B, const C& co, Dims3 dm, const T* r, T* e, T* spare,
 // The up leg on one level (T2): e + over P e_c, then the sweeps in reverse
 // order of ws.  `e` is clobbered after the first sweep; the result goes to
 // `out` if it is not null, else it lands in `spare` or `e` and *landed`
-// says where.  `dot` is the epilogue of the sweep that writes the result.
+// says where.
 template <typename T, typename C>
 cudaError_t up3(int B, const C& co, Dims3 dm, T* e, const T* ec, Dims3 dc,
                 T over, const T* r, T* out, T* spare, const double* ws,
-                int nu, DotOut<T> dot, const int* flag, cudaStream_t st,
+                int nu, const int* flag, cudaStream_t st,
                 T** landed) {
   const dim3 blk(THREADS);
   T* bufs[2] = {spare, e};
   T* dst = (nu == 1 && out != nullptr) ? out : bufs[0];
   const double w0 = ws[nu - 1];
   DEFF_LAUNCH(post_first3_kernel<T, C><<<grid3(dm.cells(), B), blk, 0, st>>>(
-      co, dm, e, ec, dc, over, r, dst, (T)w0, (T)(1.0 - w0),
-      nu == 1 ? dot : DotOut<T>{}, flag));
+      co, dm, e, ec, dc, over, r, dst, (T)w0, (T)(1.0 - w0), flag));
   for (int s = 1; s < nu; ++s) {
     T* src = dst;
     const bool last = s == nu - 1;
     dst = (last && out != nullptr) ? out : bufs[s & 1];
     const double w = ws[nu - 1 - s];
     DEFF_LAUNCH(smooth3_kernel<T, C><<<grid3(dm.cells(), B), blk, 0, st>>>(
-        co, dm, src, r, dst, (T)w, (T)(1.0 - w), last ? dot : DotOut<T>{},
-        flag));
+        co, dm, src, r, dst, (T)w, (T)(1.0 - w), flag));
   }
   if (landed != nullptr) *landed = dst;
   return cudaSuccess;
@@ -438,7 +363,7 @@ cudaError_t run_cycle3(int B, int L, const Level3<T>* lv, const T* r, T* z,
     T* landed = nullptr;
     err = up3<T>(B, lv[l].co, lv[l].dm, E[l], ec, lv[l + 1].dm, (T)over,
                  l == 0 ? r : R[l], l == 0 ? z : nullptr, P[l], ws, nu,
-                 DotOut<T>{}, flag, st, &landed);
+                 flag, st, &landed);
     if (err != cudaSuccess) return err;
     ec = landed;
   }

@@ -52,6 +52,8 @@ _ENTRIES = {
     "deff_cycle3_count": ([], ctypes.c_longlong),
     "deff_cycle3_scratch_elems": ([_I, _P, _P, _P], ctypes.c_longlong),
     "deff_cg3d_scratch_elems": ([_I, _P, _P, _P, _I], ctypes.c_longlong),
+    "deff_march3_seg_len": ([_I, _I, _I, _I, _I], _I),
+    "deff_march3_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
     "deff_shard_tiles": ([_I, _I], _I),
 }
 for _t in ("f32", "f64"):

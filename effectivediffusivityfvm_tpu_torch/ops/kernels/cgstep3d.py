@@ -24,6 +24,10 @@ by :func:`~.vcycle3d.coeffs_from_d3` (pads get ``diag_inv`` 0, not the
 stored identity); x, r and p of every volume are first multiplied by ``(D
 > 0)``, and ``z`` is 0 where ``D == 0``; levels 1+ stay stored.  Both
 versions update x, r and p in place and return them.
+
+The kernel runs an iteration as three z-marching passes over level 0
+(``csrc/march3d.cuh``); :func:`march3_plan` is the Python twin of their
+tile and segment rule and shared-memory sizes.
 """
 
 from __future__ import annotations
@@ -40,7 +44,58 @@ from .vcycle3d import (Level3Args, _check_banded, _device_ok, _nbsum3,
                        coarse_tail3, coeffs_from_d3, post3_reference,
                        pre3_reference)
 
-__all__ = ["cg_steps3d_reference", "cg_steps3d"]
+__all__ = ["cg_steps3d_reference", "cg_steps3d", "march3_plan"]
+
+# The z-marching rule of the kernel's passes (csrc/march3d.cuh, twin of
+# march::seg_len and march::smem_bytes): (y, x) tiles of 16 x 32 cells in
+# float32, 8 x 32 in float64; z cut into even segments so that a volume
+# gives at least MARCH3_TARGET_CTAS CTAs (one wave of two an SM on the
+# H100's 132 SMs) where each segment keeps at least max(8, 4 nu) slices.
+MARCH3_TX = 32
+MARCH3_TARGET_CTAS = 256
+MARCH3_PD = 1                    # slices staged ahead of the one in use
+SMEM_BLOCK_MAX = 232448          # the H100's opt-in shared memory a block
+SMEM_SM = 233472                 # shared memory an SM (228 KiB)
+PASSES = ("P", "X", "Z")
+
+
+def _march3_smem(pass_i: int, itemsize: int, nu: int, mf: bool) -> int:
+    ty = 8 if itemsize == 8 else 16
+    h = 1 if pass_i == 0 else nu
+    win = (ty + 2 * h) * (MARCH3_TX + 2 * h)
+    dwin = (ty + 2 * h + 2) * (MARCH3_TX + 2 * h + 2)
+    pd = MARCH3_PD
+    coef = (2 if pass_i == 0 else nu + 1) + pd
+    fields = ((3 + pd) + (1 + pd),
+              (nu + 1 + pd) + (1 + pd) + 3 + 3 * (nu - 1),
+              (3 + pd) + (nu + 1 + pd) + 3 * (nu - 1))[pass_i]
+    tiles = (2 * (1 + pd) + 1 if pass_i == 1
+             else nu + 1 if pass_i == 2 and mf else 0)
+    coarse = ((1 + pd) * (ty // 2 + h + 1) * (MARCH3_TX // 2 + h + 1)
+              if pass_i == 2 else 0)
+    return itemsize * ((4 * coef + fields) * win + tiles * ty * MARCH3_TX
+                       + coarse + ((2 + pd) * dwin if mf else 0))
+
+
+def march3_plan(shape, itemsize: int, nu: int) -> dict:
+    """The kernel's tiling of a level-0 shape ``(nz, ny, nx)``: ``tile``
+    (rows, columns), ``tiles`` a plane, ``seg_len`` (slices a z-segment,
+    even), ``segments``, ``ctas`` a volume, and ``smem[(pass, mf)]`` the
+    dynamic shared memory of pass "P", "X" or "Z" in bytes (stored or
+    matrix-free level 0).  A function of the shape, the element size and nu
+    alone, equal to the C rule (a card test holds them equal)."""
+    nz, ny, nx = (int(v) for v in shape)
+    ty = 8 if itemsize == 8 else 16
+    tiles = -(-ny // ty) * -(-nx // MARCH3_TX)
+    nseg = min(-(-MARCH3_TARGET_CTAS // tiles),
+               max(1, nz // max(8, 4 * nu)))
+    seg_len = -(-nz // nseg)
+    seg_len += seg_len & 1
+    segments = -(-nz // seg_len)
+    smem = {(name, mf): _march3_smem(i, itemsize, nu, mf)
+            for i, name in enumerate(PASSES) for mf in (False, True)}
+    return dict(tile=(ty, MARCH3_TX), tiles=tiles, seg_len=seg_len,
+                segments=segments, ctas=tiles * segments, smem=smem)
 
 
 def _check_args(levels, x, nu, d_field, geom):

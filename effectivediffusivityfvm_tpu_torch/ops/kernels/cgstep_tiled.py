@@ -1,7 +1,8 @@
 """K5: up to ``k`` multigrid-preconditioned CG iterations per image on the
 banded engine's padded grid, each iteration three passes over level 0 --
-the CUDA kernel (``csrc/cgstep_tiled.cu`` over ``csrc/tiled.cuh``) and its
-plain PyTorch version -- plus :func:`coeffs_from_d`, the matrix-free
+the CUDA kernel (``csrc/cgstep_tiled.cu``: K1's three tile passes with the
+banded engine's contract, over ``csrc/cgscalars.cuh``) and its plain
+PyTorch version -- plus :func:`coeffs_from_d`, the matrix-free
 rebuild of level 0 from the diffusivity field.
 
 Replaces ``effectivediffusivityfvm_tpu/ops/kernels/cgstep_tiled.py``

@@ -12,7 +12,10 @@ without FMA contraction and follow their plain versions operation for
 operation, so the only differences left are the order of the (double)
 reductions: 1e-9 of max-abs in float64, and chip_smoke.py's 1e-4 in
 float32.  K3 (the Jacobi sweeps), K4 (the banded cycle) and K6 (the 3D
-cycles) have no reductions and must match exactly.
+cycles) have no reductions and must match exactly.  K5 and K7 sum float32
+products in double and round once, so in float32 they must match exactly
+too; in float64 the products themselves are double and the order of their
+sums shows in the last bits.
 """
 
 import numpy as np
@@ -27,7 +30,7 @@ from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_tiled as vt
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
     cg_steps, cg_steps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep3d import (
-    cg_steps3d, cg_steps3d_reference)
+    cg_steps3d, cg_steps3d_reference, march3_plan)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
     cg_steps_tiled, cg_steps_tiled_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
@@ -79,7 +82,8 @@ def test_v_cycle_kernel_matches_plain(cuda, dtype, shape):
 
 
 SCHEDULES = {1: (0.8,), 2: (1.281, 0.5584), 3: (1.2, 0.7, 0.9),
-             4: (1.3, 0.6, 0.9, 0.75)}
+             4: (1.3, 0.6, 0.9, 0.75),
+             6: (1.3, 0.6, 0.9, 0.75, 1.1, 0.7)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -318,15 +322,38 @@ def test_v_cycle_tiled_kernel_matches_plain(cuda, dtype, shape):
     assert torch.equal(z, vt.v_cycle_tiled_reference(levels, r, **MG))
 
 
+def _check_cg_window(got, ref, state, dtype, exact_frozen):
+    """K5/K7 against the plain version: image 0 ran the window, 1 was
+    frozen, 2 exited at iteration 0, 3 tripped its hi after one step."""
+    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
+    if dtype == torch.float32:
+        for g, e in zip(got[:4], ref[:4]):
+            assert torch.equal(g, e), float((g - e).abs().max())
+    else:
+        for g, e in zip(got[:3], ref[:3]):
+            for b in range(4):
+                assert _rel_err(g[b], e[b]) <= TOL[dtype]
+        torch.testing.assert_close(got[3], ref[3], rtol=10 * TOL[dtype],
+                                   atol=0)
+    for g, e in zip(got[:4], ref[:4]):
+        assert torch.equal(g[1], e[1])          # frozen: as the plain version
+    if exact_frozen:
+        for g, s in zip(got[:4], state[:4]):
+            assert torch.equal(g[1], s[1])      # stored: bit-unchanged
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
-@pytest.mark.parametrize("shape", TILED_SHAPES[1:])
-def test_cg_steps_tiled_kernel_matches_plain(cuda, dtype, mf, shape):
+@pytest.mark.parametrize("nu", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_cg_steps_tiled_kernel_matches_plain(cuda, dtype, mf, nu, shape):
     """Image 0 runs the window, 1 is frozen, 2 exits at iteration 0 on its
-    stop, 3 overshoots (rz inflated) and trips its hi after one step."""
+    stop, 3 overshoots (rz inflated) and trips its hi after one step.  nu
+    = 4 and 6 (the wrapper's largest) run the passes' deeper halos."""
     levels, x, mf_kw = _tiled_problem(cuda, dtype, 4, *shape, seed=1)
+    mg = dict(MG, omega=SCHEDULES[nu], nu=nu)
     r = levels[0].b - fvm.apply_operator(levels[0], x)
-    p = vt.v_cycle_tiled_reference(levels, r, **MG)
+    p = vt.v_cycle_tiled_reference(levels, r, **mg)
     rz = torch.sum(r * p, dim=(-2, -1))
     sr0 = torch.sum(r.abs(), dim=(-2, -1))
     rz[3] *= 1e3
@@ -338,22 +365,13 @@ def test_cg_steps_tiled_kernel_matches_plain(cuda, dtype, mf, shape):
     extra = mf_kw if mf else {}
     state = (x, r, p, rz, active, stop, hi)
     before = cg_steps_tiled.launches
-    got = cg_steps_tiled(levels, *(t.clone() for t in state), 4, **MG,
+    got = cg_steps_tiled(levels, *(t.clone() for t in state), 4, **mg,
                          **extra)
     ref = cg_steps_tiled_reference(levels, *(t.clone() for t in state), 4,
-                                   **MG, **extra)
+                                   **mg, **extra)
     torch.cuda.synchronize()
     assert cg_steps_tiled.launches == before + 1
-    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
-    for g, e in zip(got[:3], ref[:3]):
-        for b in range(4):
-            assert _rel_err(g[b], e[b]) <= TOL[dtype]
-    torch.testing.assert_close(got[3], ref[3], rtol=10 * TOL[dtype], atol=0)
-    for g, e in zip(got[:4], ref[:4]):
-        assert torch.equal(g[1], e[1])          # frozen: as the plain version
-    if not mf:
-        for g, s in zip(got[:4], state[:4]):
-            assert torch.equal(g[1], s[1])      # stored: bit-unchanged
+    _check_cg_window(got, ref, state, dtype, exact_frozen=not mf)
 
 
 @pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
@@ -393,6 +411,10 @@ def _problem3d(dev, dtype, bsz, nz, ny, nx, seed=0, contrast=1e4):
 # (16, 10, 12): even, one band; (13, 9, 22): odd dims, padded; (40, 36, 52):
 # several coarse levels
 SHAPES_3D = [(16, 10, 12), (13, 9, 22), (40, 36, 52)]
+# K7's z-segments start at even slices (a 2x2x2 restriction never straddles
+# two CTAs): 37 slices padded to 40 run in five segments of 8 (nu <= 2) or
+# four of 12 (nu = 3), the last real slice odd and inside the last one
+CROSSING_3D = (37, 20, 40)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -415,12 +437,13 @@ def test_v_cycle3d_kernels_match_plain(cuda, dtype, nu, shape):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
-@pytest.mark.parametrize("shape", SHAPES_3D[1:])
-def test_cg_steps3d_kernel_matches_plain(cuda, dtype, mf, shape):
+@pytest.mark.parametrize("nu", [1, 2, 3])
+@pytest.mark.parametrize("shape", SHAPES_3D + [CROSSING_3D])
+def test_cg_steps3d_kernel_matches_plain(cuda, dtype, mf, nu, shape):
     """K7: volume 0 runs the window, 1 is frozen, 2 exits at iteration 0 on
     its stop, 3 overshoots (rz inflated) and trips its hi after one step."""
     _, _, levels, x, mf_kw = _problem3d(cuda, dtype, 4, *shape, seed=1)
-    mg = dict(omega=0.8, nu=2, coarse_iters=8, over=1.8)
+    mg = dict(omega=SCHEDULES[nu], nu=nu, coarse_iters=8, over=1.8)
     r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
     p = v3.v_cycle3d_tiled_reference(levels, r, **mg)
     rz = torch.sum(r * p, dim=(-3, -2, -1))
@@ -439,13 +462,24 @@ def test_cg_steps3d_kernel_matches_plain(cuda, dtype, mf, shape):
                                **extra)
     torch.cuda.synchronize()
     assert cg_steps3d.launches == before + 1
-    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
-    for g, e in zip(got[:3], ref[:3]):
-        for b in range(4):
-            assert _rel_err(g[b], e[b]) <= TOL[dtype]
-    torch.testing.assert_close(got[3], ref[3], rtol=10 * TOL[dtype], atol=0)
-    for g, e in zip(got[:4], ref[:4]):
-        assert torch.equal(g[1], e[1])          # frozen: as the plain version
+    _check_cg_window(got, ref, state, dtype, exact_frozen=not mf)
+
+
+@pytest.mark.parametrize("nu", [1, 2, 3])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_march3_rule_python_equals_c(cuda, itemsize, nu):
+    """K7's tile and segment rule and its passes' shared memory: the C rule
+    (csrc/march3d.cuh) equals its Python twin."""
+    lib = _build.load_library()
+    for shape in SHAPES_3D + [CROSSING_3D, (104, 64, 90), (256, 256, 256),
+                              (2, 2, 2), (64, 2, 300)]:
+        plan = march3_plan(shape, itemsize, nu)
+        assert lib.deff_march3_seg_len(*shape, itemsize, nu) == \
+            plan["seg_len"], shape
+        for i, name in enumerate(("P", "X", "Z")):
+            for mf in (False, True):
+                assert lib.deff_march3_smem(i, itemsize, nu, int(mf)) == \
+                    plan["smem"][(name, mf)], (shape, name, mf)
 
 
 @pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])

@@ -13,9 +13,15 @@ checkout's):
   cycle) and K1's k=5 call there (ms, launches an iteration);
 * the MGCG slice (bench.py's problem): solves/s, best of three, and the
   iterations;
-* BASELINE config 3 stored (one 2048^2 image): seconds, best of three;
+* BASELINE config 3 (one 2048^2 image), stored and matrix-free: seconds,
+  best of three;
+* K5's k=10 call on that image (B=1 x 2048^2, stored and matrix-free; ms
+  by CUDA events);
 * config 3 through ``sharded_solve_mgcg`` on four shards of the card and on
-  one: seconds, best of three, iterations and Deff.
+  one: seconds, best of three, iterations and Deff;
+* K7's k=5 call on BASELINE config 5's volume (B=1 x 256^3, stored and
+  matrix-free) and config 5's solve on both legs: seconds, best of three,
+  and iterations.
 
 To compare a parent commit with this tree, unpack it under ``build/`` and
 run the two alternately in one call on the card:
@@ -56,11 +62,19 @@ def main():
     import effectivediffusivityfvm_tpu_torch as pkg
     from effectivediffusivityfvm_tpu_torch.ops import fvm
     from effectivediffusivityfvm_tpu_torch.ops.kernels import _build
+    from effectivediffusivityfvm_tpu_torch.ops import fvm3d
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle3d as v3
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
         batch_sum, cg_steps)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep3d import \
+        cg_steps3d
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import \
+        cg_steps_tiled
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import \
+        v_cycle_tiled
     from effectivediffusivityfvm_tpu_torch.parallel import halo, mesh
-    from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+    from effectivediffusivityfvm_tpu_torch.solvers import multigrid, solvers3d
 
     if Path(pkg.__file__).resolve().parents[1] != tree:
         raise SystemExit(f"turns: imported {pkg.__file__}, not from {tree}")
@@ -126,14 +140,36 @@ def main():
     del coeffs, spec, x0, res
     torch.cuda.empty_cache()
 
-    # BASELINE config 3, unsharded (stored) and sharded
+    def window_ms(fn, levels, x, r, p, k, mg, extra, reps=3):
+        """ms of one CG window call of ``k`` iterations on B=1 (every
+        iteration live), each call on a fresh copy of the state."""
+        rz = batch_sum(r * p)
+        one = torch.ones(1, dtype=x.dtype, device=dev)
+        states = [(x.clone(), r.clone(), p.clone()) for _ in range(reps + 1)]
+        return cs.cuda_ms(lambda: fn(levels, *states.pop(), rz, one, 0 * one,
+                                     one * float("inf"), k, **mg, **extra),
+                          reps)
+
+    # BASELINE config 3, unsharded (stored) and sharded, and K5 on its image
     rng = np.random.default_rng(cs.C3_SEED)
     img = cs.correlated_binary(rng, cs.C3_SIZE, cs.C3_SIZE)
-    _, c, s, x0 = cs.c3_problem(img, dev)
+    d, c, s, x0 = cs.c3_problem(img, dev)
     kw = dict(cs.C3_KW, first_window=0)
     t, times, res = best_of_3(lambda: multigrid.solve_mgcg(c, s, x0, **kw))
     out["config3_s"], out["config3_runs_s"] = t, times
     out["config3_iterations"] = int(res.iters)
+    t, times, res = best_of_3(lambda: multigrid.solve_mgcg(
+        c, s, x0, **cs.C3_KW, d_field=d, first_window=1))
+    out["config3_mf_s"], out["config3_mf_runs_s"] = t, times
+    out["config3_mf_iterations"] = int(res.iters)
+    levels, x, mf = cs.tiled_setup(d[None], type(c)(*(a[None] for a in c)),
+                                   x0[None], cs.C3_KW["min_size"])
+    r = levels[0].b - fvm.apply_operator(levels[0], x)
+    p = v_cycle_tiled(levels, r, **cs.MG3)
+    for mode, extra in (("stored", {}), ("mf", mf)):
+        out[f"k5_{mode}_ms"] = window_ms(cg_steps_tiled, levels, x, r, p,
+                                         cs.K5_TIME_K, cs.MG3, extra)
+    del levels, x, mf, r, p
     for sp in (4, 1):
         m = mesh.make_mesh(sp, devices=[dev] * sp)
         t, times, res = best_of_3(
@@ -141,6 +177,26 @@ def main():
         out[f"config3_sp{sp}_s"], out[f"config3_sp{sp}_runs_s"] = t, times
         out[f"config3_sp{sp}_iterations"] = int(res.iters)
         out[f"config3_sp{sp}_deff"] = float(res.deff)
+    del c, s, x0, d, res
+    torch.cuda.empty_cache()
+
+    # BASELINE config 5: K7 on its volume, then the solve on both legs
+    fluid = cs.c5_fluid((cs.C5_SIZE,) * 3, cs.C5_SEED)
+    d5, c5, s5, x05 = cs.c5_problem(fluid, dev)
+    levels, x, mf = cs.tiled3d_setup(d5[None],
+                                     type(c5)(*(a[None] for a in c5)),
+                                     x05[None])
+    r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
+    p = v3.v_cycle3d_tiled(levels, r, **cs.MG5)
+    for mode, extra in (("stored", {}), ("mf", mf)):
+        out[f"k7_{mode}_ms"] = window_ms(cg_steps3d, levels, x, r, p,
+                                         cs.K7_TIME_K, cs.MG5, extra)
+    del levels, x, mf, r, p
+    for name, extra in (("mf", dict(d_field=d5)), ("stored", {})):
+        t, times, res = best_of_3(lambda: solvers3d.solve_mgcg_3d(
+            c5, s5, x05, **cs.C5_KW, **extra))
+        out[f"config5_{name}_s"], out[f"config5_{name}_runs_s"] = t, times
+        out[f"config5_{name}_iterations"] = int(res.iters)
     print(json.dumps(out), flush=True)
 
 

@@ -240,6 +240,27 @@ def cuda_ms(fn, reps, warm=1):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """Mean milliseconds of device time per call of ``fn`` over ``reps``
+    calls under ``torch.profiler`` (its kernels' and copies' durations
+    summed: the call's time with the host's gaps taken out), or None where
+    the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+
+
 def bound(nbytes, ops, itemsize):
     """``(bound_ms, bound_by)`` of a call moving ``nbytes`` and doing
     ``ops`` operations."""
@@ -857,10 +878,9 @@ def large_grid_phases(dev, card, lib):
 PROFILE_GROUPS_3D = (
     ("K7 pass P", "march_p3_kernel"), ("K7 pass X", "march_x3_kernel"),
     ("K7 pass Z", "march_z3_kernel"),
-    ("3D pre-smooth (T1, tails)", "pre_first3_kernel"),
-    ("3D residual + restriction (T1, tails)", "resid_restrict3_kernel"),
-    ("3D prolong + post-smooth (T2, tails)", "post_first3_kernel"),
-    ("3D sweeps (T1, T2, tails)", "smooth3_kernel"),
+    ("K6 DOWN passes (T1, tails)", "zdown3_kernel"),
+    ("K6 UP passes (T2, tails)", "zup3_kernel"),
+    ("K6 resident bottom (tails)", "bottom3_kernel"),
     ("3D coarsest level", "coarse_solve3_kernel"),
     ("K7 scalars", ("fin_", "abs_parts3", "pin_kernel", "copy_back")),
 )
@@ -946,26 +966,28 @@ def cg3_work(levels, bsz, itemsize, nu, k, mf=False):
     return (k * per_iter, k * (ops + n0 * (40 + (90 if mf else 0))), old)
 
 
-def k6_tail_cells(cells, nu):
-    """Reckoned elements K6's whole cycle moves over the 3D levels ``cells``
-    (one global pass a stencil step, vcycle3d.cuh): a level above the
-    coarsest runs pre_first (r and four coefficient volumes read, e written:
-    6), nu - 2 further pre-sweeps (7 each), the residual and restriction
-    (6.125), post_first (7.125) and nu - 1 post-sweeps (7 each); the coarsest
-    reads its coefficients and right-hand side and writes its correction
-    (6)."""
-    per = 6 + 7 * max(nu - 2, 0) + 6.125 + 7.125 + 7 * (nu - 1)
-    return per * sum(cells[:-1]) + 6 * cells[-1]
+def k6_tail_cells(shapes, itemsize):
+    """Reckoned elements K6's whole cycle moves over the 3D levels
+    ``shapes`` (csrc/vcycle3d.cu): a DOWN pass (r and the four coefficient
+    volumes read, e and an eighth volume written: 6.125 volumes) and an UP
+    pass (e, r, the coefficients and an eighth volume read, the correction
+    written: 7.125) for each level above the resident bottom; the bottom
+    reads the four coefficient volumes of its levels and its first level's
+    right-hand side and writes that level's correction (when not even the
+    coarsest level fits, its sweeps read its coefficients and right-hand
+    side and write its correction: 6).  One global pass a stencil step
+    moved 26.25 volumes a level at nu = 2."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle3d import \
+        cycle3_resident_from
+
+    cells = [a * b * c for a, b, c in shapes]
+    lb = cycle3_resident_from(shapes, itemsize)
+    passes = 13.25 * sum(cells[:min(lb, len(cells) - 1)])
+    return passes + (4 * sum(cells[lb:]) + 2 * cells[lb] if lb < len(cells)
+                     else 6 * cells[-1])
 
 
-def k6_launches(n_levels, nu):
-    """Launches of K6's whole cycle over ``n_levels`` 3D levels: pre_first,
-    nu - 2 further pre-sweeps, the residual and restriction, post_first and
-    nu - 1 post-sweeps a level above the coarsest; one for the coarsest."""
-    return (n_levels - 1) * (3 + max(nu - 2, 0) + nu - 1) + 1
-
-
-def k7_bytes_per_cell(levels, itemsize, nu, mf=False):
+def k7_bytes_per_cell(levels, itemsize, mf=False):
     """Reckoned bytes a K7 iteration moves per level-0 cell, from the
     kernels' loads and stores (each volume a pass reads or writes counted
     once; an eighth volume for the restricted residual and the coarse
@@ -976,9 +998,10 @@ def k7_bytes_per_cell(levels, itemsize, nu, mf=False):
     coefficient volumes of each pass become one D volume: 17.25.  Plus K6's
     whole cycle on levels[1:] (k6_tail_cells).  The eight launches of K7's
     first form moved ~42 volumes at level 0 (168 B/cell fp32, stored)."""
-    cells = [c.diag[0].numel() for c in levels]
+    shapes = [tuple(c.diag.shape[-3:]) for c in levels]
+    n0 = shapes[0][0] * shapes[0][1] * shapes[0][2]
     return itemsize * ((17.25 if mf else 26.25)
-                       + k6_tail_cells(cells[1:], nu) / cells[0])
+                       + k6_tail_cells(shapes[1:], itemsize) / n0)
 
 
 def volume_phases(dev, card, lib):
@@ -1017,6 +1040,7 @@ def volume_phases(dev, card, lib):
     t0 = time.perf_counter()
     k6w_err, lines = 0.0, []
     for shape, dtype, nu, seed in (((64, 64, 64), torch.float32, 2, 41),
+                                   ((64, 64, 64), torch.float64, 3, 41),
                                    ((40, 36, 52), torch.float64, 1, 42)):
         fluid = np.stack([c5_fluid(shape, seed + 10 * i) for i in range(2)])
         d, c, _, x0 = c5_problem(fluid, dev, dtype)
@@ -1027,17 +1051,24 @@ def volume_phases(dev, card, lib):
                  0, levels[0].diag.shape[-3] - shape[0])).contiguous()
         r = resid(levels, x)
         mg = dict(MG5, nu=nu)
-        n0 = v3.v_cycle3d.launches
+        n0, l0 = v3.v_cycle3d.launches, lib.deff_launch_count()
         z = v3.v_cycle3d(levels, r, **mg)
         torch.cuda.synchronize()
         check(v3.v_cycle3d.launches == n0 + 1, "K6 whole launches")
+        shapes = [tuple(c.diag.shape[-3:]) for c in levels]
+        per_cycle = lib.deff_launch_count() - l0
+        want = v3.cycle3_launches(shapes, r.element_size())
+        check(per_cycle == want, f"K6 whole {shape} {dtype}: {per_cycle} "
+              f"launches a cycle, the resident rule gives {want}")
         zp = v3.v_cycle3d_reference(levels, r, **mg)
         err = float((z - zp).abs().max())
         check(bool(torch.equal(z, zp)), f"K6 whole {shape} {dtype}: max abs "
               f"err {err}, not bit-identical")
         k6w_err = max(k6w_err, err)
         lines.append(f"B=2 x {shape} {str(dtype)[-7:]} nu={nu}, "
-                     f"{len(levels)} levels: max abs err {err:.3e} (max|z| "
+                     f"{len(levels)} levels, resident from level "
+                     f"{v3.cycle3_resident_from(shapes, r.element_size())}, "
+                     f"{per_cycle} launches: max abs err {err:.3e} (max|z| "
                      f"{float(zp.abs().max()):.3e})")
         del d, c, levels, x, r, z, zp
     phase(18, t0, "K6 whole cycle vs plain: " + "; ".join(lines))
@@ -1047,6 +1078,7 @@ def volume_phases(dev, card, lib):
     fluid5 = c5_fluid((C5_SIZE,) * 3, C5_SEED)
     k6b_err, lines = 0.0, []
     cases = ((fluid5[None], torch.float32, 2),
+             (fluid5[None], torch.float64, 3),
              (np.stack([c5_fluid((100, 64, 90), 43 + i) for i in range(2)]),
               torch.float32, 2),
              (c5_fluid((48, 48, 48), 45)[None], torch.float64, 3))
@@ -1055,21 +1087,46 @@ def volume_phases(dev, card, lib):
         levels, x, _ = tiled3d_setup(d, c, x0)
         r = resid(levels, x)
         mg = dict(MG5, nu=nu)
+        shapes = [tuple(c.diag.shape[-3:]) for c in levels]
+        item = r.element_size()
+        tail = v3.cycle3_launches(shapes[1:], item)
         n6, n6w = v3.v_cycle3d_tiled.launches, v3.v_cycle3d.launches
+        l0 = lib.deff_launch_count()
         z = v3.v_cycle3d_tiled(levels, r, **mg)
         torch.cuda.synchronize()
+        per_cycle = lib.deff_launch_count() - l0
         check(v3.v_cycle3d_tiled.launches == n6 + 1
               and v3.v_cycle3d.launches == n6w + 1, "K6 banded launches")
+        check(per_cycle == 2 + tail, f"K6 banded {tuple(fluid.shape)}: "
+              f"{per_cycle} launches a cycle, T1, T2 and the rule's {tail}")
         zp = v3.v_cycle3d_tiled_reference(levels, r, **mg)
         err = float((z - zp).abs().max())
         check(bool(torch.equal(z, zp)), f"K6 banded {tuple(fluid.shape)}: "
               f"max abs err {err}, not bit-identical")
         k6b_err = max(k6b_err, err)
+        # the whole cycle as the main path calls it: on levels[1:]
+        r1 = torch.randn((fluid.shape[0],) + shapes[1], dtype=dtype,
+                         device=dev)
+        l0 = lib.deff_launch_count()
+        z1 = v3.v_cycle3d(levels[1:], r1, **mg)
+        torch.cuda.synchronize()
+        per_tail = lib.deff_launch_count() - l0
+        check(per_tail == tail, f"K6 whole on levels[1:] of "
+              f"{tuple(fluid.shape)}: {per_tail} launches, the rule's {tail}")
+        zp1 = v3.v_cycle3d_reference(levels[1:], r1, **mg)
+        err1 = float((z1 - zp1).abs().max())
+        check(bool(torch.equal(z1, zp1)), f"K6 whole on levels[1:] of "
+              f"{tuple(fluid.shape)} {dtype}: max abs err {err1}, not "
+              "bit-identical")
+        k6w_err = max(k6w_err, err1)
         lines.append(f"B={fluid.shape[0]} x {tuple(fluid.shape[1:])} "
                      f"{str(dtype)[-7:]} nu={nu} padded to "
                      f"{tuple(r.shape[1:])}, {len(levels)} levels: max abs "
-                     f"err {err:.3e}")
-        del d, c, levels, x, r, z, zp
+                     f"err {err:.3e}, {per_cycle} launches; the whole cycle "
+                     f"on levels[1:] (resident from its level "
+                     f"{v3.cycle3_resident_from(shapes[1:], item)}): max abs "
+                     f"err {err1:.3e}, {per_tail} launches")
+        del d, c, levels, x, r, z, zp, r1, z1, zp1
     phase(19, t0, "K6 banded cycle vs plain: " + "; ".join(lines))
 
     # -- 20: K7 against its plain version, B=4 x 256^3, k=5
@@ -1341,13 +1398,20 @@ def volume_phases(dev, card, lib):
         n0 = lib.deff_launch_count()
         v3.v_cycle3d_tiled(levels, r, **MG5)
         per_cycle = lib.deff_launch_count() - n0
+        shapes = [tuple(c.diag.shape[-3:]) for c in levels]
+        tail = v3.cycle3_launches(shapes[1:], item)
+        check(per_cycle == 2 + tail, f"K6 banded {per_cycle} launches a "
+              f"cycle: T1, T2 and {tail} for the whole cycle on levels[1:]")
         work = banded3_work(levels, bsz, item, MG5["nu"])
         bd = bound(*work[:2], item)
         times[("K6 banded", bsz)] = (ms, ms_p, bd)
-        lines.append(f"B={bsz} K6 banded cycle {ms:.4f} ms (plain "
-                     f"{ms_p:.4f} ms, bound {bd[0]:.4f} ms by {bd[1]}, "
-                     f"level 0 read once {bound(work[2], work[1], item)[0]:.4f}"
-                     f" ms; {per_cycle} launches)")
+        dms = device_ms(lambda: v3.v_cycle3d_tiled(levels, r, **MG5), 5)
+        lines.append(f"B={bsz} K6 banded cycle {ms:.4f} ms (device "
+                     f"{'not measured' if dms is None else f'{dms:.4f} ms'}"
+                     f"; plain {ms_p:.4f} ms, bound {bd[0]:.4f} ms by "
+                     f"{bd[1]}, level 0 read once "
+                     f"{bound(work[2], work[1], item)[0]:.4f} ms; "
+                     f"{per_cycle} launches)")
         # the whole cycle as the main path calls it: the tail on levels[1:]
         r1 = torch.randn(levels[1].diag.shape, dtype=r.dtype, device=dev)
         ms = cuda_ms(lambda: v3.v_cycle3d(levels[1:], r1, **MG5), 5, warm=1)
@@ -1355,9 +1419,15 @@ def volume_phases(dev, card, lib):
                                                       **MG5), 1)
         bd = bound(*cycle3_work(levels[1:], bsz, item, MG5["nu"])[:2], item)
         times[("K6 whole", bsz)] = (ms, ms_p, bd)
+        dms = device_ms(lambda: v3.v_cycle3d(levels[1:], r1, **MG5), 5)
         lines.append(f"B={bsz} K6 whole cycle on levels[1:] {ms:.4f} ms "
-                     f"(plain {ms_p:.4f} ms, bound {bd[0]:.4f} ms by "
-                     f"{bd[1]})")
+                     f"a wrapper call (device "
+                     f"{'not measured' if dms is None else f'{dms:.4f} ms'}"
+                     f"; plain {ms_p:.4f} ms, bound {bd[0]:.4f} ms by "
+                     f"{bd[1]}; {tail} launches, resident from its level "
+                     f"{v3.cycle3_resident_from(shapes[1:], item)}, reckoned "
+                     f"{item * k6_tail_cells(shapes[1:], item) / 2**20:.2f} "
+                     f"MiB a volume)")
         p = v3.v_cycle3d_tiled(levels, r, **MG5)
         rz = batch_sum(r * p)
         ones = torch.ones(bsz, device=dev)
@@ -1375,7 +1445,6 @@ def volume_phases(dev, card, lib):
             n1 = lib.deff_launch_count()
             k7(cg_steps3d, K7_TIME_K, 1)()
             per_iter = (lib.deff_launch_count() - n1 - (n1 - n0)) / K7_TIME_K
-            tail = k6_launches(len(levels) - 1, MG5["nu"])
             check(per_iter == 5 + tail, f"K7 {per_iter} launches an "
                   f"iteration: three passes, two finalizes and {tail} for "
                   "K6's tail")
@@ -1392,7 +1461,7 @@ def volume_phases(dev, card, lib):
                          f"{bound(work[2], work[1], item)[0]:.4f} ms), "
                          f"{per_iter:g} launches/iteration (three passes, "
                          f"two finalizes, {tail} for K6's tail), reckoned "
-                         f"{k7_bytes_per_cell(levels, item, MG5['nu'], bool(extra)):.1f}"
+                         f"{k7_bytes_per_cell(levels, item, bool(extra)):.1f}"
                          f" B/cell an iteration)")
         del levels, x, mf, r, r1, p
         torch.cuda.empty_cache()
@@ -1420,10 +1489,10 @@ def volume_phases(dev, card, lib):
 
     rows = []
     for name, key, src, rep, err in (
-            ("v_cycle3d", "K6 whole", "vcycle3d.cuh", "vcycle3d.py:202",
+            ("v_cycle3d", "K6 whole", "vcycle3d.cu", "vcycle3d.py:202",
              k6w_err),
-            ("v_cycle3d_tiled", "K6 banded", "vcycle3d.cu", "vcycle3d.py:567",
-             k6b_err),
+            ("v_cycle3d_tiled", "K6 banded", "levelpass3d.cuh",
+             "vcycle3d.py:567", k6b_err),
             ("cg_steps3d", "matrix-free", "cgstep3d.cu", "cgstep3d.py:199",
              k7_err)):
         ms, ms_p, bd = times[(key, 1)]

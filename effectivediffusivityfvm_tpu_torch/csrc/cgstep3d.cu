@@ -12,13 +12,13 @@
 //      p = z + beta p_old, q = A p, both written; partials of <p, q>;
 //   .  alpha = rz/<p,q> (0 unless <p,q> > 0);
 //   X  x += alpha p; r_new = r - alpha q; partials of sum|r_new|; then T1
-//      on r_new: e0 = (w0 dinv) r_new recomputed where the next sweep
-//      reads it, the nu - 1 further pre-sweeps, the residual r_new - A e and
-//      its 2x2x2 restriction.  Writes x, r_new, e and the coarse residual;
-//   .  the coarse tail: K6's whole cycle on levels[1:] (vcycle3d.cuh);
-//   Z  e + over P e_c recomputed on the window, then the nu post-sweeps:
-//      z, pinned to 0 where D <= 0 when matrix-free, with partials of
-//      <r_new, z>;
+//      on r_new: e0 = (w0 dinv) r_new, the nu - 1 further pre-sweeps, the
+//      residual r_new - A e and its 2x2x2 restriction.  Writes x, r_new, e
+//      and the coarse residual;
+//   .  the coarse tail: K6's whole cycle on levels[1:] (vcycle3d.cuh),
+//      gated by the live flags;
+//   Z  e + over P e_c on the window, then the nu post-sweeps: z, pinned to
+//      0 where D <= 0 when matrix-free, with partials of <r_new, z>;
 //   .  rz_prev = rz, rz = <r, z>, k_done += 1, live &= stop < sum|r| < hi.
 // On entry z = p, live = active > 0 & stop < sum|r_in| < hi; when
 // matrix-free, x, r and p are first multiplied by (D > 0), as the TPU
@@ -28,13 +28,15 @@
 // rings of z-slices of each intermediate field in shared memory, stage s
 // running s slices behind stage s - 1, so a pass reads each input slice
 // from HBM once.  Halos: P 1 (q = A p), X nu (nu - 1 sweeps and the
-// residual), Z nu (nu sweeps).  Every operand a stage reads comes from
-// shared memory, staged one step ahead by cp.async: the windows, and the
-// tile's x and p (X) and the coarse window of e_c and the pin's D (Z);
-// e0 = (w0 dinv) r_new is kept in a ring rather than recomputed at the
-// stencil points.  Matrix-free, the passes rebuild a_w, a_n, a_u and
-// diag_inv from D once a pass (march3d.cuh's Coefs), term for term as
-// ops/kernels/vcycle3d.py's coeffs_from_d3.
+// residual), Z nu (nu sweeps).  X and Z are K6's DOWN and UP passes with
+// the CG update (one body each, levelpass3d.cuh), and K6's cycle runs the
+// same passes on levels[1:] above its resident bottom.  Every operand a
+// stage reads comes from shared memory, staged one step ahead by cp.async:
+// the windows, and the tile's x and p (X) and the coarse window of e_c and
+// the pin's D (Z); e0 = (w0 dinv) r_new is kept in a ring rather than
+// recomputed at the stencil points.  Matrix-free, the passes rebuild a_w,
+// a_n, a_u and diag_inv from D once a pass (march3d.cuh's Coefs), term for
+// term as ops/kernels/vcycle3d.py's coeffs_from_d3.
 //
 // The TPU passes read p_old and r and wrote p and r slab by slab in order;
 // here CTAs run in parallel and read their neighbours' halos, so p and r
@@ -54,8 +56,7 @@
 // Matrix-free the four coefficient volumes become one D volume in each
 // pass: ~69 B/cell, at 4 divisions a cell a pass (plus the halo) for the
 // rebuild.
-#include "cgscalars.cuh"
-#include "march3d.cuh"
+#include "levelpass3d.cuh"
 
 namespace deff {
 namespace {
@@ -65,15 +66,13 @@ using march::Geo;
 using march::NT;
 using march::TX;
 using march::Tile3;
+using march::Tri;
 using march::Vol0;
+using march::W3;
 using march::for_win;
 using march::nb7;
-using march::stage_slice;
-
-// The pre-smoothing schedule ws[0..nu-1], by value into the kernels.
-struct W3 {
-  double w[3];
-};
+using march::prologue;
+using march::tri;
 
 // Per-block partials of sum|r| over the volume.
 template <typename T>
@@ -90,57 +89,6 @@ __global__ void abs_parts3_kernel(const T* __restrict__ r, int n,
   }
   const double s = block_sum_fixed(acc, sh);
   if (threadIdx.x == 0) part[(size_t)blockIdx.y * nblk + blockIdx.x] = s;
-}
-
-// Three slices k - 1, k, k + 1 of a ring of NS window slices, read as
-// v(dz, e).
-template <typename T>
-struct Tri {
-  const T* m;
-  const T* c;
-  const T* p;
-  __device__ __forceinline__ T operator()(int dz, int i) const {
-    return dz < 0 ? m[i] : dz > 0 ? p[i] : c[i];
-  }
-};
-
-template <int N, int NS, typename T>
-__device__ __forceinline__ Tri<T> tri(const T* base, int k) {
-  return Tri<T>{base + ((k + NS - 1) % NS) * N, base + (k % NS) * N,
-                base + ((k + 1) % NS) * N};
-}
-
-// One damped-Jacobi sweep of slice k, out = (1 - w) in + (w (rhs +
-// nbsum(in))) dinv, on the window shrunk by S; f(e, gi, gj, value).
-template <int S, typename T, int H, int NC, bool MF, typename V, typename F>
-__device__ __forceinline__ void sweep_slice(const Coefs<T, H, NC, MF>& co,
-                                            V in, const T* rhs, int k, T w,
-                                            T omw, const Dims3& dm, F f) {
-  using G = Geo<T, H>;
-  const T* aw = co.AW(k);
-  const T* an = co.AN(k);
-  const T* au = co.AU(k);
-  const T* au1 = co.AU(k + 1);
-  const T* di = co.DI(k);
-  for_win<G, S>(co.gi0, co.gj0, [&](int e, int gi, int gj) {
-    const T nb = nb7<G::WX>(aw, an, au, au1, in, e, k, dm);
-    f(e, gi, gj, omw * in(0, e) + (w * (rhs[e] + nb)) * di[e]);
-  });
-}
-
-// Stage the first commit group (the coefficient rings' prime and the slices
-// of steps t0 .. t0 + PD - 1), wait for it, and rebuild slice t0's faces
-// (matrix-free).
-template <typename CO, typename T, typename I>
-__device__ __forceinline__ void prologue(const CO& co, const Vol0<T>& v,
-                                         size_t off, int t0, I issue) {
-  co.prime(v, off, t0);
-  for (int j = 0; j < march::PD; ++j) issue(t0 + j);
-  march::cp_commit();
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-  co.first_faces(v, t0);
-  __syncthreads();
 }
 
 // ---- pass P: p = z + beta p_old on the window, q = A p on the tile;
@@ -167,7 +115,7 @@ march_p3_kernel(Vol0<T> v, T* p0, T* p1, const T* zbuf, T* qbuf, int first,
   const T beta = (!first && rzp > T(0)) ? rzc / rzp : T(0);
   const int gi0 = tl.i0 - H, gj0 = tl.j0 - H;
   T* sp = reinterpret_cast<T*>(smem_raw);
-  const Coefs<T, H, NC, MF> co(sp, gi0, gj0);
+  const Coefs<T, H, NC, MF> co(sp, gi0, gj0, dm);
   constexpr int NZ = 3 + march::PD, NO = 1 + march::PD;
   T* PZ = sp;                          // z, then p in place: NZ slices
   T* PO = sp + NZ * G::N;              // p_old: NO slices
@@ -175,9 +123,8 @@ march_p3_kernel(Vol0<T> v, T* p0, T* p1, const T* zbuf, T* qbuf, int first,
   const int t1 = tl.ze - 1 + H < dm.nz - 1 ? tl.ze - 1 + H : dm.nz - 1;
   auto issue = [&](int k) {
     if (k > t1) return;
-    stage_slice<G::WY, G::WX>(PZ + (k % NZ) * G::N, z, k, gi0, gj0, dm);
-    if (!first)
-      stage_slice<G::WY, G::WX>(PO + (k % NO) * G::N, pold, k, gi0, gj0, dm);
+    co.win.stage(PZ + (k % NZ) * G::N, z, k, dm);
+    if (!first) co.win.stage(PO + (k % NO) * G::N, pold, k, dm);
     co.issue(v, off, k);
   };
   prologue(co, v, off, t0, issue);
@@ -221,290 +168,27 @@ march_p3_kernel(Vol0<T> v, T* p0, T* p1, const T* zbuf, T* qbuf, int first,
 }
 
 // ---- pass X: x += alpha p, r_new = r - alpha q (partials of sum|r_new|),
-// then T1 on r_new: the nu pre-sweeps into e and the residual restricted
-// 2x2x2 into rc (the coarse shape dc).
+// then T1 on r_new: K6's DOWN pass (levelpass3d.cuh) with the CG update.
 template <typename T, int NU, bool MF>
 __global__ void __launch_bounds__(NT)
 march_x3_kernel(Vol0<T> v, T* __restrict__ x, const T* p0, const T* p1,
                 T* r0, T* r1, const T* __restrict__ qbuf,
                 T* __restrict__ ebuf, T* __restrict__ rc, Dims3 dc,
                 CgState<T> s, W3 ws, int seglen) {
-  constexpr int H = NU, NR = NU + 1 + march::PD;
-  constexpr int NQ = 1 + march::PD, NC = march::coef_slots(1, NU);
-  using G = Geo<T, H>;
-  __shared__ double sh[THREADS];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.y;
-  if (!s.live[b]) return;
-  const Dims3 dm = v.dm;
-  const Tile3 tl = march::tile3<G::TY>(dm, seglen);
-  const size_t off = (size_t)b * dm.cells();
-  const int par = s.par[b];
-  const T* p = (par ? p0 : p1) + off;
-  const T* rold = (par ? r1 : r0) + off;
-  T* rnew = (par ? r0 : r1) + off;
-  const T* qb = qbuf + off;
-  T* xb = x + off;
-  T* eb = ebuf + off;
-  T* rcb = rc + (size_t)b * dc.cells();
-  const T alpha = s.alpha[b];
-  const T w0 = (T)ws.w[0];
-  const int gi0 = tl.i0 - H, gj0 = tl.j0 - H;
-  T* sp = reinterpret_cast<T*>(smem_raw);
-  const Coefs<T, H, NC, MF> co(sp, gi0, gj0);
-  T* RR = sp;                          // r, then r_new in place: NR slices
-  T* QQ = RR + NR * G::N;              // q: NQ slices
-  T* E0 = QQ + NQ * G::N;              // e0 = (w0 dinv) r_new: 3 slices
-  T* EE = E0 + 3 * G::N;               // sweep s (1..nu-1): 3 slices each
-  constexpr int TN = G::TY * TX, NT1 = 1 + march::PD;
-  T* XS = EE + 3 * (NU - 1) * G::N;    // x at the tile: NT1 slices
-  T* PS = XS + NT1 * TN;               // p at the tile: NT1 slices
-  T* RS = PS + NT1 * TN;               // the tile's residuals of a slice
-  const int t0 = tl.zs - H > 0 ? tl.zs - H : 0;
-  const int t1 = tl.ze - 1 + H < dm.nz - 1 ? tl.ze - 1 + H : dm.nz - 1;
-  auto issue = [&](int k) {
-    if (k > t1) return;
-    stage_slice<G::WY, G::WX>(RR + (k % NR) * G::N, rold, k, gi0, gj0, dm);
-    stage_slice<G::WY, G::WX>(QQ + (k % NQ) * G::N, qb, k, gi0, gj0, dm);
-    if (k >= tl.zs && k < tl.ze) {
-      march::stage_block<G::TY, TX>(XS + (k % NT1) * TN, xb, k, tl.i0, tl.j0,
-                                    dm.ny, dm.nx);
-      march::stage_block<G::TY, TX>(PS + (k % NT1) * TN, p, k, tl.i0, tl.j0,
-                                    dm.ny, dm.nx);
-    }
-    co.issue(v, off, k);
-  };
-  // a cell of the tile on the plane (what this CTA stores)
-  auto tile_cell = [&](int gi, int gj) {
-    return gi >= tl.i0 && gi < tl.i0 + G::TY && gj >= tl.j0 &&
-           gj < tl.j0 + TX && gi < dm.ny && gj < dm.nx;
-  };
-  prologue(co, v, off, t0, issue);
-  double acc = 0.0;
-  T zsum[2][2] = {{T(0), T(0)}, {T(0), T(0)}};
-  for (int t = t0; t <= tl.ze - 1 + H; ++t) {
-    issue(t + march::PD);
-    march::cp_commit();
-    march::cp_wait_step();
-    if (t <= t1) {
-      co.rebuild(v, t);
-      T* R = RR + (t % NR) * G::N;
-      const T* Q = QQ + (t % NQ) * G::N;
-      T* e0 = E0 + (t % 3) * G::N;
-      const T* xs = XS + (t % NT1) * TN;
-      const T* ps = PS + (t % NT1) * TN;
-      const T* di = co.DI(t);
-      const bool own = t >= tl.zs && t < tl.ze;
-      const size_t ks = (size_t)t * dm.plane();
-      for_win<G, 0>(gi0, gj0, [&](int e, int gi, int gj) {
-        const T rv = R[e] - alpha * Q[e];
-        R[e] = rv;
-        const T ev = (w0 * di[e]) * rv;
-        e0[e] = ev;
-        if (own && tile_cell(gi, gj)) {
-          const size_t g = ks + (size_t)gi * dm.nx + gj;
-          const int ti = (gi - tl.i0) * TX + (gj - tl.j0);
-          xb[g] = xs[ti] + alpha * ps[ti];
-          rnew[g] = rv;
-          acc += (double)(rv < T(0) ? -rv : rv);
-          if (NU == 1) eb[g] = ev;
-        }
-      });
-      __syncthreads();
-    }
-    if constexpr (NU >= 2) {             // sweep 1 on slice t - 1
-      const int k = t - 1;
-      if (k >= 0 && k >= tl.zs - (NU - 1) && k < tl.ze + (NU - 1) &&
-          k < dm.nz) {
-        T* out = EE + (k % 3) * G::N;
-        const bool own = k >= tl.zs && k < tl.ze;
-        const size_t ks = (size_t)k * dm.plane();
-        sweep_slice<1>(co, tri<G::N, 3>(E0, k), RR + (k % NR) * G::N, k,
-                       (T)ws.w[1],
-                       (T)(1.0 - ws.w[1]), dm,
-                       [&](int e, int gi, int gj, T val) {
-                         out[e] = val;
-                         if (NU == 2 && own && tile_cell(gi, gj))
-                           eb[ks + (size_t)gi * dm.nx + gj] = val;
-                       });
-      }
-      __syncthreads();
-    }
-    if constexpr (NU >= 3) {             // sweep 2 on slice t - 2
-      const int k = t - 2;
-      if (k >= 0 && k >= tl.zs - (NU - 2) && k < tl.ze + (NU - 2) &&
-          k < dm.nz) {
-        T* out = EE + (3 + k % 3) * G::N;
-        const bool own = k >= tl.zs && k < tl.ze;
-        const size_t ks = (size_t)k * dm.plane();
-        sweep_slice<2>(co, tri<G::N, 3>(EE, k), RR + (k % NR) * G::N, k,
-                       (T)ws.w[2], (T)(1.0 - ws.w[2]), dm,
-                       [&](int e, int gi, int gj, T val) {
-                         out[e] = val;
-                         if (own && tile_cell(gi, gj))
-                           eb[ks + (size_t)gi * dm.nx + gj] = val;
-                       });
-      }
-      __syncthreads();
-    }
-    // the residual r_new - A e on the tile of slice t - nu, then summed
-    // over z pairs in registers and restricted at each odd slice (one
-    // thread a coarse cell)
-    const int k = t - NU;
-    if (k >= tl.zs && k < tl.ze) {
-      const T* R = RR + (k % NR) * G::N;
-      const T* di = co.DI(k);
-      const T* aw = co.AW(k);
-      const T* an = co.AN(k);
-      const T* au = co.AU(k);
-      const T* au1 = co.AU(k + 1);
-      const Tri<T> ev = NU == 1 ? tri<G::N, 3>(E0, k)
-                                : tri<G::N, 3>(EE + 3 * (NU - 2) * G::N, k);
-      for_win<G, H>(gi0, gj0, [&](int e, int gi, int gj) {
-        RS[(gi - tl.i0) * TX + (gj - tl.j0)] =
-            R[e] - (diag_of(di[e]) * ev(0, e) -
-                    nb7<G::WX>(aw, an, au, au1, ev, e, k, dm));
-      });
-      __syncthreads();
-      constexpr int CX = TX / 2, CN = (G::TY / 2) * CX;
-      const int I = tl.i0 / 2 + threadIdx.x / CX;
-      const int J = tl.j0 / 2 + threadIdx.x % CX;
-      if (threadIdx.x < CN && 2 * I < dm.ny && 2 * J < dm.nx) {
-        const int c0 = (2 * I - tl.i0) * TX + (2 * J - tl.j0);
-        for (int a = 0; a < 2; ++a)
-          for (int cc = 0; cc < 2; ++cc) {
-            const T rv = RS[c0 + a * TX + cc];
-            zsum[a][cc] = (k & 1) ? zsum[a][cc] + rv : rv;
-          }
-        if (k & 1)
-          rcb[((size_t)(k >> 1) * dc.ny + I) * dc.nx + J] =
-              (zsum[0][0] + zsum[1][0]) + (zsum[0][1] + zsum[1][1]);
-      }
-    }
-    __syncthreads();
-  }
-  const double sum = block_sum_fixed(acc, sh);
-  if (threadIdx.x == 0) s.part_b[(size_t)b * s.ntiles + blockIdx.x] = sum;
+  march::down3_body<T, NU, MF, true>(v, x, p0, p1, r0, r1, qbuf, ebuf, rc,
+                                     dc, s.live, s, ws, seglen);
 }
 
-// ---- pass Z: src = e + over e_c[k/2, i/2, j/2] on the window, then the nu
-// post-sweeps (ws reversed) give z, pinned to 0 where D <= 0 when
-// matrix-free; partials of <r_new, z>.
+// ---- pass Z: K6's UP pass (levelpass3d.cuh) on r_new gives z, pinned to
+// 0 where D <= 0 when matrix-free; partials of <r_new, z>.
 template <typename T, int NU, bool MF>
 __global__ void __launch_bounds__(NT)
 march_z3_kernel(Vol0<T> v, const T* r0, const T* r1,
                 const T* __restrict__ ebuf, const T* __restrict__ ec,
                 Dims3 dc, T over, T* __restrict__ zbuf, CgState<T> s, W3 ws,
                 int seglen) {
-  constexpr int H = NU, NS = 3 + march::PD, NR = NU + 1 + march::PD;
-  constexpr int NC = march::coef_slots(2, NU);
-  using G = Geo<T, H>;
-  __shared__ double sh[THREADS];
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int b = blockIdx.y;
-  if (!s.live[b]) return;
-  const Dims3 dm = v.dm;
-  const Tile3 tl = march::tile3<G::TY>(dm, seglen);
-  const size_t off = (size_t)b * dm.cells();
-  const T* rnew = (s.par[b] ? r0 : r1) + off;
-  const T* eb = ebuf + off;
-  const T* ecb = ec + (size_t)b * dc.cells();
-  T* zb = zbuf + off;
-  const int gi0 = tl.i0 - H, gj0 = tl.j0 - H;
-  T* sp = reinterpret_cast<T*>(smem_raw);
-  const Coefs<T, H, NC, MF> co(sp, gi0, gj0);
-  T* SS = sp;                          // e, then e + over P e_c: NS slices
-  T* RR = SS + NS * G::N;              // r_new: NR slices
-  T* EE = RR + NR * G::N;              // sweep s (1..nu-1): 3 slices each
-  // e_c under the window of each staged slice (the coarse slice k / 2),
-  // and D at the tile's cells for the pin (matrix-free)
-  constexpr int CR = G::TY / 2 + H + 1, CC = TX / 2 + H + 1;
-  constexpr int NE = 1 + march::PD, TN = G::TY * TX;
-  T* EC = EE + 3 * (NU - 1) * G::N;
-  T* PN = EC + NE * CR * CC;           // NU + 1 tile slices
-  const int ci0 = gi0 >> 1, cj0 = gj0 >> 1;   // floor: gi0 may be < 0
-  const int t0 = tl.zs - H > 0 ? tl.zs - H : 0;
-  const int t1 = tl.ze - 1 + H < dm.nz - 1 ? tl.ze - 1 + H : dm.nz - 1;
-  auto issue = [&](int k) {
-    if (k > t1) return;
-    stage_slice<G::WY, G::WX>(SS + (k % NS) * G::N, eb, k, gi0, gj0, dm);
-    stage_slice<G::WY, G::WX>(RR + (k % NR) * G::N, rnew, k, gi0, gj0, dm);
-    march::stage_block<CR, CC>(EC + (k % NE) * CR * CC, ecb, k >> 1, ci0,
-                               cj0, dc.ny, dc.nx);
-    co.issue(v, off, k);
-  };
-  prologue(co, v, off, t0, issue);
-  double acc = 0.0;
-  for (int t = t0; t <= tl.ze - 1 + H; ++t) {
-    issue(t + march::PD);
-    march::cp_commit();
-    march::cp_wait_step();
-    if (t <= t1) {
-      co.rebuild(v, t);
-      T* S = SS + (t % NS) * G::N;
-      const T* cs = EC + (t % NE) * CR * CC;
-      T* pn = PN + (t % (NU + 1)) * TN;
-      const T* dk = MF ? co.Dk(t) : nullptr;
-      for_win<G, 0>(gi0, gj0, [&](int e, int gi, int gj) {
-        S[e] = S[e] + over * cs[((gi >> 1) - ci0) * CC + ((gj >> 1) - cj0)];
-        if (MF && gi >= tl.i0 && gi < tl.i0 + G::TY && gj >= tl.j0 &&
-            gj < tl.j0 + TX)
-          pn[(gi - tl.i0) * TX + (gj - tl.j0)] =
-              dk[(gi - gi0 + 1) * G::DX + (gj - gj0 + 1)];
-      });
-      __syncthreads();
-    }
-    // sweeps 1..nu-1 (weights ws[nu-1] .. ws[1]) into their rings
-    if constexpr (NU >= 2) {
-      const int k = t - 1;
-      if (k >= 0 && k >= tl.zs - (NU - 1) && k < tl.ze + (NU - 1) &&
-          k < dm.nz) {
-        T* out = EE + (k % 3) * G::N;
-        sweep_slice<1>(co, tri<G::N, NS>(SS, k), RR + (k % NR) * G::N, k,
-                       (T)ws.w[NU - 1], (T)(1.0 - ws.w[NU - 1]), dm,
-                       [&](int e, int, int, T val) { out[e] = val; });
-      }
-      __syncthreads();
-    }
-    if constexpr (NU >= 3) {
-      const int k = t - 2;
-      if (k >= 0 && k >= tl.zs - (NU - 2) && k < tl.ze + (NU - 2) &&
-          k < dm.nz) {
-        T* out = EE + (3 + k % 3) * G::N;
-        sweep_slice<2>(co, tri<G::N, 3>(EE, k), RR + (k % NR) * G::N, k,
-                       (T)ws.w[NU - 2], (T)(1.0 - ws.w[NU - 2]), dm,
-                       [&](int e, int, int, T val) { out[e] = val; });
-      }
-      __syncthreads();
-    }
-    // the last sweep (ws[0]) on the tile of slice t - nu gives z
-    const int k = t - NU;
-    if (k >= tl.zs && k < tl.ze) {
-      const T* R = RR + (k % NR) * G::N;
-      const T* pn = PN + (k % (NU + 1)) * TN;
-      const size_t ks = (size_t)k * dm.plane();
-      auto last = [&](auto in) {
-        sweep_slice<NU>(co, in, R, k, (T)ws.w[0], (T)(1.0 - ws.w[0]), dm,
-                        [&](int e, int gi, int gj, T val) {
-                          if (!march::in_plane(gi, gj, dm)) return;
-                          const size_t g = ks + (size_t)gi * dm.nx + gj;
-                          if (MF && !(pn[(gi - tl.i0) * TX + (gj - tl.j0)] >
-                                      T(0)))
-                            val = T(0);
-                          zb[g] = val;
-                          const T prod = R[e] * val;
-                          acc += (double)prod;
-                        });
-      };
-      if constexpr (NU == 1)
-        last(tri<G::N, NS>(SS, k));
-      else
-        last(tri<G::N, 3>(EE + 3 * (NU - 2) * G::N, k));
-    }
-    __syncthreads();
-  }
-  const double sum = block_sum_fixed(acc, sh);
-  if (threadIdx.x == 0) s.part_c[(size_t)b * s.ntiles + blockIdx.x] = sum;
+  march::up3_body<T, NU, MF, true>(v, r0, r1, ebuf, ec, dc, over, zbuf,
+                                   s.live, s, ws, seglen);
 }
 
 // Scratch per volume, in elements of `elem_bytes` (4 or 8): the three
@@ -592,11 +276,11 @@ cudaError_t run_window(int B, int L, const Level3<T>* lv, const Vol0<T>& v,
   using P = Passes3<T, NU, MF>;
   const Dims3 d0 = lv[0].dm, d1 = lv[1].dm;
   const int n0 = d0.cells();
-  const int seglen = march::seg_len(d0.nz, d0.ny, d0.nx, sizeof(T), NU);
-  const int ncta = march::ctas(d0.nz, d0.ny, d0.nx, sizeof(T), NU);
+  const int shortest = march::min_seg(NU);
+  const int seglen = march::seg_len(d0.nz, d0.ny, d0.nx, sizeof(T), shortest);
+  const int ncta = march::ctas(d0.nz, d0.ny, d0.nx, sizeof(T), shortest);
   const dim3 grid(ncta, B), per_image(1, B);
-  W3 ws{};
-  for (int i = 0; i < NU; ++i) ws.w[i] = ws_[i];
+  const W3 ws = march::make_w3(ws_, NU);
   if (MF) {
     const long long n = (long long)B * n0;
     const int nb = (int)((n + THREADS - 1) / THREADS < 65536
@@ -611,9 +295,6 @@ cudaError_t run_window(int B, int L, const Level3<T>* lv, const Vol0<T>& v,
       u.r0, n0, s0.part_b, s0.ntiles));
   DEFF_LAUNCH(fin_init_kernel<T><<<per_image, THREADS, 0, st>>>(s0, active));
   s.ntiles = ncta;
-  // pass X writes the coarse cells under the fine volume; those past it
-  // (levels[1]'s even padding) stay 0 for the whole call
-  DEFF_TRY3(cudaMemsetAsync(u.rc, 0, sizeof(T) * B * d1.cells(), st));
   for (int i = 0; i < k; ++i) {
     DEFF_TRY3(P::p(v, u, i == 0 ? 1 : 0, s, grid, seglen, st));
     DEFF_LAUNCH(fin_alpha_kernel<T><<<per_image, THREADS, 0, st>>>(s));
@@ -720,9 +401,15 @@ long long deff_cg3d_scratch_elems(int L, const int* nz, const int* ny,
   return deff::cg3d_scratch_elems(L, nz, ny, nx, elem_bytes);
 }
 
-// The z-marching rule (march3d.cuh), for the Python twin's card test.
+// The z-marching rule (march3d.cuh), for the Python twin's card test:
+// K7's segments, and those of K6's level passes.
 int deff_march3_seg_len(int nz, int ny, int nx, int itemsize, int nu) {
-  return deff::march::seg_len(nz, ny, nx, itemsize, nu);
+  return deff::march::seg_len(nz, ny, nx, itemsize, deff::march::min_seg(nu));
+}
+
+int deff_march3_level_seg_len(int nz, int ny, int nx, int itemsize) {
+  return deff::march::seg_len(nz, ny, nx, itemsize,
+                              deff::march::LEVEL_MIN_SEG);
 }
 
 long long deff_march3_smem(int pass, int itemsize, int nu, int mf) {

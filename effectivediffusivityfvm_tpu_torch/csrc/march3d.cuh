@@ -1,7 +1,10 @@
-// Z-marching tile passes over level 0 of a 3D batch (K7's three passes an
-// iteration, cgstep3d.cu): the tile and segment rule, shared-memory slice
-// rings, staging, the coefficient rings (stored, or rebuilt from the
-// diffusivity volume once a pass) and the 7-point stencil on staged slices.
+// Z-marching tile passes over one level of a 3D batch: K7's three passes an
+// iteration over level 0 (cgstep3d.cu) and K6's DOWN and UP passes over
+// the levels of its V-cycle above the resident bottom (levelpass3d.cuh,
+// vcycle3d.cu).  This header holds the tile and segment rule,
+// shared-memory slice rings, staging, the coefficient rings (stored, or
+// rebuilt from the diffusivity volume once a pass) and the 7-point stencil
+// on staged slices.
 //
 // Each CTA owns a (TY x TX) tile of the (y, x) plane with a halo of H cells
 // on its four sides, and marches along z through one segment of slices
@@ -20,13 +23,14 @@
 //
 // Fill the card at B = 1: z is cut into segments so that a volume gives at
 // least TARGET_CTAS CTAs where the segments stay at least min_seg(nu)
-// slices long; segments are even so a 2x2x2 restriction never straddles two
-// CTAs.  The passes' shared memory holds two CTAs an SM at nu = 2 in
-// float32, so 256 CTAs (2 segments of 128 tiles at 256^3) run as one wave
-// on the H100's 132 SMs; 264 would take a third segment and a second,
-// mostly empty wave (measured slower).  The rule is a function of
-// the shape, the element size and nu alone; its Python twin is
-// ops/kernels/cgstep3d.py::march3_plan, held equal by a card test.
+// slices long (K7; K6's level passes: 2); segments are even so a 2x2x2
+// restriction never straddles two CTAs.  The passes' shared memory holds
+// two CTAs an SM at nu = 2 in float32, so 256 CTAs (2 segments of 128
+// tiles at 256^3) run as one wave on the H100's 132 SMs; 264 would take a
+// third segment and a second, mostly empty wave (measured slower).  The
+// rule is a function of the shape, the element size and nu alone; its
+// Python twin is ops/kernels/cgstep3d.py::march3_plan, held equal by a
+// card test.
 //
 // Matrix-free, the coefficients are rebuilt once a pass: at step t the
 // face conductances a_w, a_n, a_u of slice t + 1 (hm of D at the face's two
@@ -57,22 +61,28 @@ inline int tiles_xy(int ny, int nx, int itemsize) {
   return ((ny + ty - 1) / ty) * ((nx + TX - 1) / TX);
 }
 
-// The shortest segment: a CTA re-reads 2 nu slices around its own.
+// The shortest segment of K7's passes: a CTA re-reads 2 nu slices around
+// its own, so over level 0 the segments stay at least 4 nu long.  K6's
+// level passes take segments of LEVEL_MIN_SEG slices: on the cycle's small
+// levels the latency of a CTA's z-steps, not the halo's re-reads from L2,
+// sets a pass's time, so more and shorter segments finish sooner.
 inline int min_seg(int nu) { return 4 * nu < 8 ? 8 : 4 * nu; }
+constexpr int LEVEL_MIN_SEG = 2;
 
-// Slices a z-segment (even).
-inline int seg_len(int nz, int ny, int nx, int itemsize, int nu) {
+// Slices a z-segment (even), no shorter than `shortest` where the volume
+// gives fewer than TARGET_CTAS CTAs.
+inline int seg_len(int nz, int ny, int nx, int itemsize, int shortest) {
   const int t = tiles_xy(ny, nx, itemsize);
   int nseg = (TARGET_CTAS + t - 1) / t;
-  int most = nz / min_seg(nu);
+  int most = nz / shortest;
   if (most < 1) most = 1;
   if (nseg > most) nseg = most;
   const int len = (nz + nseg - 1) / nseg;
   return len + (len & 1);
 }
 
-inline int ctas(int nz, int ny, int nx, int itemsize, int nu) {
-  const int len = seg_len(nz, ny, nx, itemsize, nu);
+inline int ctas(int nz, int ny, int nx, int itemsize, int shortest) {
+  const int len = seg_len(nz, ny, nx, itemsize, shortest);
   return tiles_xy(ny, nx, itemsize) * ((nz + len - 1) / len);
 }
 
@@ -93,41 +103,51 @@ __host__ __device__ constexpr int dwin_cells(int itemsize, int h) {
   return (tile_rows(itemsize) + 2 * h + 2) * (TX + 2 * h + 2);
 }
 
-// Slice rings of each pass (in window slices).  A staged ring holds the
-// slices its stages read at step t plus the PD slices in flight: the
-// coefficient rings NC slices each of a_w, a_n, a_u and diag_inv (read back
-// to t - 1 in P, t - nu in X and Z); P stages z (then p in place; read at
-// t - 2 .. t) and p_old (read at t); X stages r (then r - alpha q in place;
-// read back to t - nu) and q (read at t), plus a ring of 3 for e0 = (w0
-// dinv) r_new and one for each of its nu - 1 sweeps, and the tile's
-// residuals of a slice; Z stages e (then e + over P e_c in place; read at
-// t - 2 .. t) and r (read at t - nu .. t - 1, slice t landed), plus a ring
-// of 3 for each of its nu - 1 sweeps before the last.  The matrix-free D
-// ring holds D(t), D(t + 1) and PD slices in flight.
+// Slice rings of each pass (in window slices): pass 0 is K7's P, 1 its X,
+// 2 its Z, 3 K6's DOWN (X without the CG update) and 4 K6's UP (Z without
+// the pin and the dot product).  A staged ring holds the slices its stages
+// read at step t plus the PD slices in flight: the coefficient rings NC
+// slices each of a_w, a_n, a_u and diag_inv (read back to t - 1 in P, t -
+// nu in the others); P stages z (then p in place; read at t - 2 .. t) and
+// p_old (read at t); X stages r (then r - alpha q in place; read back to t
+// - nu) and q (read at t), plus a ring of 3 for e0 = (w0 dinv) r_new and
+// one for each of its nu - 1 sweeps, and the tile's residuals of a slice;
+// DOWN is X without q; Z and UP stage e (then e + over P e_c in place; read
+// at t - 2 .. t) and r (read at t - nu .. t - 1, slice t landed), plus a
+// ring of 3 for each of their nu - 1 sweeps before the last.  The
+// matrix-free D ring holds D(t), D(t + 1) and PD slices in flight.
 __host__ __device__ constexpr int coef_slots(int pass, int nu) {
   return (pass == 0 ? 2 : nu + 1) + PD;
 }
 __host__ __device__ constexpr int field_slots(int pass, int nu) {
   return pass == 0 ? (3 + PD) + (1 + PD)
          : pass == 1 ? (nu + 1 + PD) + (1 + PD) + 3 + 3 * (nu - 1)
+         : pass == 3 ? (nu + 1 + PD) + 3 + 3 * (nu - 1)
                      : (3 + PD) + (nu + 1 + PD) + 3 * (nu - 1);
 }
-// Coarse window of pass Z: the coarse cells under a window with halo h.
+// Coarse window of passes Z and UP: the coarse cells under a window with
+// halo h.
 __host__ __device__ constexpr int coarse_cells(int itemsize, int h) {
   return (tile_rows(itemsize) / 2 + h + 1) * (TX / 2 + h + 1);
 }
 // Tile-sized slices (TY x TX): X stages x and p at their cells (1 + PD
-// each) and keeps the residuals of a slice; Z keeps D at its cells for the
-// pin (nu + 1, matrix-free).
+// each) and keeps the residuals of a slice, DOWN the residuals; Z keeps D
+// at its cells for the pin (nu + 1, matrix-free).
 __host__ __device__ constexpr int tile_slots(int pass, int nu, bool mf) {
-  return pass == 1 ? 2 * (1 + PD) + 1 : pass == 2 && mf ? nu + 1 : 0;
+  return pass == 1 ? 2 * (1 + PD) + 1
+         : pass == 3 ? 1
+         : pass == 2 && mf ? nu + 1 : 0;
 }
 constexpr int D_SLOTS = 2 + PD;
 __host__ __device__ constexpr int pass_halo(int pass, int nu) {
   return pass == 0 ? 1 : nu;
 }
+__host__ __device__ constexpr bool has_coarse(int pass) {
+  return pass == 2 || pass == 4;
+}
 
-// Dynamic shared memory of pass 0 (P), 1 (X) or 2 (Z), in bytes.
+// Dynamic shared memory of pass 0 (P), 1 (X), 2 (Z), 3 (DOWN) or 4 (UP),
+// in bytes.
 __host__ __device__ constexpr long long smem_bytes(int pass, int itemsize,
                                                    int nu, bool mf) {
   return (long long)itemsize *
@@ -136,7 +156,7 @@ __host__ __device__ constexpr long long smem_bytes(int pass, int itemsize,
           (mf ? (long long)D_SLOTS * dwin_cells(itemsize, pass_halo(pass, nu))
               : 0LL) +
           (long long)tile_slots(pass, nu, mf) * tile_rows(itemsize) * TX +
-          (pass == 2 ? (1LL + PD) * coarse_cells(itemsize, nu) : 0LL));
+          (has_coarse(pass) ? (1LL + PD) * coarse_cells(itemsize, nu) : 0LL));
 }
 
 template <typename T, int H_>
@@ -147,8 +167,8 @@ struct Geo {
   static constexpr int DY = WY + 2, DX = WX + 2, DN = DY * DX;
 };
 
-// Level 0 of a (B, nz, ny, nx) batch: the stored volumes, or (d != null)
-// the diffusivity volume the passes rebuild them from.
+// One level of a (B, nz, ny, nx) batch: the stored volumes, or (d != null,
+// K7's level 0) the diffusivity volume the passes rebuild them from.
 template <typename T>
 struct Vol0 {
   const T* aw;
@@ -205,6 +225,42 @@ __device__ __forceinline__ void stage_slice(T* dst, const T* img, int k,
   }
 }
 
+// The cells of a (WY x WX) window that a thread stages, as their offsets
+// gi * nx + gj in a slice of the plane, or -1 off the plane.  A window keeps
+// its place in the plane while its pass marches along z, so a CTA works the
+// offsets out once and stages every slice of every field with them, where
+// stage_slice would work out each cell's place again for each.
+template <int WY, int WX>
+struct WinCells {
+  static constexpr int N = WY * WX, PER = (N + NT - 1) / NT;
+  int off[PER];
+
+  __device__ WinCells(int gi0, int gj0, const Dims3& dm) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = threadIdx.x + j * NT;
+      const int li = e / WX, lj = e - li * WX;
+      const int gi = gi0 + li, gj = gj0 + lj;
+      off[j] = e < N && gi >= 0 && gi < dm.ny && gj >= 0 && gj < dm.nx
+                   ? gi * dm.nx + gj
+                   : -1;
+    }
+  }
+
+  // stage_slice of slice k of an image volume into the window.
+  template <typename T>
+  __device__ __forceinline__ void stage(T* dst, const T* img, int k,
+                                        const Dims3& dm) const {
+    const T* sl = img + (size_t)k * dm.plane();
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = threadIdx.x + j * NT;
+      if (N % NT == 0 || j + 1 < PER || e < N)
+        cp_async(dst + e, off[j] >= 0 ? sl + off[j] : sl, off[j] >= 0);
+    }
+  }
+};
+
 // Stage slice k of an image volume's (R x C) block whose cell (0, 0) lies at
 // (i0, j0) of a (ny, nx) plane (a tile, or a coarse window); cells off the
 // plane read 0.
@@ -258,7 +314,7 @@ __device__ __forceinline__ T nb7(const T* aw, const T* an, const T* au,
   return s;
 }
 
-// The level-0 coefficient rings of one pass: NC slices each of a_w, a_n,
+// The coefficient rings of one pass: NC slices each of a_w, a_n,
 // a_u and diag_inv, staged (stored) or rebuilt from a ring of three D
 // slices (MF).
 template <typename T, int H, int NC, bool MF>
@@ -270,8 +326,10 @@ struct Coefs {
   T* di;
   T* d;            // MF: D_SLOTS D slices of DY x DX
   int gi0, gj0;    // window origin
+  WinCells<G::WY, G::WX> win;   // the pass's window, for every field
 
-  __device__ Coefs(T*& sp, int gi0_, int gj0_) : gi0(gi0_), gj0(gj0_) {
+  __device__ Coefs(T*& sp, int gi0_, int gj0_, const Dims3& dm)
+      : gi0(gi0_), gj0(gj0_), win(gi0_, gj0_, dm) {
     aw = sp; sp += NC * G::N;
     an = sp; sp += NC * G::N;
     au = sp; sp += NC * G::N;
@@ -305,14 +363,10 @@ struct Coefs {
     if (MF) {
       stage_d(v, off, k + 1);
     } else if (k < v.dm.nz) {
-      stage_slice<G::WY, G::WX>(aw + (k % NC) * G::N, v.aw + off, k, gi0,
-                                gj0, v.dm);
-      stage_slice<G::WY, G::WX>(an + (k % NC) * G::N, v.an + off, k, gi0,
-                                gj0, v.dm);
-      stage_slice<G::WY, G::WX>(au + (k % NC) * G::N, v.au + off, k, gi0,
-                                gj0, v.dm);
-      stage_slice<G::WY, G::WX>(di + (k % NC) * G::N, v.dinv + off, k, gi0,
-                                gj0, v.dm);
+      win.stage(aw + (k % NC) * G::N, v.aw + off, k, v.dm);
+      win.stage(an + (k % NC) * G::N, v.an + off, k, v.dm);
+      win.stage(au + (k % NC) * G::N, v.au + off, k, v.dm);
+      win.stage(di + (k % NC) * G::N, v.dinv + off, k, v.dm);
     }
   }
 

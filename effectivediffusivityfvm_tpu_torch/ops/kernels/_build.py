@@ -51,8 +51,10 @@ _ENTRIES = {
     "deff_image_cycle_count": ([], ctypes.c_longlong),
     "deff_cycle3_count": ([], ctypes.c_longlong),
     "deff_cycle3_scratch_elems": ([_I, _P, _P, _P], ctypes.c_longlong),
+    "deff_cycle3_resident_from": ([_I, _P, _P, _P, _I], _I),
     "deff_cg3d_scratch_elems": ([_I, _P, _P, _P, _I], ctypes.c_longlong),
     "deff_march3_seg_len": ([_I, _I, _I, _I, _I], _I),
+    "deff_march3_level_seg_len": ([_I, _I, _I, _I], _I),
     "deff_march3_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
     "deff_shard_tiles": ([_I, _I], _I),
 }
@@ -134,13 +136,13 @@ for _t in ("f32", "f64"):
         [_I, _I, _I, _I,            # B, nz, ny, nx
          _I, _I, _I,                # nz1, ny1, nx1 (levels[1])
          _P, _P, _P, _P,            # aw, an, au, dinv (level 0)
-         _P, _P, _P, _P,            # r, e, spare, coarse residual
+         _P, _P, _P,                # r, e, coarse residual
          _P, _I, _P], _I)           # ws[], nu, stream
     _ENTRIES[f"deff_t2_3d_{_t}"] = (
         [_I, _I, _I, _I,            # B, nz, ny, nx
          _I, _I, _I,                # nz1, ny1, nx1 (levels[1])
          _P, _P, _P, _P,            # aw, an, au, dinv (level 0)
-         _P, _P, _P, _P, _P,        # e, e_c, r, z, spare
+         _P, _P, _P, _P,            # e, e_c, r, z
          _P, _I, _D, _P], _I)       # ws[], nu, over, stream
     _ENTRIES[f"deff_cg_steps3d_{_t}"] = (
         [_I, _I, _P, _P, _P,        # B, L, nz[], ny[], nx[]

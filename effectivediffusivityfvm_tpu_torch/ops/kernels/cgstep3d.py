@@ -26,8 +26,10 @@ stored identity); x, r and p of every volume are first multiplied by ``(D
 versions update x, r and p in place and return them.
 
 The kernel runs an iteration as three z-marching passes over level 0
-(``csrc/march3d.cuh``); :func:`march3_plan` is the Python twin of their
-tile and segment rule and shared-memory sizes.
+(``csrc/march3d.cuh``; X and Z are K6's DOWN and UP passes with the CG
+update, ``csrc/levelpass3d.cuh``) around K6's whole cycle on
+``levels[1:]``; :func:`march3_plan` is the Python twin of the passes' tile
+and segment rule and shared-memory sizes, K6's included.
 """
 
 from __future__ import annotations
@@ -54,9 +56,13 @@ __all__ = ["cg_steps3d_reference", "cg_steps3d", "march3_plan"]
 MARCH3_TX = 32
 MARCH3_TARGET_CTAS = 256
 MARCH3_PD = 1                    # slices staged ahead of the one in use
+MARCH3_LEVEL_MIN_SEG = 2         # K6's level passes: the shortest segment
 SMEM_BLOCK_MAX = 232448          # the H100's opt-in shared memory a block
 SMEM_SM = 233472                 # shared memory an SM (228 KiB)
-PASSES = ("P", "X", "Z")
+# K7's passes P, X, Z and K6's level passes DOWN (X without the CG
+# update) and UP (Z without the pin and the dot product), by their index in
+# the C rule
+PASSES = ("P", "X", "Z", "DOWN", "UP")
 
 
 def _march3_smem(pass_i: int, itemsize: int, nu: int, mf: bool) -> int:
@@ -68,34 +74,44 @@ def _march3_smem(pass_i: int, itemsize: int, nu: int, mf: bool) -> int:
     coef = (2 if pass_i == 0 else nu + 1) + pd
     fields = ((3 + pd) + (1 + pd),
               (nu + 1 + pd) + (1 + pd) + 3 + 3 * (nu - 1),
+              (3 + pd) + (nu + 1 + pd) + 3 * (nu - 1),
+              (nu + 1 + pd) + 3 + 3 * (nu - 1),
               (3 + pd) + (nu + 1 + pd) + 3 * (nu - 1))[pass_i]
-    tiles = (2 * (1 + pd) + 1 if pass_i == 1
+    tiles = (2 * (1 + pd) + 1 if pass_i == 1 else 1 if pass_i == 3
              else nu + 1 if pass_i == 2 and mf else 0)
     coarse = ((1 + pd) * (ty // 2 + h + 1) * (MARCH3_TX // 2 + h + 1)
-              if pass_i == 2 else 0)
+              if pass_i in (2, 4) else 0)
     return itemsize * ((4 * coef + fields) * win + tiles * ty * MARCH3_TX
                        + coarse + ((2 + pd) * dwin if mf else 0))
 
 
 def march3_plan(shape, itemsize: int, nu: int) -> dict:
     """The kernel's tiling of a level-0 shape ``(nz, ny, nx)``: ``tile``
-    (rows, columns), ``tiles`` a plane, ``seg_len`` (slices a z-segment,
-    even), ``segments``, ``ctas`` a volume, and ``smem[(pass, mf)]`` the
-    dynamic shared memory of pass "P", "X" or "Z" in bytes (stored or
-    matrix-free level 0).  A function of the shape, the element size and nu
-    alone, equal to the C rule (a card test holds them equal)."""
+    (rows, columns), ``tiles`` a plane, ``seg_len`` (slices a z-segment of
+    K7's passes, even), ``segments``, ``ctas`` a volume, the same for K6's
+    level passes (``level_seg_len``, ``level_segments``, ``level_ctas``:
+    segments as short as 2 slices), and ``smem[(pass, mf)]`` the
+    dynamic shared memory in bytes of K7's pass "P", "X" or "Z" (stored or
+    matrix-free level 0) and of K6's "DOWN" or "UP" (stored, ``mf``
+    False).  A function of the shape, the element size and nu alone, equal
+    to the C rule (a card test holds them equal)."""
     nz, ny, nx = (int(v) for v in shape)
     ty = 8 if itemsize == 8 else 16
     tiles = -(-ny // ty) * -(-nx // MARCH3_TX)
-    nseg = min(-(-MARCH3_TARGET_CTAS // tiles),
-               max(1, nz // max(8, 4 * nu)))
-    seg_len = -(-nz // nseg)
-    seg_len += seg_len & 1
-    segments = -(-nz // seg_len)
+
+    def seg_len(shortest):
+        nseg = min(-(-MARCH3_TARGET_CTAS // tiles), max(1, nz // shortest))
+        n = -(-nz // nseg)
+        return n + (n & 1)
+
+    seg, level_seg = seg_len(max(8, 4 * nu)), seg_len(MARCH3_LEVEL_MIN_SEG)
     smem = {(name, mf): _march3_smem(i, itemsize, nu, mf)
-            for i, name in enumerate(PASSES) for mf in (False, True)}
-    return dict(tile=(ty, MARCH3_TX), tiles=tiles, seg_len=seg_len,
-                segments=segments, ctas=tiles * segments, smem=smem)
+            for i, name in enumerate(PASSES)
+            for mf in ((False, True) if i < 3 else (False,))}
+    return dict(tile=(ty, MARCH3_TX), tiles=tiles, seg_len=seg,
+                segments=-(-nz // seg), ctas=tiles * -(-nz // seg),
+                level_seg_len=level_seg, level_segments=-(-nz // level_seg),
+                level_ctas=tiles * -(-nz // level_seg), smem=smem)
 
 
 def _check_args(levels, x, nu, d_field, geom):

@@ -33,7 +33,12 @@ exactly: the band sets no tiling on the card, but the padded shape fixes
 the hierarchy and with it the iteration counts.
 
 On a CUDA tensor :func:`v_cycle3d` and :func:`v_cycle3d_tiled` launch the
-kernels (or raise); on a CPU tensor they run the plain versions.
+kernels (or raise); on a CPU tensor they run the plain versions.  The
+kernel runs each level of the cycle above the bottom of the pyramid, and
+T1 and T2, as z-marching tile passes (down: the pre-sweeps, residual and
+restriction; up: the prolongation and post-sweeps; ``nu <= MAX_NU3``) and
+the bottom, from :func:`cycle3_resident_from` down, in one launch with
+each volume's pyramid resident in one CTA's shared memory.
 """
 
 from __future__ import annotations
@@ -48,12 +53,47 @@ from ..fvm import guarded_inverse
 from ..fvm3d import StencilCoeffs3D
 from .vcycle import _CTYPE, check_plane, smoothing_schedule, weights
 
-__all__ = ["HALO_Z", "band_z_for", "pad_shape_3d", "pad_op_3d",
+__all__ = ["HALO_Z", "MAX_NU3", "band_z_for", "pad_shape_3d", "pad_op_3d",
            "coeffs_from_d3", "v_cycle3d_reference", "pre3_reference",
            "post3_reference", "v_cycle3d_tiled_reference", "v_cycle3d",
-           "v_cycle3d_tiled"]
+           "v_cycle3d_tiled", "cycle3_resident_from", "cycle3_launches"]
 
 HALO_Z = 4     # the TPU engine's halo slices (covers nu <= 3)
+MAX_NU3 = 3    # sweeps a leg the kernel's level passes take (halo nu)
+RESIDENT3_SMEM = 231424  # bytes of one CTA the resident bottom's volumes take
+RESIDENT3_LEVELS = 16    # levels the resident bottom holds at most
+
+
+def cycle3_resident_from(shapes, itemsize: int) -> int:
+    """The level from which K6 runs the rest of the pyramid resident in one
+    CTA per volume: the first level ``l`` whose volumes from ``l`` down --
+    ``a_w``, ``a_n``, ``a_u``, ``diag_inv``, right-hand side and correction
+    of each level, plus one ping-pong volume of level ``l``'s size,
+    ``itemsize`` bytes a cell -- fit ``RESIDENT3_SMEM`` bytes in at most
+    ``RESIDENT3_LEVELS`` levels; ``len(shapes)`` when even the coarsest
+    level does not fit (its sweeps then run from global memory).  Shape and
+    element size alone decide it; the kernel (``csrc/vcycle3d.cuh``)
+    applies the same rule.  On config 5's hierarchy (256^3, min_size 4) it
+    starts the cycle on ``levels[1:]`` at 16^3 in float32 and at 8^3 in
+    float64."""
+    cells = 0
+    n_lv = len(shapes)
+    for l in range(n_lv - 1, -1, -1):
+        n = shapes[l][0] * shapes[l][1] * shapes[l][2]
+        cells += 6 * n
+        if ((cells + n) * itemsize > RESIDENT3_SMEM
+                or n_lv - l > RESIDENT3_LEVELS):
+            return l + 1
+    return 0
+
+
+def cycle3_launches(shapes, itemsize: int) -> int:
+    """Kernel launches of one K6 whole cycle over the 3D levels ``shapes``:
+    two tile passes for each level above the resident bottom, and one for
+    the bottom (or, when not even the coarsest level fits, for the coarsest
+    level's sweeps)."""
+    lb = cycle3_resident_from(shapes, itemsize)
+    return 2 * min(lb, len(shapes) - 1) + 1
 
 
 def band_z_for(nz: int, ny: int, nx: int, itemsize: int = 4,
@@ -331,13 +371,17 @@ def v_cycle3d(levels: List[StencilCoeffs3D], r: torch.Tensor, *, omega=0.8,
 
     ``levels`` is ``build_hierarchy_3d(..., pad_levels=True)`` with volumes
     ``(B, nz_l, ny_l, nx_l)``.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the CUDA kernels (float32 or float64).
+    tensor launches the CUDA kernels (float32 or float64, ``nu <=
+    MAX_NU3``): :func:`cycle3_launches` of them.
     """
     if nu < 1:
         raise ValueError(f"v_cycle3d: nu={nu} must be >= 1")
     if not _device_ok(r, "v_cycle3d"):
         return v_cycle3d_reference(levels, r, omega=omega, nu=nu,
                                    coarse_iters=coarse_iters, over=over)
+    if nu > MAX_NU3:
+        raise ValueError(f"v_cycle3d: the kernel takes nu <= {MAX_NU3}, "
+                         f"got {nu}")
     from ._build import check, load_library
 
     lib = load_library()
@@ -371,7 +415,8 @@ def v_cycle3d_tiled(levels: List[StencilCoeffs3D], r: torch.Tensor, *,
     ``levels`` is ``build_hierarchy_3d(..., pad_levels=True)`` of an
     operator padded to :func:`pad_shape_3d`; ``1 <= nu <= HALO_Z - 1``.  A
     CPU tensor runs the plain version; a CUDA tensor launches the kernels
-    (float32 or float64) or raises.
+    (float32 or float64) or raises: T1 and T2 one tile pass each, the tail
+    :func:`cycle3_launches` of ``levels[1:]``.
     """
     if not _device_ok(r, "v_cycle3d_tiled"):
         return v_cycle3d_tiled_reference(levels, r, omega=omega, nu=nu,
@@ -388,7 +433,6 @@ def v_cycle3d_tiled(levels: List[StencilCoeffs3D], r: torch.Tensor, *,
                     ("a_u", c0.a_u), ("diag_inv", c0.diag_inv)):
         check_plane(t, name, (bsz,) + shape0, r)
     e = torch.empty_like(r)
-    spare = torch.empty_like(r)
     rc = torch.empty((bsz,) + shape1, dtype=r.dtype, device=r.device)
     z = torch.empty_like(r)
     ws = weights(omega, nu)
@@ -400,14 +444,14 @@ def v_cycle3d_tiled(levels: List[StencilCoeffs3D], r: torch.Tensor, *,
         stream = torch.cuda.current_stream().cuda_stream
         check(getattr(lib, f"deff_t1_3d_{sfx}")(
             *dims0, *shape1, *coefs, r.data_ptr(), e.data_ptr(),
-            spare.data_ptr(), rc.data_ptr(), ws, nu, stream),
+            rc.data_ptr(), ws, nu, stream),
             "v_cycle3d_tiled (T1)")
         ec = coarse_tail3(levels, rc, omega=omega, nu=nu,
                           coarse_iters=coarse_iters, over=over)
         check(getattr(lib, f"deff_t2_3d_{sfx}")(
             *dims0, *shape1, *coefs, e.data_ptr(), ec.data_ptr(),
-            r.data_ptr(), z.data_ptr(), spare.data_ptr(), ws, nu,
-            float(over), stream), "v_cycle3d_tiled (T2)")
+            r.data_ptr(), z.data_ptr(), ws, nu, float(over), stream),
+            "v_cycle3d_tiled (T2)")
     v_cycle3d_tiled.launches += 1
     return z
 

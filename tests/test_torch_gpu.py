@@ -18,6 +18,8 @@ too; in float64 the products themselves are double and the order of their
 sums shows in the last bits.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,7 @@ from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_tiled as vt
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
     cg_steps, cg_steps_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep3d import (
-    cg_steps3d, cg_steps3d_reference, march3_plan)
+    PASSES, cg_steps3d, cg_steps3d_reference, march3_plan)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import (
     cg_steps_tiled, cg_steps_tiled_reference)
 from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
@@ -417,22 +419,58 @@ SHAPES_3D = [(16, 10, 12), (13, 9, 22), (40, 36, 52)]
 CROSSING_3D = (37, 20, 40)
 
 
+# 64^3: two levels (64^3, 32^3) above the resident bottom in float32, three
+# in float64
+LEVELS_3D = (64, 64, 64)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("nu", [1, 2, 3])
-@pytest.mark.parametrize("shape", SHAPES_3D)
+@pytest.mark.parametrize("shape", SHAPES_3D + [CROSSING_3D, LEVELS_3D])
 def test_v_cycle3d_kernels_match_plain(cuda, dtype, nu, shape):
-    """K6, the whole cycle and the banded one, bit for bit."""
+    """K6, the whole cycle and the banded one, bit for bit, in the launches
+    the resident rule gives: two tile passes a level above the bottom and
+    one launch for the rest (and T1, T2 for the banded cycle)."""
     _, _, levels, x, _ = _problem3d(cuda, dtype, 2, *shape)
     r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
-    mg = dict(omega=0.8, nu=nu, coarse_iters=8, over=1.8)
+    shapes = [tuple(c.diag.shape[-3:]) for c in levels]
+    item = r.element_size()
+    mg = dict(omega=SCHEDULES[nu], nu=nu, coarse_iters=8, over=1.8)
+    lib = _build.load_library()
     before, tiled = v3.v_cycle3d.launches, v3.v_cycle3d_tiled.launches
+    n0 = lib.deff_launch_count()
     z = v3.v_cycle3d(levels, r, **mg)
+    n1 = lib.deff_launch_count()
     zt = v3.v_cycle3d_tiled(levels, r, **mg)
+    n2 = lib.deff_launch_count()
     torch.cuda.synchronize()
     assert v3.v_cycle3d.launches == before + 2        # + the banded tail
     assert v3.v_cycle3d_tiled.launches == tiled + 1
-    assert torch.equal(z, v3.v_cycle3d_reference(levels, r, **mg))
-    assert torch.equal(zt, v3.v_cycle3d_tiled_reference(levels, r, **mg))
+    assert n1 - n0 == v3.cycle3_launches(shapes, item)
+    assert n2 - n1 == 2 + v3.cycle3_launches(shapes[1:], item)
+    ref = v3.v_cycle3d_reference(levels, r, **mg)
+    assert torch.equal(z, ref), float((z - ref).abs().max())
+    ref = v3.v_cycle3d_tiled_reference(levels, r, **mg)
+    assert torch.equal(zt, ref), float((zt - ref).abs().max())
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_cycle3_rule_python_equals_c(cuda, itemsize):
+    """K6's resident rule: the C rule (csrc/vcycle3d.cuh) equals its Python
+    twin on config 5's hierarchy and its levels[1:], the test shapes'
+    hierarchies and a pyramid whose coarsest level is too large for a
+    CTA."""
+    lib = _build.load_library()
+    c5 = [(256 >> l,) * 3 for l in range(7)]
+    cases = [c5, c5[1:], [(40, 36, 52), (20, 18, 26), (10, 10, 14),
+                          (5, 5, 7)], [(40, 20, 40), (20, 10, 20), (10, 6, 10),
+                                       (5, 3, 5)], [(64, 64, 64)]]
+    for shapes in cases:
+        n = len(shapes)
+        nz, ny, nx = ((ctypes.c_int * n)(*(s[i] for s in shapes))
+                      for i in range(3))
+        assert lib.deff_cycle3_resident_from(n, nz, ny, nx, itemsize) == \
+            v3.cycle3_resident_from(shapes, itemsize), shapes
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -468,18 +506,21 @@ def test_cg_steps3d_kernel_matches_plain(cuda, dtype, mf, nu, shape):
 @pytest.mark.parametrize("nu", [1, 2, 3])
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_march3_rule_python_equals_c(cuda, itemsize, nu):
-    """K7's tile and segment rule and its passes' shared memory: the C rule
-    (csrc/march3d.cuh) equals its Python twin."""
+    """The z-marching tile and segment rule and the shared memory of K7's
+    passes and K6's level passes: the C rule (csrc/march3d.cuh) equals its
+    Python twin."""
     lib = _build.load_library()
     for shape in SHAPES_3D + [CROSSING_3D, (104, 64, 90), (256, 256, 256),
                               (2, 2, 2), (64, 2, 300)]:
         plan = march3_plan(shape, itemsize, nu)
         assert lib.deff_march3_seg_len(*shape, itemsize, nu) == \
             plan["seg_len"], shape
-        for i, name in enumerate(("P", "X", "Z")):
-            for mf in (False, True):
-                assert lib.deff_march3_smem(i, itemsize, nu, int(mf)) == \
-                    plan["smem"][(name, mf)], (shape, name, mf)
+        assert lib.deff_march3_level_seg_len(*shape, itemsize) == \
+            plan["level_seg_len"], shape
+        for (name, mf), nbytes in plan["smem"].items():
+            i = PASSES.index(name)
+            assert lib.deff_march3_smem(i, itemsize, nu, int(mf)) == \
+                nbytes, (shape, name, mf)
 
 
 @pytest.mark.parametrize("mf", [False, True], ids=["stored", "matrix-free"])
@@ -510,6 +551,8 @@ def test_3d_wrappers_reject_bad_input(cuda):
         v3.v_cycle3d(levels, r[:, :, :, :-1])
     with pytest.raises(ValueError):
         v3.v_cycle3d_tiled(levels, r, nu=4)
+    with pytest.raises(ValueError):
+        v3.v_cycle3d(levels, r, nu=4)
     one = torch.ones(2, device=cuda)
     with pytest.raises(ValueError):
         cg_steps3d(levels, x.clone(), r.clone(), r.clone(), one, one, 0 * one,

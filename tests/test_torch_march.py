@@ -1,11 +1,11 @@
-"""K7's z-marching rule (``ops/kernels/cgstep3d.py::march3_plan``, the
+"""The z-marching rule (``ops/kernels/cgstep3d.py::march3_plan``, the
 Python twin of ``csrc/march3d.cuh``): every shape the 3D tests and the
-smoke give K7 fits the H100's shared memory in every pass, float32 and
-float64, nu = 1..3; the z-segments cover each volume exactly in even
-lengths; and config 5's volume (B=1 x 256^3) gives one wave of two CTAs an
-SM on the card's 132 SMs.  A card test (``tests/test_torch_gpu.py``) holds the
-Python rule equal to the C one.  Shapes and arithmetic only: no JAX, no
-tensors.
+smoke give K7 and K6's level passes fits the H100's shared memory in every
+pass, float32 and float64, nu = 1..3; the z-segments of both cover each
+volume exactly in even lengths; and config 5's volume (B=1 x 256^3) gives
+one wave of two CTAs an SM on the card's 132 SMs.  A card test
+(``tests/test_torch_gpu.py``) holds the Python rule equal to the C one.
+Shapes and arithmetic only: no JAX, no tensors.
 """
 
 import pytest
@@ -46,6 +46,14 @@ def test_march3_plan_fits_and_covers(shape, itemsize, nu):
     ty, tx = plan["tile"]
     assert plan["tiles"] == -(-ny // ty) * -(-nx // tx)
     assert plan["ctas"] == plan["tiles"] * plan["segments"]
+    # K6's level passes: even segments down to 2 slices, one wave at most
+    # where the volume has the slices for it
+    lseg = plan["level_seg_len"]
+    assert lseg % 2 == 0 and 2 <= lseg <= seg
+    assert (plan["level_segments"] - 1) * lseg < nz <= \
+        plan["level_segments"] * lseg
+    assert plan["level_ctas"] == plan["tiles"] * plan["level_segments"]
+    assert plan["level_ctas"] <= max(plan["tiles"], 2 * SMS) or lseg == 2
 
 
 @pytest.mark.parametrize("nu", [1, 2])

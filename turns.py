@@ -19,9 +19,15 @@ checkout's):
   by CUDA events);
 * config 3 through ``sharded_solve_mgcg`` on four shards of the card and on
   one: seconds, best of three, iterations and Deff;
-* K7's k=5 call on BASELINE config 5's volume (B=1 x 256^3, stored and
-  matrix-free) and config 5's solve on both legs: seconds, best of three,
-  and iterations.
+* K6 on BASELINE config 5's volume (B=1 x 256^3 fp32): the banded cycle
+  and the whole cycle on levels[1:] as K7 and the banded cycle call it (ms
+  a wrapper call by CUDA events, device ms by the profiler, launches a
+  cycle);
+* K7's k=5 call on that volume (stored and matrix-free) and config 5's
+  solve on both legs: seconds, best of three, and iterations.
+
+With ``--only3d`` it times the last two items alone, with each K6 launch's
+device time in launch order.
 
 To compare a parent commit with this tree, unpack it under ``build/`` and
 run the two alternately in one call on the card:
@@ -45,10 +51,37 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 
 
+def launch_us(fn, n, reps):
+    """``[kernel, microseconds]`` of each of the ``n`` launches of one call
+    of ``fn``, in launch order (the least over ``reps`` calls under
+    ``torch.profiler``); kernel names shortened to the function's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)
+    if len(ev) != n * reps:
+        return None
+    return [[ev[i].name.split("<")[0].split("::")[-1],
+             min(ev[i + n * j].time_range.elapsed_us()
+                 for j in range(reps))] for i in range(n)]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE))
-    tree = Path(ap.parse_args().tree).resolve()
+    ap.add_argument("--only3d", action="store_true",
+                    help="time K6, K7 and config 5 only")
+    args = ap.parse_args()
+    tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   HERE / "chip_smoke.py")
@@ -98,48 +131,6 @@ def main():
             times.append(time.perf_counter() - t1)
         return min(times), times, res
 
-    # the MGCG slice's problem, B=512 x 512^2 (images cached for the turns)
-    cache = HERE / "build" / "turns_images.npy"
-    if cache.exists():
-        imgs = np.load(cache)
-    else:
-        imgs = cs.bench_images(cs.BATCH, cs.SIZE)
-        cache.parent.mkdir(parents=True, exist_ok=True)
-        np.save(cache, imgs)
-    coeffs, spec, x0 = cs.build_problem(imgs, dev)
-    lv = multigrid.build_hierarchy(coeffs, min_size=8, pad_levels=True)
-    x = x0.contiguous().clone()
-    r = lv[0].b - fvm.apply_operator(lv[0], x)
-    n0 = lib.deff_launch_count()
-    v_cycle(lv, r, **cs.MG)
-    out["k2_launches_a_cycle"] = lib.deff_launch_count() - n0
-    out["k2_ms"] = cs.cuda_ms(lambda: v_cycle(lv, r, **cs.MG), 10, warm=2)
-    p = v_cycle(lv, r, **cs.MG)
-    b = x.shape[0]
-    ones, zero = torch.ones(b, device=dev), torch.zeros(b, device=dev)
-    inf = torch.full((b,), float("inf"), device=dev)
-    rz = batch_sum(r * p)
-
-    def k1(k=5):
-        return cg_steps(lv, x, r, p, rz, ones, zero, inf, k, **cs.MG)
-
-    n0 = lib.deff_launch_count()
-    k1(0)
-    n1 = lib.deff_launch_count()
-    k1(5)
-    out["k1_launches_an_iteration"] = (lib.deff_launch_count() - n1
-                                       - (n1 - n0)) / 5
-    out["k1_ms"] = cs.cuda_ms(k1, 3)
-    del lv, x, r, p
-    t, times, res = best_of_3(lambda: multigrid.solve_mgcg_batched(
-        coeffs, spec, x0, **cs.SOLVE_KW))
-    iters = res.iters.cpu().numpy()
-    out["slice_solves_per_s"] = cs.BATCH / t
-    out["slice_runs_s"] = times
-    out["slice_iterations"] = [int(iters.min()), int(iters.max())]
-    del coeffs, spec, x0, res
-    torch.cuda.empty_cache()
-
     def window_ms(fn, levels, x, r, p, k, mg, extra, reps=3):
         """ms of one CG window call of ``k`` iterations on B=1 (every
         iteration live), each call on a fresh copy of the state."""
@@ -150,35 +141,79 @@ def main():
                                      one * float("inf"), k, **mg, **extra),
                           reps)
 
-    # BASELINE config 3, unsharded (stored) and sharded, and K5 on its image
-    rng = np.random.default_rng(cs.C3_SEED)
-    img = cs.correlated_binary(rng, cs.C3_SIZE, cs.C3_SIZE)
-    d, c, s, x0 = cs.c3_problem(img, dev)
-    kw = dict(cs.C3_KW, first_window=0)
-    t, times, res = best_of_3(lambda: multigrid.solve_mgcg(c, s, x0, **kw))
-    out["config3_s"], out["config3_runs_s"] = t, times
-    out["config3_iterations"] = int(res.iters)
-    t, times, res = best_of_3(lambda: multigrid.solve_mgcg(
-        c, s, x0, **cs.C3_KW, d_field=d, first_window=1))
-    out["config3_mf_s"], out["config3_mf_runs_s"] = t, times
-    out["config3_mf_iterations"] = int(res.iters)
-    levels, x, mf = cs.tiled_setup(d[None], type(c)(*(a[None] for a in c)),
-                                   x0[None], cs.C3_KW["min_size"])
-    r = levels[0].b - fvm.apply_operator(levels[0], x)
-    p = v_cycle_tiled(levels, r, **cs.MG3)
-    for mode, extra in (("stored", {}), ("mf", mf)):
-        out[f"k5_{mode}_ms"] = window_ms(cg_steps_tiled, levels, x, r, p,
-                                         cs.K5_TIME_K, cs.MG3, extra)
-    del levels, x, mf, r, p
-    for sp in (4, 1):
-        m = mesh.make_mesh(sp, devices=[dev] * sp)
-        t, times, res = best_of_3(
-            lambda: halo.sharded_solve_mgcg(c, s, x0, m, **kw))
-        out[f"config3_sp{sp}_s"], out[f"config3_sp{sp}_runs_s"] = t, times
-        out[f"config3_sp{sp}_iterations"] = int(res.iters)
-        out[f"config3_sp{sp}_deff"] = float(res.deff)
-    del c, s, x0, d, res
-    torch.cuda.empty_cache()
+    if not args.only3d:
+        # the MGCG slice's problem, B=512 x 512^2 (images cached)
+        cache = HERE / "build" / "turns_images.npy"
+        if cache.exists():
+            imgs = np.load(cache)
+        else:
+            imgs = cs.bench_images(cs.BATCH, cs.SIZE)
+            cache.parent.mkdir(parents=True, exist_ok=True)
+            np.save(cache, imgs)
+        coeffs, spec, x0 = cs.build_problem(imgs, dev)
+        lv = multigrid.build_hierarchy(coeffs, min_size=8, pad_levels=True)
+        x = x0.contiguous().clone()
+        r = lv[0].b - fvm.apply_operator(lv[0], x)
+        n0 = lib.deff_launch_count()
+        v_cycle(lv, r, **cs.MG)
+        out["k2_launches_a_cycle"] = lib.deff_launch_count() - n0
+        out["k2_ms"] = cs.cuda_ms(lambda: v_cycle(lv, r, **cs.MG), 10, warm=2)
+        p = v_cycle(lv, r, **cs.MG)
+        b = x.shape[0]
+        ones, zero = torch.ones(b, device=dev), torch.zeros(b, device=dev)
+        inf = torch.full((b,), float("inf"), device=dev)
+        rz = batch_sum(r * p)
+
+        def k1(k=5):
+            return cg_steps(lv, x, r, p, rz, ones, zero, inf, k, **cs.MG)
+
+        n0 = lib.deff_launch_count()
+        k1(0)
+        n1 = lib.deff_launch_count()
+        k1(5)
+        out["k1_launches_an_iteration"] = (lib.deff_launch_count() - n1
+                                           - (n1 - n0)) / 5
+        out["k1_ms"] = cs.cuda_ms(k1, 3)
+        del lv, x, r, p
+        t, times, res = best_of_3(lambda: multigrid.solve_mgcg_batched(
+            coeffs, spec, x0, **cs.SOLVE_KW))
+        iters = res.iters.cpu().numpy()
+        out["slice_solves_per_s"] = cs.BATCH / t
+        out["slice_runs_s"] = times
+        out["slice_iterations"] = [int(iters.min()), int(iters.max())]
+        del coeffs, spec, x0, res
+        torch.cuda.empty_cache()
+
+
+        # BASELINE config 3, unsharded (stored) and sharded, and K5 on it
+        rng = np.random.default_rng(cs.C3_SEED)
+        img = cs.correlated_binary(rng, cs.C3_SIZE, cs.C3_SIZE)
+        d, c, s, x0 = cs.c3_problem(img, dev)
+        kw = dict(cs.C3_KW, first_window=0)
+        t, times, res = best_of_3(lambda: multigrid.solve_mgcg(c, s, x0, **kw))
+        out["config3_s"], out["config3_runs_s"] = t, times
+        out["config3_iterations"] = int(res.iters)
+        t, times, res = best_of_3(lambda: multigrid.solve_mgcg(
+            c, s, x0, **cs.C3_KW, d_field=d, first_window=1))
+        out["config3_mf_s"], out["config3_mf_runs_s"] = t, times
+        out["config3_mf_iterations"] = int(res.iters)
+        levels, x, mf = cs.tiled_setup(d[None], type(c)(*(a[None] for a in c)),
+                                       x0[None], cs.C3_KW["min_size"])
+        r = levels[0].b - fvm.apply_operator(levels[0], x)
+        p = v_cycle_tiled(levels, r, **cs.MG3)
+        for mode, extra in (("stored", {}), ("mf", mf)):
+            out[f"k5_{mode}_ms"] = window_ms(cg_steps_tiled, levels, x, r, p,
+                                             cs.K5_TIME_K, cs.MG3, extra)
+        del levels, x, mf, r, p
+        for sp in (4, 1):
+            m = mesh.make_mesh(sp, devices=[dev] * sp)
+            t, times, res = best_of_3(
+                lambda: halo.sharded_solve_mgcg(c, s, x0, m, **kw))
+            out[f"config3_sp{sp}_s"], out[f"config3_sp{sp}_runs_s"] = t, times
+            out[f"config3_sp{sp}_iterations"] = int(res.iters)
+            out[f"config3_sp{sp}_deff"] = float(res.deff)
+        del c, s, x0, d, res
+        torch.cuda.empty_cache()
 
     # BASELINE config 5: K7 on its volume, then the solve on both legs
     fluid = cs.c5_fluid((cs.C5_SIZE,) * 3, cs.C5_SEED)
@@ -187,11 +222,22 @@ def main():
                                      type(c5)(*(a[None] for a in c5)),
                                      x05[None])
     r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
+    r1 = torch.randn(levels[1].diag.shape, dtype=r.dtype, device=dev)
+    for name, fn in (("k6_banded", lambda: v3.v_cycle3d_tiled(
+            levels, r, **cs.MG5)), ("k6_whole", lambda: v3.v_cycle3d(
+                levels[1:], r1, **cs.MG5))):
+        n0 = lib.deff_launch_count()
+        fn()
+        n = lib.deff_launch_count() - n0
+        out[f"{name}_launches"] = n
+        out[f"{name}_ms"] = cs.cuda_ms(fn, 10, warm=2)
+        out[f"{name}_device_ms"] = cs.device_ms(fn, 5)
+        out[f"{name}_launch_us"] = launch_us(fn, n, 5)
     p = v3.v_cycle3d_tiled(levels, r, **cs.MG5)
     for mode, extra in (("stored", {}), ("mf", mf)):
         out[f"k7_{mode}_ms"] = window_ms(cg_steps3d, levels, x, r, p,
                                          cs.K7_TIME_K, cs.MG5, extra)
-    del levels, x, mf, r, p
+    del levels, x, mf, r, r1, p
     for name, extra in (("mf", dict(d_field=d5)), ("stored", {})):
         t, times, res = best_of_3(lambda: solvers3d.solve_mgcg_3d(
             c5, s5, x05, **cs.C5_KW, **extra))

@@ -46,9 +46,11 @@ non-zero):
 11. config 1 and the CLI batch under ``torch.profiler``; K3 times (CUDA
     events) at B=256 x 128^2 fp32 and B=1 x 128^2 fp64, the resident and
     the streaming route in turns;
-12. K4 (the banded V-cycle) against its plain version on the card: B=2 at
-    2048^2 and at 2007x1002 (padded to 2048x1024) in fp32, B=2 at 256x320
-    in fp64;
+12. K4 (the banded V-cycle: T1 and T2 as K2's level passes around K2's
+    cycle from level 1, one C entry) against its plain version on the card,
+    bit for bit, in 2 + the tail's launches: B=2 at 2048^2 and at 2007x1002
+    (padded to 2048x1024) in fp32, B=2 at 256x320 in fp64; the device time
+    of T1, the tail and T2;
 13. K5 (the banded CG steps, three tile passes an iteration) against its
     plain version on the card, B=4 x 2048^2, k=5, stored and matrix-free,
     with a frozen image, one that exits at iteration 0 and one tripped by
@@ -61,9 +63,10 @@ non-zero):
     mgcg`` on the config-3 image, and ``batch_sim`` on two 2048^2 images
     with ``Pallas: auto`` (K4/K5) and ``Pallas: force`` (K1/K2); then the
     force batch in float64 through "cgstep" (K1/K2) and "tiled" (K4/K5);
-16. K4/K5 times (CUDA events) at B=1 and B=4 x 2048^2 fp32, with K5's
-    launches an iteration, its reckoned bytes a cell an iteration and the
-    bounds (level 0 counted in every pass that must read it);
+16. K4/K5 times (CUDA events) at B=1 and B=4 x 2048^2 fp32, K4's device
+    time by launch (T1, the tail, T2), K5's launches an iteration, its
+    reckoned bytes a cell an iteration and the bounds (level 0 counted in
+    every pass that must read it);
 17. one config-3 solve per leg under ``torch.profiler``: device busy time,
     the span of its kernels and the idle share, and device time by kernel
     group;
@@ -79,7 +82,8 @@ non-zero):
     volume, contrast 1e-6, fp32, relresidual 1e-4, V(2,2)) through
     ``solve_mgcg_3d`` with the engine left to the auto rule, matrix-free
     and stored, each against the same solve on the plain versions, then
-    one warm-up and three timed solves per leg;
+    one warm-up and three timed solves per leg; the K7 iterations launched
+    (at most one a window past the last live one) and the 3D cycles;
 22. the CLI route: an ``input.txt`` with ``InputName: vol.npy`` (the
     config-5 medium) through ``cli.main`` into ``volume_sim``, against the
     direct solve with the same settings; the 2- and 3-phase parallel slabs
@@ -89,11 +93,14 @@ non-zero):
     matrix-free, with K7's launches an iteration, its reckoned bytes a cell
     an iteration and the bounds;
 24. one config-5 solve per leg under ``torch.profiler``;
-25. K8 (the row-sharded cycle: per-shard T1/T2 around the gathered K2
-    tail) against its plain version on the card, one application of
-    ``v_cycle_sharded_fused``: config 3's 2048^2 fp32 at SP=4 on four shards
-    of ``cuda:0``, B=2; the same at SP=1 (empty strips); 4096^2 at SP=4 (a
-    sharded level 1 too); B=2 x 256x320 fp64 at SP=4;
+25. K8 (the row-sharded cycle: T1/T2 on every shard of the row in one
+    launch a leg, neighbours read in place, around the gathered K2 tail
+    restricted into in place) against its plain version on the card, bit
+    for bit, one application of ``v_cycle_sharded_fused``: config 3's
+    2048^2 fp32 at SP=4 on four shards of ``cuda:0``, B=2; the same at SP=1;
+    4096^2 at SP=4 (a sharded level 1 too); B=2 x 256x320 fp64 at SP=4;
+    its launches (2 a fused level plus the tail's), no strip exchanged, and
+    an application's wall time beside K8's own device time;
 26. K9 (the sharded three-pass CG steps) against its plain version, B=4 x
     2048^2, SP=4, k=5, with a frozen image, one that exits at iteration 0
     and one tripped by its divergence threshold; its graph route (the
@@ -113,9 +120,10 @@ non-zero):
     (mgcg) on two 2048^2 images against ``Devices: 1``, ``Devices: 2, DP:
     2`` on phase 10's 64 images against phase 10's table, and the dry-run
     twin (``parallel/dryrun.py``) on four shards;
-29. K8/K9 times (CUDA events) at B=1 and B=4 x 2048^2, SP=4 and SP=1 (K9
-    on the graph route and the host loop in turns), then one sharded
-    config-3 solve under ``torch.profiler``.
+29. K8/K9 times (CUDA events; K8's own device time beside the
+    application's) at B=1 and B=4 x 2048^2, SP=4 and SP=1 (K9 on the graph
+    route and the host loop in turns), then one sharded config-3 solve
+    under ``torch.profiler``.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -259,6 +267,96 @@ def device_ms(fn, reps):
     if not dev:
         return None
     return sum(e.time_range.elapsed_us() for e in dev) / 1e3 / reps
+
+
+def launch_us(fn, reps, ordered=True):
+    """The device time of each kernel ``fn`` launches, in launch order:
+    ``[(name, mean microseconds)]`` over ``reps`` calls under
+    ``torch.profiler`` (every call launching the same kernels), or None
+    where the profiler saw no device activity or another count of kernels.
+    ``ordered=False``: each distinct kernel (full name) with its summed
+    time a call instead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # kernels only: the profiler also books its own buffer requests and
+    # the copies on the device
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and "kernel" in e.name.lower()),
+                 key=lambda e: e.time_range.start)
+    if not ordered:
+        # each kernel (full name) with its mean time a call, in the order of
+        # its first launch
+        tot = {}
+        for e in dev:
+            tot[e.name] = tot.get(e.name, 0.0) + e.time_range.elapsed_us()
+        return [(n, t / reps) for n, t in tot.items()] or None
+    if not dev or len(dev) % reps:
+        return None
+    n = len(dev) // reps
+    out = []
+    for k in range(n):
+        name = dev[k].name.split("<")[0].split("::")[-1]
+        out.append((name, sum(dev[i * n + k].time_range.elapsed_us()
+                              for i in range(reps)) / reps))
+    return out
+
+
+def k4_split(fn, reps):
+    """K4's device time by launch, from its kernels' names: ``(T1, the K2
+    tail's launches, T2)`` in microseconds a call, and the tail's kernels;
+    None where not measured."""
+    us = launch_us(fn, reps, ordered=False)
+    if not us:
+        return None
+
+    def banded(n, leg):
+        return "BandedLeg>" in n and leg in n
+
+    t1 = sum(t for n, t in us if banded(n, "level_down") or "tiled_pre" in n)
+    t2 = sum(t for n, t in us if banded(n, "level_up") or "tiled_post" in n)
+    tail = [(n.split("<")[0].split("::")[-1], t) for n, t in us
+            if any(f in n for f in K2_KERNELS) and "BandedLeg>" not in n]
+    return (t1, sum(t for _, t in tail), t2,
+            [f"{n} {t:.1f}" for n, t in tail])
+
+
+def k4_split_text(split):
+    if split is None:
+        return "by launch not measured"
+    t1, tail, t2, parts = split
+    return (f"by launch T1 {t1:.1f} us, K2 tail {tail:.1f} us "
+            f"({', '.join(parts)}), T2 {t2:.1f} us")
+
+
+def kernel_device_us(fn, reps, frags):
+    """Mean device microseconds a call of ``fn`` spends in kernels whose
+    names hold one of ``frags``, and in all its kernels and copies:
+    ``(own, all)``, or None where the profiler saw no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    own = sum(e.time_range.elapsed_us() for e in dev
+              if any(f in e.name for f in frags))
+    return own / reps, sum(e.time_range.elapsed_us() for e in dev) / reps
 
 
 def bound(nbytes, ops, itemsize):
@@ -449,7 +547,7 @@ PROFILE_GROUPS = (
     ("K5 pass P", "tile_p_kernel"), ("K5 pass X", "tile_x_kernel"),
     ("K5 pass Z", "tile_z_kernel"),
     ("K5 scalars", ("fin_", "abs_parts", "pin_kernel", "copy_back")),
-    ("K4 T1/T2", ("tiled_pre", "tiled_post")),
+    ("K4 T1/T2", ("BandedLeg",)),
     ("K2 levels", K2_KERNELS),
 )
 PROFILE_GROUPS_K1 = (
@@ -554,17 +652,23 @@ def large_grid_phases(dev, card, lib):
         n_k4, n_k2, n_lib = (v_cycle_tiled.launches - n_k4,
                              v_cycle.launches - n_k2,
                              lib.deff_launch_count() - n_lib)
-        check(n_k4 == 1 and n_k2 == 1, f"K4 launches {n_k4}, K2 {n_k2}")
+        shapes = [tuple(cl.diag.shape[-2:]) for cl in levels]
+        want = 2 + cycle_launches(shapes, r.element_size(), 1)
+        check(n_k4 == 1 and n_k2 == 0 and n_lib == want,
+              f"K4 calls {n_k4}, K2 calls {n_k2}, library launches {n_lib} "
+              f"(T1, T2 and {want - 2} for K2's tail)")
         zp = v_cycle_tiled_reference(levels, r, **MG3)
         err = float((z - zp).abs().max())
         scale = float(zp.abs().max())
-        check(err <= 1e-6 * scale, f"K4 {ny}x{nx}: max|z - z_plain| {err} "
-              f"> 1e-6 * {scale}")
+        check(torch.equal(z, zp), f"K4 {ny}x{nx}: max|z - z_plain| {err} "
+              "(bit-equal expected)")
         k4_err = max(k4_err, err)
+        split = k4_split(lambda: v_cycle_tiled(levels, r, **MG3), 3)
         lines.append(f"{ny}x{nx} {str(dtype)[-7:]} padded to "
                      f"{tuple(r.shape[-2:])}, {len(levels)} levels: max abs "
-                     f"err {err:.3e} (max|z| {scale:.3e}); T1 1, T2 1, K2 1 "
-                     f"call, {n_lib} library launches")
+                     f"err {err:.3e} (max|z| {scale:.3e}), bit-equal True; "
+                     f"{n_lib} library launches (T1, T2, {want - 2} for K2's "
+                     f"tail), {k4_split_text(split)}")
         del d, c, levels, x, r, z, zp
     phase(12, t0, "K4 vs plain, B=2: " + "; ".join(lines))
 
@@ -676,8 +780,8 @@ def large_grid_phases(dev, card, lib):
         if main_launches is None:
             main_launches = launched
         check(launched["K4"] > 0 and launched["K5"] > 0
-              and launched["K2"] > 0 and launched["K1"] == 0,
-              f"config 3 {name} launches {launched}")
+              and launched["K2 cycles in the library"] > 0
+              and launched["K1"] == 0, f"config 3 {name} launches {launched}")
         conv, deff, iters = float(res.conv), float(res.deff), int(res.iters)
         check(np.isfinite(deff) and conv <= C3_KW["tol"],
               f"config 3 {name}: relres {conv}, Deff {deff}")
@@ -793,11 +897,12 @@ def large_grid_phases(dev, card, lib):
         per_cycle = lib.deff_launch_count() - n0
         work = tiled_work(levels, bsz, item, MG3["nu"])
         times[("K4", bsz)] = (ms, ms_p, bound(*work[:2], item))
+        split = k4_split(lambda: v_cycle_tiled(levels, r, **MG3), 10)
         lines.append(f"B={bsz} K4 cycle {ms:.4f} ms (plain {ms_p:.4f} ms, "
                      f"bound {times[('K4', bsz)][2][0]:.4f} ms by "
                      f"{times[('K4', bsz)][2][1]}, level 0 read once "
                      f"{bound(work[2], work[1], item)[0]:.4f} ms; "
-                     f"{per_cycle} launches)")
+                     f"{per_cycle} launches; device {k4_split_text(split)})")
         p = v_cycle_tiled(levels, r, **MG3)
         rz = batch_sum(r * p)
         ones = torch.ones(bsz, device=dev)
@@ -1013,8 +1118,8 @@ def volume_phases(dev, card, lib):
     from effectivediffusivityfvm_tpu_torch.config import SimulationConfig
     from effectivediffusivityfvm_tpu_torch.ops import fvm3d
     from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle3d as v3
-    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import \
-        batch_sum
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
+        WINDOW_LAG, batch_sum)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep3d import (
         cg_steps3d, cg_steps3d_reference)
     from effectivediffusivityfvm_tpu_torch.pipeline import volume as pvol
@@ -1025,13 +1130,15 @@ def volume_phases(dev, card, lib):
     def zero_counts():
         for w in wrappers:
             w.launches = 0
-        return lib.deff_cycle3_count()
+        return lib.deff_cycle3_count(), lib.deff_window_iter_count()
 
-    def counts(cyc0):
+    def counts(c0):
         return {"K6 whole": v3.v_cycle3d.launches,
                 "K6 banded": v3.v_cycle3d_tiled.launches,
                 "K7": cg_steps3d.launches,
-                "3D cycles in the library": lib.deff_cycle3_count() - cyc0}
+                "3D cycles in the library": lib.deff_cycle3_count() - c0[0],
+                "K7 iterations launched":
+                    lib.deff_window_iter_count() - c0[1]}
 
     def resid(levels, x):
         return levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
@@ -1239,6 +1346,13 @@ def volume_phases(dev, card, lib):
         conv, deff, iters = float(res.conv), float(res.deff), int(res.iters)
         check(np.isfinite(deff) and conv <= C5_KW["tol"],
               f"config 5 {name}: relres {conv}, Deff {deff}")
+        # each K7 window stops at most WINDOW_LAG iterations after its last
+        # live one
+        check(launched["K7 iterations launched"]
+              <= iters + WINDOW_LAG * launched["K7"],
+              f"config 5 {name}: {launched['K7 iterations launched']} K7 "
+              f"iterations launched for {iters} live in {launched['K7']} "
+              "windows")
         plain = solvers3d._mgcg3_core(c1, s1, x01, batched=False, plain=True,
                                       **C5_KW, **extra)
         p_deff, p_iters = float(plain.deff), int(plain.iters)
@@ -1264,7 +1378,10 @@ def volume_phases(dev, card, lib):
               f"{t_first:.4f} s, timed "
               f"{', '.join(f'{t:.4f}' for t in times)} s, "
               f"{min(times) / iters * 1e3:.4f} ms/iteration, peak memory "
-              f"{peak / 2**30:.3f} GiB, launches {launched}")
+              f"{peak / 2**30:.3f} GiB, launches {launched} (K7 "
+              f"iterations launched {launched['K7 iterations launched']} "
+              f"for {iters} live, 3D cycles "
+              f"{launched['3D cycles in the library']})")
         t0 = time.perf_counter()
         del res, plain
     rel_sm = abs(legs["stored"] - legs["matrix-free"]) / abs(legs["stored"])
@@ -1509,14 +1626,23 @@ def volume_phases(dev, card, lib):
 # kernel-name fragments -> the group a sharded profile reports them under
 PROFILE_GROUPS_SHARDED = (
     ("K9 passes", ("shard_pass_a", "shard_pass_b", "shard_pass_c")),
-    ("K8 T1/T2", ("shard_t1", "shard_t2")),
+    ("K8 T1/T2", ("row_t1", "row_t2")),
     ("K9 finalize", ("fin_init", "fin_alpha", "fin_live", "shard_abs_parts",
                      "select_kernel")),
     ("K2 tail", K2_KERNELS),
     ("strip and gather copies", ("Memcpy", "copy_kernel", "CatArray")),
 )
+K8_KERNELS = ("row_t1", "row_t2")     # K8's kernels (csrc/vcycle_sharded.cu)
 C4K_SIZE = 4096                       # phase 25/27: a sharded level 1 too
 K9_TIME_K = 10                        # iterations per timed K9 call
+
+
+def k8_own_text(own):
+    """K8's own device time (its kernels) beside the application's."""
+    if own is None:
+        return "not measured"
+    return (f"K8's kernels {own[0] / 1e3:.4f} ms of {own[1] / 1e3:.4f} ms "
+            "(all kernels and copies)")
 
 
 def sharded_setup(c, sp, dev, min_size):
@@ -1565,9 +1691,11 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         ShardWorkspace, cg_steps_sharded, cg_steps_sharded_reference)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import \
         cg_steps_tiled
-    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_sharded
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
+        cycle_launches, v_cycle)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_sharded import (
-        shard_t1, shard_t2)
+        shard_row_t1, shard_row_t2)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import \
         v_cycle_tiled
     from effectivediffusivityfvm_tpu_torch.parallel import fused2d, halo, mesh
@@ -1576,7 +1704,8 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
     from effectivediffusivityfvm_tpu_torch.pipeline import batch
     from effectivediffusivityfvm_tpu_torch.solvers import multigrid
 
-    wrappers = (shard_t1, shard_t2, cg_steps_sharded, v_cycle, cg_steps,
+    wrappers = (shard_row_t1, shard_row_t2, cg_steps_sharded, v_cycle,
+                cg_steps,
                 v_cycle_tiled, cg_steps_tiled)
 
     def zero_counts():
@@ -1584,7 +1713,8 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
             w.launches = 0
 
     def counts():
-        return {"K8 T1": shard_t1.launches, "K8 T2": shard_t2.launches,
+        return {"K8 T1": shard_row_t1.launches,
+                "K8 T2": shard_row_t2.launches,
                 "K9": cg_steps_sharded.launches, "K2": v_cycle.launches,
                 "K1": cg_steps.launches, "K4": v_cycle_tiled.launches,
                 "K5": cg_steps_tiled.launches}
@@ -1620,27 +1750,55 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         r = c.b - fvm.apply_operator(c, x0)
         m, hier, cw, tail = sharded_setup(c, sp, dev, C3_KW["min_size"])
         rs = mesh.shard_rows(m, r)[0]
+        rows = {}
         zero_counts()
-        z = joined(fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
-                                                 **MG3))
+        n0 = lib.deff_launch_count()
+        strips = vcycle_sharded.halo_strips
+        n_strips = []
+
+        def counted(*a, **k):
+            n_strips.append(1)
+            return strips(*a, **k)
+
+        vcycle_sharded.halo_strips = counted
+        try:
+            z = joined(fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
+                                                     rows=rows, **MG3))
+        finally:
+            vcycle_sharded.halo_strips = strips
         torch.cuda.synchronize()
-        n = counts()
+        n, n_lib = counts(), lib.deff_launch_count() - n0
         n_fused = sum(cw_l is not None for cw_l in cw[:tail[0]])
-        check(n["K8 T1"] == n["K8 T2"] == n_fused * sp and n["K2"] == 1,
-              f"K8 launches {n}")
+        tail_shapes = [tuple(cl.diag.shape[-2:]) for cl in tail[1][0]]
+        want = 2 * n_fused + cycle_launches(tail_shapes, r.element_size())
+        check(n["K8 T1"] == n["K8 T2"] == n_fused and n["K2"] == 1
+              and n_lib == want and not n_strips
+              and rows[tail[0] - 1].gathered is not None,
+              f"K8 launches {n}, library launches {n_lib} (want {want}), "
+              f"strip exchanges {len(n_strips)}, levels {sorted(rows)}")
         zp = joined(fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
                                                   plain=True, **MG3))
         err = float((z - zp).abs().max())
         scale = float(zp.abs().max())
-        check(err <= 1e-6 * scale, f"K8 {tuple(r.shape)} SP={sp}: "
-              f"max|z - z_plain| {err} > 1e-6 * {scale}")
+        check(torch.equal(z, zp), f"K8 {tuple(r.shape)} SP={sp}: "
+              f"max|z - z_plain| {err} (bit-equal expected)")
         k8_err = max(k8_err, err)
+
+        def app():
+            return fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
+                                                 rows=rows, **MG3)
+
+        ms = cuda_ms(app, 5, warm=1)
+        own = kernel_device_us(app, 5, K8_KERNELS)
         lines.append(f"B={r.shape[0]} x {r.shape[1]}x{r.shape[2]} "
                      f"{str(dtype)[-7:]} SP={sp}: {len(hier.sharded)} "
                      f"sharded levels, tail at level {tail[0]}: max abs err "
-                     f"{err:.3e} (max|z| {scale:.3e}); T1 {n['K8 T1']}, T2 "
-                     f"{n['K8 T2']}, K2 {n['K2']} calls")
-        del d, c, x0, r, rs, hier, cw, tail, z, zp
+                     f"{err:.3e} (max|z| {scale:.3e}), bit-equal True; T1 "
+                     f"{n['K8 T1']}, T2 {n['K8 T2']} launches, K2 "
+                     f"{n['K2']} call, {n_lib} library launches, "
+                     f"{len(n_strips)} strip exchanges; an application "
+                     f"{ms:.4f} ms, device {k8_own_text(own)}")
+        del d, c, x0, r, rs, hier, cw, tail, z, zp, rows
     phase(25, t0, "K8 vs plain: " + "; ".join(lines))
 
     # -- 26: K9 against its plain version, B=4 x 2048^2, SP=4, k=5
@@ -1903,11 +2061,15 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
             m, hier, cw, tail = sharded_setup(cb, sp, dev, C3_KW["min_size"])
             rs = mesh.shard_rows(m, rb)[0]
 
+            rows = {}
+
             def cycle(plain=False):
                 return fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
-                                                     plain=plain, **MG3)
+                                                     plain=plain, rows=rows,
+                                                     **MG3)
 
             ms = cuda_ms(cycle, 10, warm=2)
+            own = kernel_device_us(cycle, 10, K8_KERNELS)
             ms_p = cuda_ms(lambda: cycle(True), 2)
             bd = bound(*sharded_work(hier, tail, sp, bsz, item, MG3["nu"]),
                        item)
@@ -1955,15 +2117,16 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
                                       K9_TIME_K), item)
             times[("K9", bsz, sp)] = (ms9, ms9_p, bd9)
             lines.append(
-                f"B={bsz} SP={sp}: K8 cycle {ms:.4f} ms (plain {ms_p:.4f} "
-                f"ms, bound {bd[0]:.4f} ms by {bd[1]}); K9 k={K9_TIME_K} "
+                f"B={bsz} SP={sp}: K8 cycle {ms:.4f} ms (device "
+                f"{k8_own_text(own)}; plain {ms_p:.4f} ms, bound "
+                f"{bd[0]:.4f} ms by {bd[1]}); K9 k={K9_TIME_K} "
                 f"graph route {ms9:.4f} ms ({ms9 / K9_TIME_K:.4f} "
                 f"ms/iteration), host loop {ms9_loop:.4f} ms "
                 f"({ms9_loop / K9_TIME_K:.4f}; turns graph, loop, loop, "
                 f"graph {', '.join(f'{t:.4f}' for t in tt)} ms); plain "
                 f"{ms9_p:.4f} ms, bound {bd9[0]:.4f} ms by {bd9[1]}, "
                 f"{per_iter:g} library launches/iteration")
-            del hier, cw, tail, rs, pb
+            del hier, cw, tail, rs, pb, rows
     phase(29, t0, f"K8/K9 times {card}, {C3_SIZE}^2 fp32: " + "; ".join(lines))
     t0 = time.perf_counter()
     m = mesh.make_mesh(4, devices=[dev] * 4)
@@ -1985,7 +2148,7 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
     k8_ms, k8_ms_p, k8_bound = times[("K8", 1, 4)]
     k9_ms, k9_ms_p, k9_bound = times[("K9", 1, 4)]
     return [
-        {"name": "v_cycle_sharded_fused (shard_t1, shard_t2)",
+        {"name": "v_cycle_sharded_fused (shard_row_t1, shard_row_t2)",
          "route": "cuda",
          "source": "effectivediffusivityfvm_tpu_torch/csrc/vcycle_sharded.cu",
          "replaces": "effectivediffusivityfvm_tpu/parallel/fused2d.py:358",

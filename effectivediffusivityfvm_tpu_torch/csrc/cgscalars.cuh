@@ -1,5 +1,6 @@
 // Per-image CG scalars on the device, shared by the three-pass CG engines:
-// K5 (cgstep_tiled.cu, 2D) and K7 (cgstep3d.cu, 3D).
+// K5 (cgstep_tiled.cu, 2D), K7 (cgstep3d.cu, 3D) and K9
+// (cgstep_sharded.cu).
 //
 // The passes write one double partial per block and image; a one-block-
 // per-image finalize kernel sums an image's partials in a fixed order and
@@ -7,7 +8,7 @@
 // synchronisation and its iteration counts do not change from run to run.
 #pragma once
 
-#include "vcycle.cuh"
+#include "window.cuh"
 
 namespace deff {
 
@@ -25,6 +26,7 @@ struct CgState {
   double* part_b;   // sum|r|
   double* part_c;   // <r, z>
   int ntiles;       // partials per image
+  int* any;         // the window's flag of this step (window.cuh), or null
 };
 
 // Sum of one value per thread of a THREADS-wide block, in double, in a
@@ -66,8 +68,10 @@ __global__ void fin_init_kernel(CgState<T> s, const T* active) {
   __shared__ double sh[THREADS];
   const int b = blockIdx.y;
   const T sr = (T)sum_tiles(s.part_b + (size_t)b * s.ntiles, s.ntiles, sh);
+  const bool lv = active[b] > T(0) && sr > s.stop[b] && sr < s.hi[b];
+  mark_live(s.any, lv);
   if (threadIdx.x == 0) {
-    s.live[b] = (active[b] > T(0) && sr > s.stop[b] && sr < s.hi[b]);
+    s.live[b] = lv;
     s.rz_prev[b] = s.rz[b];
     s.par[b] = 0;
     s.k_done[b] = 0;
@@ -95,7 +99,9 @@ __global__ void fin_live_kernel(CgState<T> s) {
     s.rz[b] = rzn;
     s.k_done[b] += 1;
     s.par[b] ^= 1;
-    s.live[b] = (sr > s.stop[b] && sr < s.hi[b]);
+    const bool lv = sr > s.stop[b] && sr < s.hi[b];
+    s.live[b] = lv;
+    mark_live(s.any, lv);
   }
 }
 

@@ -53,6 +53,7 @@
 // planes and scratch planes (a tile's halo must read the old values), and
 // the refresh writes the caller's r and p for every active image.
 #include "tile2d.cuh"
+#include "window.cuh"
 
 namespace deff {
 namespace {
@@ -302,7 +303,7 @@ pass_z_kernel(Level<T> lv, int nyc, int nxc, const T* __restrict__ es,
 template <typename T>
 __global__ void fin_init_kernel(const double* part_abs, int nt,
                                 const int* act, int* live, const T* stop,
-                                const T* hi, int k) {
+                                const T* hi, int k, int* any) {
   __shared__ double sh[THREADS];
   const int b = blockIdx.y;
   if (!act[b]) {
@@ -310,7 +311,9 @@ __global__ void fin_init_kernel(const double* part_abs, int nt,
     return;
   }
   const T sr = (T)sum_parts(part_abs + (size_t)b * nt, nt, sh);
-  if (threadIdx.x == 0) live[b] = (0 < k && sr > stop[b] && sr < hi[b]);
+  const bool lv = 0 < k && sr > stop[b] && sr < hi[b];
+  if (threadIdx.x == 0) live[b] = lv;
+  mark_live(any, lv);
 }
 
 template <typename T>
@@ -326,7 +329,7 @@ __global__ void fin_alpha_kernel(const double* part, int nt, const T* rz,
 template <typename T>
 __global__ void fin_beta_kernel(const double* part_rz, const double* part_abs,
                                 int nt, T* rz, T* beta, int* it, int* live,
-                                const T* stop, const T* hi, int k) {
+                                const T* stop, const T* hi, int k, int* any) {
   __shared__ double sh[THREADS];
   const int b = blockIdx.y;
   if (!live[b]) return;
@@ -338,7 +341,9 @@ __global__ void fin_beta_kernel(const double* part_rz, const double* part_abs,
     rz[b] = rzn;
     const int i = it[b] + 1;
     it[b] = i;
-    live[b] = (i < k && sr > stop[b] && sr < hi[b]);
+    const bool lv = i < k && sr > stop[b] && sr < hi[b];
+    live[b] = lv;
+    mark_live(any, lv);
   }
 }
 
@@ -500,11 +505,18 @@ int cg_steps_entry(int B, int L, const int* ny, const int* nx,
   DEFF_TRY(go.template pass_z<false, 0>(0, 0, R[0], nullptr, 0.0, R[0],
                                         nullptr, 0.0, 0.0, nullptr, part_b,
                                         act));
+  WindowExit wx(st);
+  DEFF_TRY(wx.status());
   DEFF_LAUNCH(fin_init_kernel<T><<<per_image, blk, 0, st>>>(
-      part_b, nt, act, live, stop, hi, k));
+      part_b, nt, act, live, stop, hi, k, wx.slot(0)));
+  DEFF_TRY(wx.mark(0));
 
   int pc = 0;                    // P[pc] holds the current p
   for (int i = 0; i < k; ++i) {
+    bool stop_now = false;
+    DEFF_TRY(wx.stop_before(i, &stop_now));
+    if (stop_now) break;
+    ++g_window_iters;
     T* r_cur = R[i & 1];
     T* r_nxt = R[(i & 1) ^ 1];
     if (i == 0) {
@@ -580,7 +592,9 @@ int cg_steps_entry(int B, int L, const int* ny, const int* nx,
                                             part_b, live));
     }
     DEFF_LAUNCH(fin_beta_kernel<T><<<per_image, blk, 0, st>>>(
-        part_c, part_b, nt, rz, beta, it, live, stop, hi, k));
+        part_c, part_b, nt, rz, beta, it, live, stop, hi, k,
+        wx.slot(i + 1)));
+    DEFF_TRY(wx.mark(i + 1));
   }
 
   // refresh + restart for every active image, into the caller's r and p:

@@ -293,16 +293,27 @@ cudaError_t run_window(int B, int L, const Level3<T>* lv, const Vol0<T>& v,
   s0.ntiles = blocks_for(n0);
   DEFF_LAUNCH(abs_parts3_kernel<T><<<dim3(s0.ntiles, B), THREADS, 0, st>>>(
       u.r0, n0, s0.part_b, s0.ntiles));
+  WindowExit wx(st);
+  DEFF_TRY3(wx.status());
+  s0.any = wx.slot(0);
   DEFF_LAUNCH(fin_init_kernel<T><<<per_image, THREADS, 0, st>>>(s0, active));
+  DEFF_TRY3(wx.mark(0));
   s.ntiles = ncta;
   for (int i = 0; i < k; ++i) {
+    bool stop_now = false;
+    DEFF_TRY3(wx.stop_before(i, &stop_now));
+    if (stop_now) break;
+    ++g_window_iters;
     DEFF_TRY3(P::p(v, u, i == 0 ? 1 : 0, s, grid, seglen, st));
     DEFF_LAUNCH(fin_alpha_kernel<T><<<per_image, THREADS, 0, st>>>(s));
     DEFF_TRY3(P::x(v, u, d1, s, ws, grid, seglen, st));
     DEFF_TRY3(run_cycle3<T>(B, L - 1, lv + 1, u.rc, u.ec, u.cyc, ws_, NU,
                             coarse_iters, over, s.live, st));
     DEFF_TRY3(P::z(v, u, d1, (T)over, s, ws, grid, seglen, st));
-    DEFF_LAUNCH(fin_live_kernel<T><<<per_image, THREADS, 0, st>>>(s));
+    CgState<T> sl = s;
+    sl.any = wx.slot(i + 1);
+    DEFF_LAUNCH(fin_live_kernel<T><<<per_image, THREADS, 0, st>>>(sl));
+    DEFF_TRY3(wx.mark(i + 1));
   }
   DEFF_LAUNCH(copy_back_kernel<T><<<dim3(blocks_for(n0), B), THREADS, 0,
                                     st>>>(u.r0, u.r1, u.p0, u.p1, n0, s.par));

@@ -270,7 +270,7 @@ bool bad_shard(int B, int py, int px, int sh, int nu) {
 template <typename K>
 cudaError_t smem_for(K kernel, int planes, int h, size_t item,
                      size_t* bytes) {
-  *bytes = tile_smem(planes, h, false, item);
+  *bytes = tile_smem(planes, h, item);
   return allow_smem(kernel, *bytes);
 }
 

@@ -455,8 +455,17 @@ cudaError_t run_window(int B, int L, const Level<T>* lv, const Fine2<T>& f,
   }
   DEFF_LAUNCH(abs_parts_kernel<T><<<tiles, THREADS, 0, st>>>(
       u.r0, f.ny, f.nx, s.part_b, s.ntiles));
+  WindowExit wx(st);
+  DEFF_TRY5(wx.status());
+  s.any = wx.slot(0);
   DEFF_LAUNCH(fin_init_kernel<T><<<per_image, THREADS, 0, st>>>(s, active));
+  DEFF_TRY5(wx.mark(0));
+  s.any = nullptr;
   for (int i = 0; i < k; ++i) {
+    bool stop_now = false;
+    DEFF_TRY5(wx.stop_before(i, &stop_now));
+    if (stop_now) break;
+    ++g_window_iters;
     DEFF_LAUNCH(kp<<<tiles, THREADS, sp, st>>>(f, u.p0, u.p1, u.z, u.q,
                                                i == 0 ? 1 : 0, s));
     DEFF_LAUNCH(fin_alpha_kernel<T><<<per_image, THREADS, 0, st>>>(s));
@@ -466,7 +475,10 @@ cudaError_t run_window(int B, int L, const Level<T>* lv, const Fine2<T>& f,
                            coarse_iters, over, s.live, st));
     DEFF_LAUNCH(kz<<<tiles, THREADS, sz, st>>>(f, u.r0, u.r1, u.e, u.ec,
                                                (T)over, u.z, s, ws));
-    DEFF_LAUNCH(fin_live_kernel<T><<<per_image, THREADS, 0, st>>>(s));
+    CgState<T> sl = s;
+    sl.any = wx.slot(i + 1);
+    DEFF_LAUNCH(fin_live_kernel<T><<<per_image, THREADS, 0, st>>>(sl));
+    DEFF_TRY5(wx.mark(i + 1));
   }
   DEFF_LAUNCH(copy_back_kernel<T><<<dim3(blocks_for(n0), B), THREADS, 0,
                                     st>>>(u.r0, u.r1, u.p0, u.p1, n0, s.par));

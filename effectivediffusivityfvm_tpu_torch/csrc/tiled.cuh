@@ -1,20 +1,14 @@
-// Device code shared by the banded (large-grid) engine's K4, the tiled
-// V-cycle (vcycle_tiled.cu), and by the row-sharded engine, K8
-// (vcycle_sharded.cu) and K9 (cgstep_sharded.cu), whose windows read a
-// shard's halo strips (Rows, at the end of this file).  K5 (cgstep_tiled.cu)
-// runs K1's tile passes instead.
-//
-// The TPU engine (effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py,
-// cgstep_tiled.py) streamed the fine level in row bands of full width with
-// HALO = 8 overlapping rows, because a band had to fit VMEM.  Here each
-// block owns a 2D tile of TY x TX output cells and stages a window of the
-// tile plus a halo of h = nu + 2 cells on all four sides in shared memory.
-// Every stencil step is then computed over the whole window from values in
-// shared memory; a step reads one neighbour, so each step leaves one more
-// ring at the window's edge invalid, and h rings cover the deepest chain a
-// pass runs (pass B: q, then nu - 1 sweeps, then the residual: nu + 1).
-// That is the TPU kernel's own idea -- all nu sweeps of a leg in one pass
-// over device memory -- carried to a 2D tile.
+// Device code of the row-sharded engine's K9 (cgstep_sharded.cu): its three
+// passes stage a shard's windows -- a TY x TX tile plus a halo of h = nu + 2
+// cells on all four sides, read through the shard's halo strips (Rows, at
+// the end of this file) -- in shared memory and compute every stencil step
+// over the whole window from there; a step reads one neighbour, so each
+// step leaves one more ring at the window's edge invalid, and h rings cover
+// the deepest chain a pass runs (pass B: q, then nu - 1 sweeps, then the
+// residual: nu + 1).  That is the TPU kernel's own idea -- all nu sweeps of
+// a leg in one pass over device memory -- carried to a 2D tile.  K4 and K8,
+// which began on these bodies, run K2's level passes now
+// (levelpass2d.cuh); K5 runs K1's tile passes.
 //
 // Bounds on an H100: memory bandwidth.  A pass reads its input planes once
 // (plus the halo, (1 + 2h/32)^2 - 1 ~ 56% at nu = 2, mostly served by L2)
@@ -24,8 +18,8 @@
 // included), which is what the whole-plane plain versions see through their
 // zero-padded shifts: the boundary couplings are 0, so the window sums equal
 // the plain version's bit for bit on the valid region.  Arithmetic follows
-// the plain versions (ops/kernels/vcycle_tiled.py, cgstep_tiled.py) operation
-// for operation; the build turns FMA contraction off.
+// the plain versions (ops/kernels/cgstep_sharded.py) operation for
+// operation; the build turns FMA contraction off.
 #pragma once
 
 #include "vcycle.cuh"
@@ -51,19 +45,6 @@ inline Weights make_weights(const double* ws, int nu) {
   return out;
 }
 
-// Level 0 of a (B, py, px) batch: the stored planes, or (d != nullptr) the
-// diffusivity field from which the kernels rebuild them (matrix-free).
-template <typename T>
-struct Fine {
-  const T* aw;
-  const T* an;
-  const T* dinv;
-  const T* d;
-  T fx, fy, bcf;   // assembly factors of the unpadded grid
-  int nxr;         // unpadded width: the Dirichlet columns are 0 and nxr - 1
-  int py, px;
-};
-
 struct Tile {
   int py, px;      // the plane
   int ty0, tx0;    // first output cell
@@ -78,12 +59,9 @@ inline int tiles_for(int py, int px) {
 
 inline size_t win_cells(int h) { return (size_t)(TY + 2 * h) * (TX + 2 * h); }
 
-// Dynamic shared memory of a kernel holding `planes` windows, plus the
-// one-cell-wider D window when matrix-free.
-inline size_t tile_smem(int planes, int h, bool mf, size_t item) {
-  size_t cells = planes * win_cells(h);
-  if (mf) cells += (size_t)(TY + 2 * h + 2) * (TX + 2 * h + 2);
-  return cells * item;
+// Dynamic shared memory of a kernel holding `planes` windows.
+inline size_t tile_smem(int planes, int h, size_t item) {
+  return planes * win_cells(h) * item;
 }
 
 __device__ __forceinline__ Tile make_tile(int py, int px, int h) {
@@ -99,61 +77,6 @@ __device__ __forceinline__ Tile make_tile(int py, int px, int h) {
   t.i0 = t.ty0 - h;
   t.j0 = t.tx0 - h;
   return t;
-}
-
-// The window of plane `g` widened by m extra cells a side; 0 off the plane.
-template <typename T>
-__device__ void load_window(T* s, const T* __restrict__ g, const Tile& t,
-                            int m) {
-  const int wx = t.wx + 2 * m;
-  const int n = (t.wy + 2 * m) * wx;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const int wi = c / wx, wj = c - wi * wx;
-    const int gi = t.i0 - m + wi, gj = t.j0 - m + wj;
-    s[c] = (gi >= 0 && gi < t.py && gj >= 0 && gj < t.px)
-               ? g[(size_t)gi * t.px + gj]
-               : T(0);
-  }
-}
-
-// Guarded product-form harmonic mean (2a) b / (a + b), 0 where a + b <= 0.
-template <typename T>
-__device__ __forceinline__ T hmean(T a, T b) {
-  const T s = a + b;
-  return s > T(0) ? ((T(2) * a) * b) / s : T(0);
-}
-
-// Level-0 windows AW, AN, DI: loaded (stored), or rebuilt from D term for
-// term as coeffs_from_d does (matrix-free; Dw is the D window's scratch).
-// The caller synchronises before reading them.
-template <typename T>
-__device__ void coeff_windows(const Fine<T>& f, size_t off, const Tile& t,
-                              T* AW, T* AN, T* DI, T* Dw) {
-  if (f.d == nullptr) {
-    load_window(AW, f.aw + off, t, 0);
-    load_window(AN, f.an + off, t, 0);
-    load_window(DI, f.dinv + off, t, 0);
-    return;
-  }
-  load_window(Dw, f.d + off, t, 1);
-  __syncthreads();
-  const int dx = t.wx + 2;
-  const int n = t.wy * t.wx;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const int wi = c / t.wx, wj = c - wi * t.wx;
-    const int dc = (wi + 1) * dx + wj + 1;
-    const T dcc = Dw[dc];
-    const T aw = hmean(Dw[dc - 1], dcc) * f.fx;
-    const T ae = hmean(dcc, Dw[dc + 1]) * f.fx;
-    const T an = hmean(Dw[dc - dx], dcc) * f.fy;
-    const T as = hmean(dcc, Dw[dc + dx]) * f.fy;
-    T diag = ((aw + ae) + an) + as;
-    const int gj = t.j0 + wj;
-    diag = diag + ((gj == 0 || gj == f.nxr - 1) ? dcc * f.bcf : T(0));
-    AW[c] = aw;
-    AN[c] = an;
-    DI[c] = diag > T(0) ? T(1) / diag : T(0);
-  }
 }
 
 // Neighbour sum of the symmetric stencil inside the window, in the plain
@@ -225,35 +148,6 @@ __device__ void restrict_tile(const T* AW, const T* AN, const T* DI,
   }
 }
 
-// T2: e = e_pre + over ec[i/2, j/2] on the window (0 off the plane), then
-// the sweeps in reverse order; R must be complete.  Returns the plane that
-// holds z, synchronised.
-template <typename T>
-__device__ T* post_smooth(const T* AW, const T* AN, const T* DI, const T* R,
-                          T* E0, T* E1, const T* __restrict__ e_pre,
-                          const T* __restrict__ ec, T over, const Weights& ws,
-                          const Tile& t) {
-  const int pxc = t.px / 2;
-  const int n = t.wy * t.wx;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    const int wi = c / t.wx, wj = c - wi * t.wx;
-    const int gi = t.i0 + wi, gj = t.j0 + wj;
-    E0[c] = (gi >= 0 && gi < t.py && gj >= 0 && gj < t.px)
-                ? e_pre[(size_t)gi * t.px + gj] +
-                      over * ec[(size_t)(gi >> 1) * pxc + (gj >> 1)]
-                : T(0);
-  }
-  __syncthreads();
-  T* cur = E0;
-  T* oth = E1;
-  for (int s = ws.nu - 1; s >= 0; --s) {
-    sweep_window(AW, AN, DI, R, cur, oth, (T)ws.w[s], (T)(1.0 - ws.w[s]), t);
-    __syncthreads();
-    T* tmp = cur; cur = oth; oth = tmp;
-  }
-  return cur;
-}
-
 // Copy the tile's output cells of window plane S to the image plane g.
 template <typename T>
 __device__ void store_interior(T* __restrict__ g, const T* S, const Tile& t) {
@@ -266,7 +160,7 @@ __device__ void store_interior(T* __restrict__ g, const T* S, const Tile& t) {
 }
 
 // ---------------------------------------------------------------- shards
-// A row shard of a larger plane (K8 and K9, the sharded engine): its own
+// A row shard of a larger plane (K9, the sharded engine): its own
 // (B, py, px) block plus the halo strips exchanged from its neighbours,
 // `sh` rows each, per image: north holds rows -sh..-1, south rows
 // py..py+sh-1 (zeros at the global top and bottom).  A window row in one

@@ -9,19 +9,11 @@
 // latency (launches, barriers) at the bottom.  So the residency comes back
 // in two regimes:
 //
-//   DOWN (each level l above the bottom): a tile of level l and a halo of
-//     nu cells (rounded up to even) staged in shared memory by cp.async (r,
-//     a_w, a_n, diag_inv); each thread owns 2x2 blocks of the window with
-//     their coefficients and values in registers, so a stencil reads two
-//     neighbours from shared memory and two from its own block.  e0 = w0
-//     dinv r and the nu - 1 sweeps on the window (sweep s valid on the halo
-//     of nu - s), then the residual r - A e and its 2x2 restriction inside
-//     each block of the tile.  Writes e and the quarter plane: ~21 B a cell
-//     in fp32 (16 read, 4 + 1 written).
-//   UP (the same levels, in reverse): e, r, the coefficients and the coarse
-//     correction under the window (one coarse cell a block) staged; the
-//     prolongation e + over P e_c in registers, then the nu post-sweeps, the
-//     last on the tile.  Writes the correction: ~25 B a cell.
+//   DOWN and UP (each level l above the bottom): the level passes of
+//     levelpass2d.cuh in K2's sweep form, a tile and its halo in shared
+//     memory and 2x2 blocks in registers; DOWN writes e and the quarter
+//     plane (~21 B a cell in fp32: 16 read, 4 + 1 written), UP the
+//     correction (~25 B a cell).
 //   BOTTOM (the levels from cycle_resident_from down): one CTA per image
 //     loads a_w, a_n, diag_inv of every level and the first level's right-
 //     hand side into shared memory, runs the down legs, the coarse sweeps
@@ -29,23 +21,17 @@
 //     first level's correction: one launch for the rest of the cycle.
 //
 // A level above the bottom costs 2 launches and ~46 B a cell (the per-sweep
-// kernels this replaces: nu + 2 launches and ~90 B a cell at nu = 2).  The
-// passes reach ~1.8-2 TB/s of their bytes on an H100; a first version that
-// read every stencil operand from shared memory (~35 accesses a cell
-// against the 2x2 blocks' ~15) and a 32x32 window reached ~1.6 (PERF.md).
-// A tile recomputes its halo's values in the plain version's order, as the
-// neighbouring tile computes them for its own cells, so every tile agrees
-// with the plain version bit for bit.  When even the coarsest level does
-// not fit one CTA, it runs its sweeps from global memory in one block per
-// image (coarse_solve_kernel).
-#include <type_traits>
-
-#include "vcycle.cuh"
+// kernels this replaces: nu + 2 launches and ~90 B a cell at nu = 2).  When
+// even the coarsest level does not fit one CTA, it runs its sweeps from
+// global memory in one block per image (coarse_solve_kernel).
+#include "levelpass2d.cuh"
+#include "window.cuh"
 
 namespace deff {
 
 long long g_launches = 0;
 long long g_cycles = 0;
+long long g_window_iters = 0;
 
 namespace {
 
@@ -54,8 +40,8 @@ namespace {
 // launches made from the host).
 __device__ unsigned long long g_image_cycles = 0;
 
-constexpr int LT_THREADS = 256;         // threads of a level pass
-constexpr int MAX_NU = 8;               // sweeps a leg the passes take
+using namespace lp;
+
 constexpr int BOT_THREADS = 1024;       // the resident bottom's CTA
 
 #define DEFF_TRY(...)                          \
@@ -63,338 +49,6 @@ constexpr int BOT_THREADS = 1024;       // the resident bottom's CTA
     cudaError_t _t = (__VA_ARGS__);            \
     if (_t != cudaSuccess) return _t;          \
   } while (0)
-
-// The window of a level pass: the tile and a halo of HS cells (nu rounded
-// up to even, so that the window is made of whole 2x2 blocks of the level
-// and each block lies on one coarse cell), two 2x2 blocks a thread.  For
-// nu <= 2 a 64x32 window around a 60x28 tile: of the shapes tried on the
-// card (32x32, 64x16, 64x32, 96x32, 128x16; 192 to 512 threads) the fastest
-// at B=512 x 512^2, its rows long enough for full DRAM bursts and its halo
-// a fifth of the tile.
-template <int NU>
-struct Geo {
-  static constexpr int HS = 2 * ((NU + 1) / 2);
-  static constexpr int WX = HS <= 2 ? 64 : 48;     // window width
-  static constexpr int WY = HS <= 2 ? 32 : 48;     // window height
-  static constexpr int TX = WX - 2 * HS, TY = WY - 2 * HS;  // the tile
-  static constexpr int N = WX * WY;
-  static constexpr int BX = WX / 2, BY = WY / 2, NB = BX * BY;  // 2x2 blocks
-  static constexpr int PER = (NB + LT_THREADS - 1) / LT_THREADS;
-};
-
-// The damping factors of one leg in T: w and 1 - w (taken in double, as the
-// plain version's Python floats are, then rounded).
-template <typename T>
-struct Sweeps {
-  T w[MAX_NU];
-  T omw[MAX_NU];
-  int nu;
-};
-
-template <typename T>
-Sweeps<T> make_sweeps(const double* ws, int nu) {
-  Sweeps<T> s{};
-  s.nu = nu;
-  for (int i = 0; i < nu && i < MAX_NU; ++i) {
-    s.w[i] = (T)ws[i];
-    s.omw[i] = (T)(1.0 - ws[i]);
-  }
-  return s;
-}
-
-// Stage a level plane's window with origin (y0, x0); cells beyond the grid
-// read as 0.
-template <int NU, typename T>
-__device__ __forceinline__ void stage(T* dst, const T* img, int y0, int x0,
-                                      int ny, int nx) {
-  using G = Geo<NU>;
-  for (int e = threadIdx.x; e < G::N; e += LT_THREADS) {
-    const int li = e / G::WX, lj = e - li * G::WX;
-    const int gi = y0 + li, gj = x0 + lj;
-    const bool ok = gi >= 0 && gi < ny && gj >= 0 && gj < nx;
-    cp_async(dst + e, ok ? img + (size_t)gi * nx + gj : img, ok);
-  }
-}
-
-// A thread's 2x2 block of the window: the window index of its top-left
-// cell, its level row and column, and the coefficients and right-hand side
-// of its four cells ([row][column]) in registers, with a_w east of its
-// right column and a_n south of its bottom row.
-template <typename T>
-struct Quad {
-  int e, gi, gj, bi, bj;
-  bool on;                       // the block index lies inside the window
-  T aw[2][2], an[2][2], di[2][2], r[2][2];
-  T awe[2], ans[2];
-};
-
-template <int NU, typename T>
-__device__ __forceinline__ void load_quad(Quad<T>& k, int q, int y0, int x0,
-                                          const T* rs, const T* aws,
-                                          const T* ans, const T* dis) {
-  using G = Geo<NU>;
-  k.on = q < G::NB;
-  k.bi = q / G::BX;
-  k.bj = q - k.bi * G::BX;
-  k.e = 2 * k.bi * G::WX + 2 * k.bj;
-  k.gi = y0 + 2 * k.bi;
-  k.gj = x0 + 2 * k.bj;
-  if (!k.on) return;
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int e = k.e + a * G::WX + b;
-      k.aw[a][b] = aws[e];
-      k.an[a][b] = ans[e];
-      k.di[a][b] = dis[e];
-      k.r[a][b] = rs[e];
-    }
-  const bool east = 2 * k.bj + 2 < G::WX, south = 2 * k.bi + 2 < G::WY;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    k.awe[a] = east ? aws[k.e + a * G::WX + 2] : T(0);
-    k.ans[a] = south ? ans[k.e + 2 * G::WX + a] : T(0);
-  }
-}
-
-// nbsum (vcycle.cuh) at cell (a, b) of a block whose values are v, the
-// neighbours outside the block read from the window plane p: the same terms
-// in the same order, with the grid bounds taken from the level index (a
-// neighbour off the window reads 0; only cells in the invalid margin have
-// one).
-template <int NU, int A, int B, typename T>
-__device__ __forceinline__ T quad_nbsum(const Quad<T>& k, const T (&v)[2][2],
-                                        const T* p, int ny, int nx) {
-  constexpr int W = Geo<NU>::WX, H = Geo<NU>::WY;
-  const int e = k.e + A * W + B;
-  const int wi = 2 * k.bi + A, wj = 2 * k.bj + B;
-  const int gi = k.gi + A, gj = k.gj + B;
-  const T west = B == 1 ? v[A][0] : (wj > 0 ? p[e - 1] : T(0));
-  const T east = B == 0 ? v[A][1] : (wj + 1 < W ? p[e + 1] : T(0));
-  const T north = A == 1 ? v[0][B] : (wi > 0 ? p[e - W] : T(0));
-  const T south = A == 0 ? v[1][B] : (wi + 1 < H ? p[e + W] : T(0));
-  const T awe = B == 0 ? k.aw[A][1] : k.awe[A];
-  const T ans = A == 0 ? k.an[1][B] : k.ans[B];
-  T s = (gj > 0) ? k.aw[A][B] * west : T(0);
-  if (gj + 1 < nx) s = s + awe * east;
-  if (gi > 0) s = s + k.an[A][B] * north;
-  if (gi + 1 < ny) s = s + ans * south;
-  return s;
-}
-
-template <int NU, typename T>
-__device__ __forceinline__ void put(T* p, const Quad<T>& k,
-                                    const T (&v)[2][2]) {
-  constexpr int W = Geo<NU>::WX;
-  p[k.e] = v[0][0];
-  p[k.e + 1] = v[0][1];
-  p[k.e + W] = v[1][0];
-  p[k.e + W + 1] = v[1][1];
-}
-
-// One damped-Jacobi sweep of a block: v = (1 - w) v + (r + nbsum(v))
-// (w dinv), as smooth_kernel, the neighbours read from p.
-template <int NU, typename T>
-__device__ __forceinline__ void sweep_quad(const Quad<T>& k, T (&v)[2][2],
-                                           const T* p, T w, T omw, int ny,
-                                           int nx) {
-  T o[2][2];
-  o[0][0] = omw * v[0][0] + (k.r[0][0] + quad_nbsum<NU, 0, 0>(k, v, p, ny,
-                                                              nx)) *
-                                (w * k.di[0][0]);
-  o[0][1] = omw * v[0][1] + (k.r[0][1] + quad_nbsum<NU, 0, 1>(k, v, p, ny,
-                                                              nx)) *
-                                (w * k.di[0][1]);
-  o[1][0] = omw * v[1][0] + (k.r[1][0] + quad_nbsum<NU, 1, 0>(k, v, p, ny,
-                                                              nx)) *
-                                (w * k.di[1][0]);
-  o[1][1] = omw * v[1][1] + (k.r[1][1] + quad_nbsum<NU, 1, 1>(k, v, p, ny,
-                                                              nx)) *
-                                (w * k.di[1][1]);
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 2; ++b) v[a][b] = o[a][b];
-}
-
-// The residual r - (diag v - nbsum(v)) of cell (A, B), diag = 1/dinv.
-template <int NU, int A, int B, typename T>
-__device__ __forceinline__ T quad_res(const Quad<T>& k, const T (&v)[2][2],
-                                      const T* p, int ny, int nx) {
-  return k.r[A][B] - (diag_of(k.di[A][B]) * v[A][B] -
-                      quad_nbsum<NU, A, B>(k, v, p, ny, nx));
-}
-
-// The tiles of a DOWN pass along one axis (tile width t): they cover the
-// coarse plane (t/2 coarse cells each) and the fine one.
-inline int down_tiles(int t, int n, int nc) {
-  const int a = (nc + t / 2 - 1) / (t / 2), b = (n + t - 1) / t;
-  return a > b ? a : b;
-}
-
-// ---- DOWN: e0 = w0 dinv r and nu - 1 sweeps on the window (sweep s valid
-// on the tile and a halo of HS - s cells), then the residual restricted 2x2
-// into rc (the next level, nyc x nxc; a coarse cell past the fine grid
-// receives 0).  Each sweep's values go to a window plane for the
-// neighbouring blocks, ping-ponging between two.
-template <typename T, int NU>
-__global__ void __launch_bounds__(LT_THREADS)
-level_down_kernel(Level<T> lv, const T* __restrict__ r, T* __restrict__ e_out,
-                  T* __restrict__ rc, int nyc, int nxc, int ntx, Sweeps<T> ws,
-                  const int* flag) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  if (gated_off(flag)) return;
-  using G = Geo<NU>;
-  T* rs = reinterpret_cast<T*>(smem_raw);
-  T* aws = rs + G::N;
-  T* ans = aws + G::N;
-  T* dis = ans + G::N;
-  T* pv[2] = {dis + G::N, dis + 2 * G::N};
-  const int ny = lv.ny, nx = lv.nx;
-  const size_t off = (size_t)blockIdx.y * ny * nx;
-  const int ty = blockIdx.x / ntx, tx = blockIdx.x - ty * ntx;
-  const int I0 = ty * (G::TY / 2), J0 = tx * (G::TX / 2);
-  const int y0 = 2 * I0 - G::HS, x0 = 2 * J0 - G::HS;
-  stage<NU>(rs, r + off, y0, x0, ny, nx);
-  stage<NU>(aws, lv.aw + off, y0, x0, ny, nx);
-  stage<NU>(ans, lv.an + off, y0, x0, ny, nx);
-  stage<NU>(dis, lv.dinv + off, y0, x0, ny, nx);
-  cp_async_wait();
-  Quad<T> k[G::PER];
-  T v[G::PER][2][2];
-  const T w0 = ws.w[0];
-#pragma unroll
-  for (int p = 0; p < G::PER; ++p) {
-    load_quad<NU>(k[p], threadIdx.x + p * LT_THREADS, y0, x0, rs, aws, ans,
-                  dis);
-    if (!k[p].on) continue;
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-        v[p][a][b] = (w0 * k[p].di[a][b]) * k[p].r[a][b];
-    put<NU>(pv[0], k[p], v[p]);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 1; s < NU; ++s) {
-#pragma unroll
-    for (int p = 0; p < G::PER; ++p)
-      if (k[p].on)
-        sweep_quad<NU>(k[p], v[p], pv[(s - 1) & 1], ws.w[s], ws.omw[s], ny,
-                       nx);
-#pragma unroll
-    for (int p = 0; p < G::PER; ++p)
-      if (k[p].on) put<NU>(pv[s & 1], k[p], v[p]);
-    __syncthreads();
-  }
-  const T* pe = pv[(NU - 1) & 1];
-  constexpr int R = G::HS / 2;                     // blocks of the halo
-#pragma unroll
-  for (int p = 0; p < G::PER; ++p) {
-    const Quad<T>& q = k[p];
-    const int tbi = q.bi - R, tbj = q.bj - R;
-    if (!q.on || tbi < 0 || tbj < 0 || tbi >= G::TY / 2 || tbj >= G::TX / 2)
-      continue;
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-        if (q.gi + a < ny && q.gj + b < nx)
-          e_out[off + (size_t)(q.gi + a) * nx + q.gj + b] = v[p][a][b];
-    const int I = I0 + tbi, J = J0 + tbj;
-    if (I >= nyc || J >= nxc) continue;
-    T out = T(0);
-    if (2 * I < ny && 2 * J < nx)
-      out = (quad_res<NU, 0, 0>(q, v[p], pe, ny, nx) +
-             quad_res<NU, 1, 0>(q, v[p], pe, ny, nx)) +
-            (quad_res<NU, 0, 1>(q, v[p], pe, ny, nx) +
-             quad_res<NU, 1, 1>(q, v[p], pe, ny, nx));
-    rc[(size_t)blockIdx.y * nyc * nxc + (size_t)I * nxc + J] = out;
-  }
-}
-
-// ---- UP: src = es + over ec[i/2, j/2] on the window (one coarse cell a
-// block), the nu post-sweeps in reverse weight order (sweep s valid on the
-// tile and a halo of HS - s cells), the tile's correction into out.
-template <typename T, int NU>
-__global__ void __launch_bounds__(LT_THREADS)
-level_up_kernel(Level<T> lv, const T* __restrict__ es,
-                const T* __restrict__ ec, int nyc, int nxc, T over,
-                const T* __restrict__ rhs, T* __restrict__ out, int ntx,
-                Sweeps<T> ws, const int* flag) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  if (gated_off(flag)) return;
-  using G = Geo<NU>;
-  T* rs = reinterpret_cast<T*>(smem_raw);
-  T* aws = rs + G::N;
-  T* ans = aws + G::N;
-  T* dis = ans + G::N;
-  T* pv[2] = {dis + G::N, dis + 2 * G::N};
-  T* ecs = dis + 3 * G::N;                         // BX x BX coarse cells
-  const int ny = lv.ny, nx = lv.nx;
-  const size_t off = (size_t)blockIdx.y * ny * nx;
-  const int ty = blockIdx.x / ntx, tx = blockIdx.x - ty * ntx;
-  const int y0 = ty * G::TY - G::HS, x0 = tx * G::TX - G::HS;
-  const int cy0 = y0 / 2, cx0 = x0 / 2;            // y0, x0 are even
-  stage<NU>(pv[1], es + off, y0, x0, ny, nx);      // e, read once
-  stage<NU>(rs, rhs + off, y0, x0, ny, nx);
-  stage<NU>(aws, lv.aw + off, y0, x0, ny, nx);
-  stage<NU>(ans, lv.an + off, y0, x0, ny, nx);
-  stage<NU>(dis, lv.dinv + off, y0, x0, ny, nx);
-  const T* cb = ec + (size_t)blockIdx.y * nyc * nxc;
-  for (int e = threadIdx.x; e < G::NB; e += LT_THREADS) {
-    const int a = e / G::BX, bcol = e - a * G::BX;
-    const int I = cy0 + a, J = cx0 + bcol;
-    const bool ok = I >= 0 && I < nyc && J >= 0 && J < nxc;
-    cp_async(ecs + e, ok ? cb + (size_t)I * nxc + J : cb, ok);
-  }
-  cp_async_wait();
-  Quad<T> k[G::PER];
-  T v[G::PER][2][2];
-#pragma unroll
-  for (int p = 0; p < G::PER; ++p) {
-    const int q = threadIdx.x + p * LT_THREADS;
-    load_quad<NU>(k[p], q, y0, x0, rs, aws, ans, dis);
-    if (!k[p].on) continue;
-    const T c = over * ecs[q];
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-        v[p][a][b] = pv[1][k[p].e + a * G::WX + b] + c;
-    put<NU>(pv[0], k[p], v[p]);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int s = 1; s <= NU; ++s) {
-#pragma unroll
-    for (int p = 0; p < G::PER; ++p)
-      if (k[p].on)
-        sweep_quad<NU>(k[p], v[p], pv[(s - 1) & 1], ws.w[NU - s],
-                       ws.omw[NU - s], ny, nx);
-    if (s == NU) break;
-#pragma unroll
-    for (int p = 0; p < G::PER; ++p)
-      if (k[p].on) put<NU>(pv[s & 1], k[p], v[p]);
-    __syncthreads();
-  }
-  constexpr int R = G::HS / 2;
-#pragma unroll
-  for (int p = 0; p < G::PER; ++p) {
-    const Quad<T>& q = k[p];
-    const int tbi = q.bi - R, tbj = q.bj - R;
-    if (!q.on || tbi < 0 || tbj < 0 || tbi >= G::TY / 2 || tbj >= G::TX / 2)
-      continue;
-#pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < 2; ++b)
-        if (q.gi + a < ny && q.gj + b < nx)
-          out[off + (size_t)(q.gi + a) * nx + q.gj + b] = v[p][a][b];
-  }
-}
 
 // ---- BOTTOM: the rest of the cycle from its first level, one CTA per image
 // (blockIdx.y) with the pyramid in shared memory.
@@ -596,48 +250,6 @@ __global__ void coarse_solve_kernel(Level<T> lv, const T* __restrict__ rhs,
 
 // ---- launches
 
-// Call f(std::integral_constant<int, nu>) for nu in 1..MAX_NU.
-template <int NU = 1, typename F>
-cudaError_t with_nu(int nu, F&& f) {
-  if constexpr (NU > MAX_NU) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (nu == NU) return f(std::integral_constant<int, NU>{});
-    return with_nu<NU + 1>(nu, f);
-  }
-}
-
-template <typename T, int NU>
-cudaError_t launch_down(int B, const Level<T>& lv, const T* r, T* e, T* rc,
-                        int nyc, int nxc, const Sweeps<T>& sw,
-                        const int* flag, cudaStream_t st) {
-  static unsigned done = 0;
-  const size_t sm = sizeof(T) * 6 * Geo<NU>::N;
-  auto kern = level_down_kernel<T, NU>;
-  DEFF_TRY(allow_smem(kern, sm, &done));
-  const int ntx = down_tiles(Geo<NU>::TX, lv.nx, nxc);
-  const int tiles = down_tiles(Geo<NU>::TY, lv.ny, nyc) * ntx;
-  DEFF_LAUNCH(kern<<<dim3(tiles, B), LT_THREADS, sm, st>>>(
-      lv, r, e, rc, nyc, nxc, ntx, sw, flag));
-  return cudaSuccess;
-}
-
-template <typename T, int NU>
-cudaError_t launch_up(int B, const Level<T>& lv, const T* es, const T* ec,
-                      int nyc, int nxc, T over, const T* rhs, T* out,
-                      const Sweeps<T>& sw, const int* flag, cudaStream_t st) {
-  static unsigned done = 0;
-  const size_t sm = sizeof(T) * (6 * Geo<NU>::N + Geo<NU>::NB);
-  auto kern = level_up_kernel<T, NU>;
-  DEFF_TRY(allow_smem(kern, sm, &done));
-  using G = Geo<NU>;
-  const int ntx = (lv.nx + G::TX - 1) / G::TX;
-  const int tiles = ((lv.ny + G::TY - 1) / G::TY) * ntx;
-  DEFF_LAUNCH(kern<<<dim3(tiles, B), LT_THREADS, sm, st>>>(
-      lv, es, ec, nyc, nxc, over, rhs, out, ntx, sw, flag));
-  return cudaSuccess;
-}
-
 template <typename T>
 cudaError_t launch_bottom(int B, int n, const Level<T>* lv, const T* r, T* z,
                           const Sweeps<T>& sw, T over, int iters,
@@ -696,7 +308,7 @@ cudaError_t cycle_from(int B, int L, const Level<T>* lv, int l0, const T* r,
   const int top = lb < L ? lb : L - 1;   // the first level not in passes
   for (int l = l0; l < top; ++l)
     DEFF_TRY(with_nu(nu, [&](auto k) {
-      return launch_down<T, decltype(k)::value>(
+      return launch_down<T, decltype(k)::value, K2Level>(
           B, lv[l], rhs(l), E[l], R[l + 1], ny[l + 1], nx[l + 1], sw, flag,
           st);
     }));
@@ -711,7 +323,7 @@ cudaError_t cycle_from(int B, int L, const Level<T>* lv, int l0, const T* r,
   }
   for (int l = top - 1; l >= l0; --l)
     DEFF_TRY(with_nu(nu, [&](auto k) {
-      return launch_up<T, decltype(k)::value>(
+      return launch_up<T, decltype(k)::value, K2Level>(
           B, lv[l], E[l], cor(l + 1), ny[l + 1], nx[l + 1], tover, rhs(l),
           cor(l), sw, flag, st);
     }));
@@ -763,6 +375,9 @@ int deff_cycle_resident_from(int L, const int* ny, const int* nx,
 long long deff_launch_count() { return deff::g_launches; }
 
 long long deff_cycle_count() { return deff::g_cycles; }
+
+// Iterations launched by the K1, K5 and K7 windows (window.cuh).
+long long deff_window_iter_count() { return deff::g_window_iters; }
 
 // The device count of image cycles (see g_image_cycles) on the current
 // device; synchronises with it.  -1 if the read fails.

@@ -1,120 +1,68 @@
-// K4: the level-0 legs of the banded V-cycle for fine grids past the
-// whole-cycle engine's size, loaded with ctypes by
-// effectivediffusivityfvm_tpu_torch/ops/kernels/vcycle_tiled.py, which runs
-// T1, then the coarse tail (K2 on levels[1:]), then T2.
+// K4: the banded V-cycle for fine grids past the whole-cycle engine's size,
+// loaded with ctypes by effectivediffusivityfvm_tpu_torch/ops/kernels/
+// vcycle_tiled.py: T1 on level 0, the coarse tail (K2's cycle from level 1)
+// and T2, from one entry.
 //
 // Replaces effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py
-// (v_cycle_tiled: _pre_kernel, _post_kernel).  The TPU's 0/1 selection
-// matmuls become a direct 2x2 sum (restriction) and a direct e_c[i/2, j/2]
-// read (prolongation); its row bands become 2D tiles (tiled.cuh).
+// (v_cycle_tiled: _pre_kernel, _post_kernel, coarse_tail).  The TPU's 0/1
+// selection matmuls become a direct 2x2 sum (restriction) and a direct
+// e_c[i/2, j/2] read (prolongation); its row bands become K2's level passes
+// (levelpass2d.cuh) in the banded sweep form (1 - w) e + (w (r + nbsum))
+// dinv: T1 is the DOWN pass (pre-smoothing, residual, restriction into
+// level 1's right-hand side), T2 the UP pass (prolongation, add,
+// post-smoothing).
 //
 // Bounds on an H100: memory bandwidth.  T1 reads r, a_w, a_n, diag_inv and
-// writes e and the quarter-size coarse residual (fp32: 24.5 B a cell); T2
-// reads e, r, the three coefficient planes and a quarter-size e_c and writes
-// z (28.5 B a cell).  The nu sweeps of each leg run in shared memory, so a
-// leg costs one pass over device memory whatever nu is.
+// writes e and the quarter-size coarse residual (fp32: ~21 B a cell with
+// the halo); T2 reads e, r, the three coefficient planes and a quarter-size
+// e_c and writes z (~25 B a cell).  The nu sweeps of each leg run on the
+// tile's window, so a leg costs one pass over device memory whatever nu is.
 //
-// Every entry launches on the caller's stream, allocates nothing, does not
-// synchronise, and returns the cudaError_t of its launch.
-#include "tiled.cuh"
+// The entry launches on the caller's stream, allocates nothing, does not
+// synchronise, and returns the cudaError_t of its launches.
+#include "levelpass2d.cuh"
 
 namespace deff {
 namespace {
 
-// T1: pre-smoothing, residual and restriction, one tile per block.
-template <typename T>
-__global__ void __launch_bounds__(TILE_THREADS)
-tiled_pre_kernel(Fine<T> f, const T* __restrict__ r, T* __restrict__ e,
-                 T* __restrict__ rc, Weights ws, int h) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);
-  const Tile t = make_tile(f.py, f.px, h);
-  const int n = t.wy * t.wx;
-  T *AW = S, *AN = S + n, *DI = S + 2 * n, *R = S + 3 * n;
-  T *E0 = S + 4 * n, *E1 = S + 5 * n, *Dw = S + 6 * n;
-  const size_t off = (size_t)blockIdx.y * f.py * f.px;
-  coeff_windows(f, off, t, AW, AN, DI, Dw);
-  load_window(R, r + off, t, 0);
-  __syncthreads();
-  const T* E = pre_smooth(AW, AN, DI, R, E0, E1, ws, t);
-  store_interior(e + off, E, t);
-  restrict_tile(AW, AN, DI, R, E, t,
-                rc + (size_t)blockIdx.y * (f.py / 2) * (f.px / 2));
-}
+using namespace lp;
 
-// T2: prolongation, add, post-smoothing, one tile per block.
-template <typename T>
-__global__ void __launch_bounds__(TILE_THREADS)
-tiled_post_kernel(Fine<T> f, const T* __restrict__ e,
-                  const T* __restrict__ r, const T* __restrict__ ec,
-                  T* __restrict__ z, T over, Weights ws, int h) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);
-  const Tile t = make_tile(f.py, f.px, h);
-  const int n = t.wy * t.wx;
-  T *AW = S, *AN = S + n, *DI = S + 2 * n, *R = S + 3 * n;
-  T *E0 = S + 4 * n, *E1 = S + 5 * n, *Dw = S + 6 * n;
-  const size_t off = (size_t)blockIdx.y * f.py * f.px;
-  coeff_windows(f, off, t, AW, AN, DI, Dw);
-  load_window(R, r + off, t, 0);
-  const T* Z = post_smooth(AW, AN, DI, R, E0, E1, e + off,
-                           ec + (size_t)blockIdx.y * (f.py / 2) * (f.px / 2),
-                           over, ws, t);
-  store_interior(z + off, Z, t);
+// Scratch per image: K2's cycle scratch over the whole hierarchy (its
+// level-0 e plane holds T1's e, its level-1 right-hand side T1's
+// restriction) and level 1's correction.
+long long tiled_scratch_elems(int L, const int* ny, const int* nx) {
+  return cycle_scratch_elems(L, ny, nx) + (long long)ny[1] * nx[1];
 }
 
 template <typename T>
-Fine<T> stored_fine(int py, int px, const void* aw, const void* an,
-                    const void* dinv) {
-  Fine<T> f{};
-  f.aw = static_cast<const T*>(aw);
-  f.an = static_cast<const T*>(an);
-  f.dinv = static_cast<const T*>(dinv);
-  f.d = nullptr;
-  f.py = py;
-  f.px = px;
-  return f;
-}
-
-bool bad_shape(int B, int py, int px, int nu) {
-  return B < 1 || py < 2 || px < 2 || py % 2 || px % 2 || nu < 1 ||
-         nu > MAX_NU;
-}
-
-template <typename T>
-int pre_entry(int B, int py, int px, const void* aw, const void* an,
-              const void* dinv, const void* r, void* e, void* rc,
-              const double* ws, int nu, void* stream) {
-  if (bad_shape(B, py, px, nu)) return cudaErrorInvalidValue;
-  const Fine<T> f = stored_fine<T>(py, px, aw, an, dinv);
-  const int h = nu + 2;
-  const size_t smem = tile_smem(6, h, false, sizeof(T));
-  cudaError_t err = allow_smem(tiled_pre_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  DEFF_LAUNCH(tiled_pre_kernel<T><<<dim3(tiles_for(py, px), B), TILE_THREADS,
-                                    smem, static_cast<cudaStream_t>(stream)>>>(
-      f, static_cast<const T*>(r), static_cast<T*>(e), static_cast<T*>(rc),
-      make_weights(ws, nu), h));
-  return cudaSuccess;
-}
-
-template <typename T>
-int post_entry(int B, int py, int px, const void* aw, const void* an,
-               const void* dinv, const void* e, const void* r, const void* ec,
-               void* z, const double* ws, int nu, double over, void* stream) {
-  if (bad_shape(B, py, px, nu)) return cudaErrorInvalidValue;
-  const Fine<T> f = stored_fine<T>(py, px, aw, an, dinv);
-  const int h = nu + 2;
-  const size_t smem = tile_smem(6, h, false, sizeof(T));
-  cudaError_t err = allow_smem(tiled_post_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  DEFF_LAUNCH(tiled_post_kernel<T><<<dim3(tiles_for(py, px), B),
-                                     TILE_THREADS, smem,
-                                     static_cast<cudaStream_t>(stream)>>>(
-      f, static_cast<const T*>(e), static_cast<const T*>(r),
-      static_cast<const T*>(ec), static_cast<T*>(z), (T)over,
-      make_weights(ws, nu), h));
-  return cudaSuccess;
+int cycle_entry(int B, int L, const int* ny, const int* nx,
+                const void* const* aw, const void* const* an,
+                const void* const* dinv, const void* r_, void* z_,
+                void* scratch_, const double* ws, int nu, int coarse_iters,
+                double over, void* stream) {
+  Level<T> lv[MAX_LEVELS];
+  if (!fill_levels<T>(L, ny, nx, aw, an, dinv, lv) || L < 2 || B < 1 ||
+      B > 65535 || nu < 1 || nu > MAX_NU || ny[0] % 2 || nx[0] % 2 ||
+      ny[1] != ny[0] / 2 || nx[1] != nx[0] / 2)
+    return cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const T* r = static_cast<const T*>(r_);
+  T* z = static_cast<T*>(z_);
+  T* scratch = static_cast<T*>(scratch_);
+  const long long n0 = (long long)ny[0] * nx[0];
+  T* e0 = scratch;                                  // the cycle's E[0]
+  T* r1 = scratch + 2 * B * n0;                     // the cycle's R[1]
+  T* ec = scratch + B * cycle_scratch_elems(L, ny, nx);
+  const Sweeps<T> sw = make_sweeps<T>(ws, nu);
+  return with_nu(nu, [&](auto k) -> cudaError_t {
+    constexpr int NU = decltype(k)::value;
+    DEFF_LP_TRY((launch_down<T, NU, BandedLeg>(B, lv[0], r, e0, r1, ny[1],
+                                                  nx[1], sw, nullptr, st)));
+    DEFF_LP_TRY(cycle_from<T>(B, L, lv, 1, r1, ec, scratch, ws, nu,
+                              coarse_iters, over, nullptr, st));
+    return launch_up<T, NU, BandedLeg>(B, lv[0], e0, ec, ny[1], nx[1],
+                                         (T)over, r, z, sw, nullptr, st);
+  });
 }
 
 }  // namespace
@@ -122,24 +70,24 @@ int post_entry(int B, int py, int px, const void* aw, const void* an,
 
 extern "C" {
 
-#define DEFF_TILED_ENTRIES(SUF, T)                                            \
-  int deff_tiled_pre_##SUF(int B, int py, int px, const void* aw,             \
-                           const void* an, const void* dinv, const void* r,   \
-                           void* e, void* rc, const double* ws, int nu,       \
-                           void* stream) {                                    \
-    return deff::pre_entry<T>(B, py, px, aw, an, dinv, r, e, rc, ws, nu,      \
-                              stream);                                        \
-  }                                                                           \
-  int deff_tiled_post_##SUF(int B, int py, int px, const void* aw,            \
-                            const void* an, const void* dinv, const void* e,  \
-                            const void* r, const void* ec, void* z,           \
-                            const double* ws, int nu, double over,            \
-                            void* stream) {                                   \
-    return deff::post_entry<T>(B, py, px, aw, an, dinv, e, r, ec, z, ws, nu,  \
-                               over, stream);                                 \
+long long deff_cycle_tiled_scratch_elems(int L, const int* ny,
+                                         const int* nx) {
+  if (L < 2 || L > deff::MAX_LEVELS) return -1;
+  return deff::tiled_scratch_elems(L, ny, nx);
+}
+
+#define DEFF_TILED_ENTRY(SUF, T)                                              \
+  int deff_v_cycle_tiled_##SUF(int B, int L, const int* ny, const int* nx,    \
+                               const void* const* aw, const void* const* an,  \
+                               const void* const* dinv, const void* r,        \
+                               void* z, void* scratch, const double* ws,      \
+                               int nu, int coarse_iters, double over,         \
+                               void* stream) {                                \
+    return deff::cycle_entry<T>(B, L, ny, nx, aw, an, dinv, r, z, scratch,    \
+                                ws, nu, coarse_iters, over, stream);          \
   }
 
-DEFF_TILED_ENTRIES(f32, float)
-DEFF_TILED_ENTRIES(f64, double)
+DEFF_TILED_ENTRY(f32, float)
+DEFF_TILED_ENTRY(f64, double)
 
 }  // extern "C"

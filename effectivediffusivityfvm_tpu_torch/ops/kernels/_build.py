@@ -46,6 +46,8 @@ _ENTRIES = {
     "deff_cycle_resident_from": ([_I, _P, _P, _I], _I),
     "deff_cg_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
     "deff_cg_tiled_scratch_elems": ([_I, _P, _P, _I], ctypes.c_longlong),
+    "deff_cycle_tiled_scratch_elems": ([_I, _P, _P], ctypes.c_longlong),
+    "deff_window_iter_count": ([], ctypes.c_longlong),
     "deff_launch_count": ([], ctypes.c_longlong),
     "deff_cycle_count": ([], ctypes.c_longlong),
     "deff_image_cycle_count": ([], ctypes.c_longlong),
@@ -57,17 +59,20 @@ _ENTRIES = {
     "deff_march3_level_seg_len": ([_I, _I, _I, _I], _I),
     "deff_march3_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
     "deff_shard_tiles": ([_I, _I], _I),
+    "deff_shard_row_max": ([], _I),
 }
 for _t in ("f32", "f64"):
     # the sharded entries take their planes as one array of pointers (a
     # shard body and its north/south strips for each plane)
-    _ENTRIES[f"deff_shard_t1_{_t}"] = (
-        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
-         _P, _P, _P,                # planes[], e, coarse residual
+    # K8's row entries take per shard a table of pointers and one of image
+    # strides (ops/kernels/vcycle_sharded.py, ShardRow)
+    _ENTRIES[f"deff_shard_row_t1_{_t}"] = (
+        [_I, _I, _I, _I,            # shards, B, ny_local, nx
+         _P, _P,                    # pointer table, stride table
          _P, _I, _P], _I)           # ws[], nu, stream
-    _ENTRIES[f"deff_shard_t2_{_t}"] = (
-        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
-         _P, _P,                    # planes[], z
+    _ENTRIES[f"deff_shard_row_t2_{_t}"] = (
+        [_I, _I, _I, _I,            # shards, B, ny_local, nx
+         _P, _P,                    # pointer table, stride table
          _P, _I, _D, _P], _I)       # ws[], nu, over, stream
     _ENTRIES[f"deff_shard_abs_parts_{_t}"] = (
         [_I, _I, _I, _P, _P,        # B, ny_local, nx, r, partials
@@ -100,16 +105,12 @@ for _t in ("f32", "f64"):
          _P, _P, _P,                # r, z, scratch
          _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
          _P, _P], _I)               # flag (int32 per image, or null), stream
-    _ENTRIES[f"deff_tiled_pre_{_t}"] = (
-        [_I, _I, _I,                # B, py, px
-         _P, _P, _P,                # aw, an, dinv (level 0)
-         _P, _P, _P,                # r, e, coarse residual
-         _P, _I, _P], _I)           # ws[], nu, stream
-    _ENTRIES[f"deff_tiled_post_{_t}"] = (
-        [_I, _I, _I,                # B, py, px
-         _P, _P, _P,                # aw, an, dinv (level 0)
-         _P, _P, _P, _P,            # e, r, e_c, z
-         _P, _I, _D, _P], _I)       # ws[], nu, over, stream
+    _ENTRIES[f"deff_v_cycle_tiled_{_t}"] = (
+        [_I, _I, _P, _P,            # B, L, ny[], nx[]
+         _P, _P, _P,                # aw[], an[], dinv[] (pointer arrays)
+         _P, _P, _P,                # r, z, scratch
+         _P, _I, _I, _D,            # ws[], nu, coarse_iters, over
+         _P], _I)                   # stream
     _ENTRIES[f"deff_cg_steps_tiled_{_t}"] = (
         [_I, _I, _P, _P,            # B, L, ny[], nx[]
          _P, _P, _P,                # aw[], an[], dinv[] (pointer arrays)

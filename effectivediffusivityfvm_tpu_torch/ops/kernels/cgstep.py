@@ -20,6 +20,15 @@ same per image:
 ``1/diag_inv``, exactly as inside the cycle.  Both versions update ``x``,
 ``r`` and ``p`` in place (saving three batch-sized planes per call) and
 return them.
+
+The window ends at the first iteration that starts with no live image, as
+the JAX ``while_loop`` does: the plain version leaves its loop there, and
+the kernel's host loop stops launching at most :data:`WINDOW_LAG`
+iterations later (``csrc/window.cuh``: it reads a pinned flag the device
+writes each iteration, waiting on an event, without draining the stream);
+those iterations are gated and change nothing.  K5 and K7 end their windows
+the same way.  ``cg_steps_reference.iterations`` counts the iterations the
+plain version ran, ``deff_window_iter_count()`` those the kernels launched.
 """
 
 from __future__ import annotations
@@ -32,7 +41,9 @@ from ..fvm import StencilCoeffs, guarded_inverse
 from .vcycle import (LevelArgs, check_plane, _nbsum, v_cycle_reference,
                      weights)
 
-__all__ = ["cg_steps_reference", "cg_steps"]
+__all__ = ["cg_steps_reference", "cg_steps", "WINDOW_LAG"]
+
+WINDOW_LAG = 1      # iterations with no live image a kernel window may launch
 
 
 def batch_sum(v):
@@ -73,6 +84,7 @@ def cg_steps_reference(levels: Sequence[StencilCoeffs], x, r, p, rz, active,
     for _ in range(k):
         if not bool(live.any()):
             break
+        cg_steps_reference.iterations += 1
         q = matvec(p)
         pap = batch_sum(p * q)
         alpha = torch.where(pap > 0, rz / torch.where(pap > 0, pap, 1.0), 0.0)
@@ -162,3 +174,4 @@ def cg_steps(levels: List[StencilCoeffs], x, r, p, rz, active, stop, hi,
 
 
 cg_steps.launches = 0
+cg_steps_reference.iterations = 0

@@ -158,6 +158,7 @@ def cg_steps3d_reference(levels: Sequence[StencilCoeffs3D], x, r, p, rz,
     for i in range(k):
         if not bool(live.any()):
             break
+        cg_steps3d_reference.iterations += 1
         beta = torch.where(live & (rz_p > 0) & (i > 0),
                            rz_c / torch.where(rz_p > 0, rz_p, 1.0), 0.0)
         p = where4(live, z + beta[:, None, None, None] * p, p)
@@ -258,3 +259,4 @@ def cg_steps3d(levels: List[StencilCoeffs3D], x, r, p, rz, active, stop, hi,
 
 
 cg_steps3d.launches = 0
+cg_steps3d_reference.iterations = 0

@@ -117,6 +117,7 @@ def cg_steps_tiled_reference(levels: Sequence[StencilCoeffs], x, r, p, rz,
     for i in range(k):
         if not bool(live.any()):
             break
+        cg_steps_tiled_reference.iterations += 1
         beta = torch.where(live & (rz_p > 0) & (i > 0),
                            rz_c / torch.where(rz_p > 0, rz_p, 1.0), 0.0)
         p = where3(live, z + beta[:, None, None] * p, p)
@@ -221,3 +222,4 @@ def cg_steps_tiled(levels: List[StencilCoeffs], x, r, p, rz, active, stop,
 
 
 cg_steps_tiled.launches = 0
+cg_steps_tiled_reference.iterations = 0

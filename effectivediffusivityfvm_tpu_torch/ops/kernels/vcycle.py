@@ -210,7 +210,7 @@ def weights(omega, nu):
 
 def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
             coarse_iters: int = 32, over: float = 1.8, nu: int = 1,
-            active=None) -> torch.Tensor:
+            active=None, level_args=None) -> torch.Tensor:
     """One V(nu, nu) cycle ``z = M r`` on a ``(B, py, px)`` batch.
 
     ``levels`` is ``build_hierarchy(..., pad_levels=True)`` with planes
@@ -221,7 +221,9 @@ def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
     level down to level :func:`cycle_resident_from` ``(shapes, itemsize)``,
     then one launch for the rest, each image's remaining pyramid resident in
     one CTA (:func:`cycle_launches` counts them).  The rule is by shape and
-    dtype; a launch the card refuses raises.
+    dtype; a launch the card refuses raises.  ``level_args``: the
+    :class:`LevelArgs` of ``levels``, kept by a caller that runs the cycle
+    on one hierarchy again and again (else built for the call).
     """
     if r.device.type == "cpu":
         return v_cycle_reference(levels, r, omega=omega,
@@ -234,7 +236,7 @@ def v_cycle(levels: List[StencilCoeffs], r: torch.Tensor, *, omega=0.8,
     from ._build import check, load_library
 
     lib = load_library()
-    la = LevelArgs(levels, r)
+    la = LevelArgs(levels, r) if level_args is None else level_args
     check_plane(r, "r", (r.shape[0],) + la.shapes[0], r)
     bsz = r.shape[0]
     flag = None

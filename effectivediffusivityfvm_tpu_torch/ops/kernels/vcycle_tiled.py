@@ -1,7 +1,8 @@
 """K4: the banded V-cycle for fine grids past the whole-cycle engine's size
--- the CUDA kernels (``csrc/vcycle_tiled.cu`` over ``csrc/tiled.cuh``) and
-their plain PyTorch versions -- and the padded shape the banded engine
-solves on.
+-- the CUDA kernel (``csrc/vcycle_tiled.cu``: K2's level passes of
+``csrc/levelpass2d.cuh`` in the banded sweep form as T1 and T2, around K2's
+cycle from level 1, all from one entry) and its plain PyTorch version --
+and the padded shape the banded engine solves on.
 
 Replaces ``effectivediffusivityfvm_tpu/ops/kernels/vcycle_tiled.py``
 (``v_cycle_tiled``: ``_pre_kernel``, ``_post_kernel``, ``coarse_tail``).
@@ -34,8 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..fvm import guarded_inverse
-from .vcycle import (_CTYPE, _nbsum, check_plane, smoothing_schedule, v_cycle,
-                     v_cycle_reference, weights)
+from .vcycle import (LevelArgs, _nbsum, check_plane, smoothing_schedule,
+                     v_cycle, v_cycle_reference, weights)
 
 __all__ = ["HALO", "tiled_band", "tiled_pad_shape", "fits_whole_cycle",
            "coarse_tail", "pre_reference", "post_reference",
@@ -146,7 +147,7 @@ def v_cycle_tiled(levels, r, *, omega=0.8, nu: int = 1,
     ``levels`` is ``build_hierarchy(..., pad_levels=True)`` of an operator
     padded to :func:`tiled_pad_shape`; ``nu <= HALO``.  A CPU tensor runs
     the plain version; a CUDA tensor launches T1 and T2 (float32 or
-    float64) around K2's cycle on ``levels[1:]``.
+    float64) around K2's cycle on ``levels[1:]``, from one C entry.
     """
     if nu < 1 or nu > HALO:
         raise ValueError(f"v_cycle_tiled: nu={nu} must be in 1..{HALO}")
@@ -155,35 +156,23 @@ def v_cycle_tiled(levels, r, *, omega=0.8, nu: int = 1,
                                        coarse_iters=coarse_iters, over=over)
     if r.device.type != "cuda":
         raise ValueError(f"v_cycle_tiled: unsupported device {r.device}")
-    if r.dtype not in _CTYPE:
-        raise ValueError(f"kernels take float32 or float64, not {r.dtype}")
     from ._build import check, load_library
 
     _check_levels(levels, r)
     lib = load_library()
-    bsz, py, px = r.shape
-    c0 = levels[0]
-    for name, t in (("r", r), ("a_w", c0.a_w), ("a_n", c0.a_n),
-                    ("diag_inv", c0.diag_inv)):
-        check_plane(t, name, (bsz, py, px), r)
-    e = torch.empty_like(r)
-    rc = torch.empty((bsz, py // 2, px // 2), dtype=r.dtype, device=r.device)
+    la = LevelArgs(levels, r)
+    bsz = r.shape[0]
+    check_plane(r, "r", (bsz,) + la.shapes[0], r)
     z = torch.empty_like(r)
-    ws = weights(omega, nu)
-    sfx = _CTYPE[r.dtype]
+    per_image = lib.deff_cycle_tiled_scratch_elems(la.n_levels, la.ny, la.nx)
+    scratch = torch.empty(bsz * per_image, dtype=r.dtype, device=r.device)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
-        check(getattr(lib, f"deff_tiled_pre_{sfx}")(
-            bsz, py, px, c0.a_w.data_ptr(), c0.a_n.data_ptr(),
-            c0.diag_inv.data_ptr(), r.data_ptr(), e.data_ptr(),
-            rc.data_ptr(), ws, nu, stream), "v_cycle_tiled (T1)")
-        ec = coarse_tail(levels, rc, omega=omega, nu=nu,
-                         coarse_iters=coarse_iters, over=over)
-        check(getattr(lib, f"deff_tiled_post_{sfx}")(
-            bsz, py, px, c0.a_w.data_ptr(), c0.a_n.data_ptr(),
-            c0.diag_inv.data_ptr(), e.data_ptr(), r.data_ptr(),
-            ec.data_ptr(), z.data_ptr(), ws, nu, float(over), stream),
-            "v_cycle_tiled (T2)")
+        check(getattr(lib, f"deff_v_cycle_tiled_{la.suffix}")(
+            bsz, la.n_levels, la.ny, la.nx, la.aw, la.an, la.dinv,
+            r.data_ptr(), z.data_ptr(), scratch.data_ptr(),
+            weights(omega, nu), nu, coarse_iters, float(over), stream),
+            "v_cycle_tiled")
     v_cycle_tiled.launches += 1
     return z
 

@@ -1,22 +1,26 @@
-"""The fused sharded V-cycle: K8's per-shard T1/T2 kernels with halo strips
-exchanged once per level (torch port of
+"""The fused sharded V-cycle: K8's T1/T2 kernels on every shard of a mesh
+row, one launch a leg per device (torch port of
 ``effectivediffusivityfvm_tpu.parallel.fused2d``).
 
-A shard is a band of rows: exchanging ``HALO``-row strips of the residual
-once per level lets the whole pre-smoothing, residual and restriction (T1)
-and the prolongation, add and post-smoothing (T2) run as one kernel each on
-the shard, exact on its rows because ``nu`` sweeps and the residual
-invalidate ``nu + 1 < HALO`` rows at the window's edge.  A level exchanges
-three strips (r, e after T1, and the coarse correction with ``HALO // 2``
-rows); the coefficient strips are exchanged once per solve
-(:func:`_coef_windows`).
+A shard is a band of rows: with ``HALO`` rows of its neighbours on each
+side, the whole pre-smoothing, residual and restriction (T1) and the
+prolongation, add and post-smoothing (T2) run as one kernel each on the
+shard, exact on its rows because ``nu`` sweeps and the residual invalidate
+``nu + 1 < HALO`` rows at the window's edge.  The JAX engine exchanged
+three strips a level (r, e after T1, and the coarse correction with ``HALO
+// 2`` rows); here a shard reads them in place from its neighbours when
+they share its device, and only shards on different devices exchange
+strips.  The coefficient strips are exchanged once per solve
+(:func:`_coef_windows`; K9 reads them, and K8 where a row spans devices).
 
 Levels whose local block has fewer than ``HALO`` rows, or odd sizes, take
 the plain-torch sharded cycle (``halo._v_cycle_sharded_2d``) from there
 down.  The first coarse level whose whole grid passes ``fits_whole_cycle``
 is gathered once per solve and run as one K2 cycle per device
 (:func:`build_fused_tail`); where none does, the cycle ends in K2 on the
-replicated hierarchy.
+replicated hierarchy.  With every shard on one device, T1 writes its
+restriction at the shard's rows of that cycle's plane and T2 reads the
+correction from it.
 
 The JAX package split a shard that was too large for VMEM into bands
 (``_window_fits``, ``_banded_level``); the band changes no number (each
@@ -26,8 +30,11 @@ plane, so :func:`shard_band` keeps only the structural conditions.
 
 from __future__ import annotations
 
-from ..ops.kernels.vcycle_sharded import (HALO, shard_t1, shard_t1_reference,
-                                          shard_t2, shard_t2_reference)
+from ..ops.kernels.vcycle import LevelArgs, v_cycle, v_cycle_reference
+from ..ops.kernels.vcycle_sharded import (HALO, ShardRow, coef_sources,
+                                          neighbour_sources, shard_row_t1,
+                                          shard_row_t1_reference, shard_row_t2,
+                                          shard_row_t2_reference)
 from ..ops.kernels.vcycle_tiled import fits_whole_cycle
 from .halo import (ShardedHierarchy, _gathered_levels, _v_cycle_sharded_2d,
                    gathered_cycle)
@@ -92,18 +99,47 @@ def build_fused_tail(sharded_levels, min_size):
     return None, None
 
 
+def _next_gathered(hier: ShardedHierarchy, tail, level):
+    """The gathered hierarchies (per shard) the cycle runs from ``level +
+    1``, or ``None`` when that level is sharded."""
+    if tail is not None and tail[0] is not None:
+        return tail[1] if tail[0] == level + 1 else None
+    return hier.replicated if level + 1 == len(hier.sharded) else None
+
+
+def _shard_row(hier, coef_wins, level, tail, rs):
+    """K8's tables for ``level`` (:class:`ShardRow`).  The restrictions go
+    straight into the gathered tail's level-0 plane when the next level is
+    gathered, every shard is on one device, and that plane is the shards'
+    coarse rows in order (no padding); else the tail gathers them."""
+    ny_l, nx_l = rs[0].shape[-2:]
+    nxt = _next_gathered(hier, tail, level)
+    in_place = (nxt is not None and len({r.device for r in rs}) == 1
+                and tuple(nxt[0][0].diag.shape[-2:])
+                == (len(rs) * (ny_l // 2), nx_l // 2))
+    row = ShardRow(coef_sources(coef_wins[level]), gathered=in_place)
+    if in_place and row.device.type == "cuda":
+        row.tail_args = LevelArgs(nxt[0], row.gathered)
+    return row
+
+
 def v_cycle_sharded_fused(hier: ShardedHierarchy, coef_wins, rs, *, nu,
                           omega, coarse_iters, over, level=0, tail=None,
-                          plain=False, live=None):
+                          plain=False, live=None, rows=None):
     """The fused sharded V(nu, nu) cycle of one mesh row from ``level``:
-    K8 (``shard_t1``/``shard_t2``) on every shard of a fused level, the
-    plain sharded sweeps on a level without a band, and the gathered K2
-    tail (``tail`` from :func:`build_fused_tail`) or, without one, K2 on
-    the replicated hierarchy.  ``rs`` are the shards' residuals ``(B, ny_l,
-    nx)``; returns their corrections.  ``plain=True`` runs the plain
-    versions of every kernel.  ``live`` (per shard, ``(B,)``) gates the
-    gathered K2 tail: an image whose flag is 0 skips it (the K8 levels above
-    the tail take no flags)."""
+    K8 (:func:`shard_row_t1`/:func:`shard_row_t2`, one launch a leg per
+    device) on a fused level, the plain sharded sweeps on a level without a
+    band, and the gathered K2 tail (``tail`` from :func:`build_fused_tail`)
+    or, without one, K2 on the replicated hierarchy.  ``rs`` are the shards'
+    residuals ``(B, ny_l, nx)``; returns their corrections.  A shard reads
+    its neighbours' rows in place where they share its device; where the
+    next level is gathered and the row on one device, T1 restricts into the
+    tail's plane and T2 reads the tail's correction from it, with no gather
+    or split.  ``plain=True`` runs the plain versions of every kernel.
+    ``live`` (per shard, ``(B,)``) gates the gathered K2 tail: an image
+    whose flag is 0 skips it (the K8 levels above the tail take no flags).
+    ``rows`` (a dict the caller keeps for the solve) holds K8's tables per
+    level, built on first use; without it they are built for the call."""
     mg = dict(omega=omega, coarse_iters=coarse_iters, over=over)
     if tail is not None and tail[0] is not None and level == tail[0]:
         return gathered_cycle(tail[1], rs, nu=nu, plain=plain, live=live,
@@ -115,19 +151,27 @@ def v_cycle_sharded_fused(hier: ShardedHierarchy, coef_wins, rs, *, nu,
     if shard_band(ny_l, nx_l, rs[0].element_size()) == 0:
         return _v_cycle_sharded_2d(hier, rs, nu1=nu, nu2=nu, level=level,
                                    plain=plain, **mg)
-    t1 = shard_t1_reference if plain else shard_t1
-    t2 = shard_t2_reference if plain else shard_t2
-    coefs = coef_wins[level]
-    rs = [r.contiguous() for r in rs]
-    rn, rss = halo_strips(rs, HALO)
-    pre = [t1(coefs[s], rs[s], rn[s], rss[s], omega=omega, nu=nu)
-           for s in range(len(rs))]
-    e_c = v_cycle_sharded_fused(hier, coef_wins, [p[1] for p in pre], nu=nu,
-                                level=level + 1, tail=tail, plain=plain,
-                                live=live, **mg)
-    e_pre = [p[0] for p in pre]
-    en, ess = halo_strips(e_pre, HALO)
-    ecn, ecss = halo_strips(e_c, HALO // 2)
-    return [t2(coefs[s], e_pre[s], en[s], ess[s], rs[s], rn[s], rss[s],
-               e_c[s], ecn[s], ecss[s], omega=omega, nu=nu, over=over)
-            for s in range(len(rs))]
+    rows = {} if rows is None else rows
+    if level not in rows:
+        rows[level] = _shard_row(hier, coef_wins, level, tail, rs)
+    row = rows[level]
+    t1 = shard_row_t1_reference if plain else shard_row_t1
+    t2 = shard_row_t2_reference if plain else shard_row_t2
+    r_src = neighbour_sources([r.contiguous() for r in rs], HALO)
+    es, rcs = t1(row, r_src, omega=omega, nu=nu)
+    if row.gathered is not None:
+        levels = _next_gathered(hier, tail, level)[0]
+        act = None if live is None else live[0].to(row.device)
+        if plain:
+            ec_src = v_cycle_reference(levels, row.gathered, nu=nu,
+                                       active=act, **mg)
+        else:
+            ec_src = v_cycle(levels, row.gathered, nu=nu, active=act,
+                             level_args=row.tail_args, **mg)
+    else:
+        e_c = v_cycle_sharded_fused(hier, coef_wins, rcs, nu=nu,
+                                    level=level + 1, tail=tail, plain=plain,
+                                    live=live, rows=rows, **mg)
+        ec_src = neighbour_sources(e_c, HALO // 2)
+    return t2(row, neighbour_sources(es, HALO), r_src, ec_src, omega=omega,
+              nu=nu, over=over)

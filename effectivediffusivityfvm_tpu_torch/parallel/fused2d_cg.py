@@ -56,6 +56,7 @@ class _Row:
         self.kw = dict(nu=nu, tail=self.tail, plain=plain, **mg)
         self.npts = ny_l * c_row[0].diag.shape[-1] * len(c_row)
         self.k9 = None          # K9's workspace, kept for the whole solve
+        self.k8 = {}            # K8's tables per level, likewise
 
     def coarse(self, rcs, live):
         """K9's coarse callable: the cycle from level 1."""
@@ -72,7 +73,8 @@ class _Row:
 
     def cycle(self, rs, level=0, live=None):
         return v_cycle_sharded_fused(self.hier, self.coef_wins, rs,
-                                     level=level, live=live, **self.kw)
+                                     level=level, live=live, rows=self.k8,
+                                     **self.kw)
 
     def matvec(self, xs):
         nbs = _neighbor_sum_2d_local(self.c, xs)

@@ -197,6 +197,68 @@ def test_cg_steps_kernel_cycle_forms(cuda, dtype, nu, shape, min_size):
         assert torch.equal(g[1], s[1])          # frozen: bit-unchanged
 
 
+def _dying_window(levels, r, p, dtype, dev, axes):
+    """The CG state of a window in which every image dies early: image b
+    stops once sum|r| falls to ``STOP[b]`` of its entry value."""
+    rz = torch.sum(r * p, dim=axes)
+    sr0 = torch.sum(r.abs(), dim=axes)
+    bsz = r.shape[0]
+    active = torch.ones(bsz, dtype=dtype, device=dev)
+    stop = sr0 * torch.tensor([0.3, 0.02, 0.3][:bsz], dtype=dtype,
+                              device=dev)
+    hi = torch.full_like(sr0, float("inf"))
+    return rz, active, stop, hi
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("kernel", ["K1", "K5", "K5-mf", "K7", "K7-mf"])
+def test_cg_windows_leave_once_nothing_is_live(cuda, dtype, kernel):
+    """K1, K5 and K7 on a k=12 window in which every image dies within a
+    few iterations: the host loop launches at most WINDOW_LAG iterations
+    past the last live one (deff_window_iter_count), and the results equal
+    the plain version's, which leaves at the last live iteration."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import \
+        WINDOW_LAG
+
+    k = 12
+    lib = _build.load_library()
+    if kernel == "K1":
+        _, _, levels, x = _problem(cuda, dtype, 3, 48, 40, seed=3)
+        r = levels[0].b - fvm.apply_operator(levels[0], x)
+        p = v_cycle_reference(levels, r, **MG)
+        fn, ref_fn, extra, mg, axes = (cg_steps, cg_steps_reference, {}, MG,
+                                       (-2, -1))
+    elif kernel.startswith("K5"):
+        levels, x, mf_kw = _tiled_problem(cuda, dtype, 3, 37, 300, seed=3)
+        r = levels[0].b - fvm.apply_operator(levels[0], x)
+        p = vt.v_cycle_tiled_reference(levels, r, **MG)
+        fn, ref_fn, mg, axes = (cg_steps_tiled, cg_steps_tiled_reference, MG,
+                                (-2, -1))
+        extra = mf_kw if kernel.endswith("mf") else {}
+    else:
+        mg = dict(omega=SCHEDULES[2], nu=2, coarse_iters=8, over=1.8)
+        _, _, levels, x, mf_kw = _problem3d(cuda, dtype, 3, *SHAPES_3D[0],
+                                            seed=3)
+        r = levels[0].b - fvm3d.apply_operator_3d(levels[0], x)
+        p = v3.v_cycle3d_tiled_reference(levels, r, **mg)
+        fn, ref_fn, axes = cg_steps3d, cg_steps3d_reference, (-3, -2, -1)
+        extra = mf_kw if kernel.endswith("mf") else {}
+    state = (x, r, p) + _dying_window(levels, r, p, dtype, cuda, axes)
+    n0 = lib.deff_window_iter_count()
+    got = fn(levels, *(t.clone() for t in state), k, **mg, **extra)
+    torch.cuda.synchronize()
+    launched = lib.deff_window_iter_count() - n0
+    i0 = ref_fn.iterations
+    ref = ref_fn(levels, *(t.clone() for t in state), k, **mg, **extra)
+    ran = ref_fn.iterations - i0
+    assert got[4].tolist() == ref[4].tolist()
+    assert ran == int(ref[4].max()) < k
+    assert ran <= launched <= ran + WINDOW_LAG
+    for g, e in zip(got[:3], ref[:3]):
+        for b in range(3):
+            assert _rel_err(g[b], e[b]) <= TOL[dtype]
+
+
 def test_solve_on_gpu_matches_plain_on_cpu(cuda):
     d, c, _, _ = _problem(cuda, torch.float64, 3, 32, 48, seed=2)
     spec = make_flux_spec(d, 0.0, 1.0)
@@ -306,22 +368,34 @@ def _tiled_problem(dev, dtype, bsz, ny, nx, seed=0, contrast=1e4):
 # (32, 24): one tile row, padded in x; (37, 300): padded on both axes;
 # (100, 520): several tiles, the last row of tiles partial
 TILED_SHAPES = [(32, 24), (37, 300), (100, 520)]
+# K4's level passes tile level 0 in 60x28 tiles for nu <= 2 and 40x40 for
+# nu = 3, 4 (levelpass2d.cuh): whole tile rows at 56 and 80 rows, one row
+# past them at 57 (padded to 64), 240 columns (4 tiles of 60, padded to 256)
+TILED_EDGES = [(56, 240), (80, 250), (57, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", TILED_SHAPES)
-def test_v_cycle_tiled_kernel_matches_plain(cuda, dtype, shape):
+@pytest.mark.parametrize("nu", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", TILED_SHAPES + TILED_EDGES)
+def test_v_cycle_tiled_kernel_matches_plain(cuda, dtype, nu, shape):
+    """K4 (T1 and T2 as K2's level passes in the banded sweep form, K2's
+    cycle from level 1 between them, one C entry) bit for bit, in 2 + the
+    tail's launches."""
     levels, x, _ = _tiled_problem(cuda, dtype, 3, *shape)
+    mg = dict(MG, omega=SCHEDULES[nu], nu=nu)
     r = levels[0].b - fvm.apply_operator(levels[0], x)
+    shapes = [tuple(c.diag.shape[-2:]) for c in levels]
     lib = _build.load_library()
     before, k2, n0 = vt.v_cycle_tiled.launches, v_cycle.launches, \
         lib.deff_launch_count()
-    z = vt.v_cycle_tiled(levels, r, **MG)
+    z = vt.v_cycle_tiled(levels, r, **mg)
     torch.cuda.synchronize()
     assert vt.v_cycle_tiled.launches == before + 1
-    assert v_cycle.launches == k2 + 1                 # the coarse tail
-    assert lib.deff_launch_count() - n0 >= 3          # T1, K2's, T2
-    assert torch.equal(z, vt.v_cycle_tiled_reference(levels, r, **MG))
+    assert v_cycle.launches == k2                     # the tail runs in C
+    assert lib.deff_launch_count() - n0 == 2 + cycle_launches(
+        shapes, r.element_size(), 1)
+    ref = vt.v_cycle_tiled_reference(levels, r, **mg)
+    assert torch.equal(z, ref), float((z - ref).abs().max())
 
 
 def _check_cg_window(got, ref, state, dtype, exact_frozen):
@@ -581,33 +655,54 @@ def _sharded_problem(dev, dtype, bsz, ny, nx, sp, seed=0):
 SHARD_MG = dict(omega=0.8, coarse_iters=8, over=1.8)
 
 
-@pytest.mark.parametrize("nu", [1, 2])
+@pytest.mark.parametrize("nu", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("sp", [1, 2, 4])
-def test_shard_cycle_kernels_match_plain(cuda, sp, dtype, nu):
+def test_shard_cycle_kernels_match_plain(cuda, sp, dtype, nu, monkeypatch):
+    """K8 bit for bit: the one-shard form with the caller's strips, then
+    the fused cycle of a row of ``sp`` shards on the card -- one launch a
+    leg for the whole row, neighbours read in place (no strip exchanged),
+    T1 restricting into the gathered tail's plane -- against its plain
+    version."""
     from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_sharded
     from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
 
     m, _, hier, cw, tail, _, r = _sharded_problem(cuda, dtype, 2, 64, 40, sp)
     rs = mesh.shard_rows(m, r)[0]
     rn, rss = mesh.halo_strips(rs, vcycle_sharded.HALO)
+    sched = dict(SHARD_MG, omega=SCHEDULES[nu])
     t1 = vcycle_sharded.shard_t1.launches
     for s in range(sp):
         got = vcycle_sharded.shard_t1(cw[0][s], rs[s], rn[s], rss[s],
-                                      omega=0.8, nu=nu)
+                                      omega=sched["omega"], nu=nu)
         ref = vcycle_sharded.shard_t1_reference(cw[0][s], rs[s], rn[s],
-                                                rss[s], omega=0.8, nu=nu)
+                                                rss[s], omega=sched["omega"],
+                                                nu=nu)
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert vcycle_sharded.shard_t1.launches == t1 + sp
-    kw = dict(nu=nu, tail=tail, **SHARD_MG)
-    before = vcycle_sharded.shard_t2.launches
-    z = fused2d.v_cycle_sharded_fused(hier, cw, rs, **kw)
-    zp = fused2d.v_cycle_sharded_fused(hier, cw, rs, plain=True, **kw)
+
+    def no_strips(*a, **k):
+        raise AssertionError("a strip was exchanged on one device")
+
+    monkeypatch.setattr(vcycle_sharded, "halo_strips", no_strips)
+    lib = _build.load_library()
+    kw = dict(nu=nu, tail=tail, **sched)
+    rows = {}
+    counts = (vcycle_sharded.shard_row_t1.launches,
+              vcycle_sharded.shard_row_t2.launches, lib.deff_launch_count())
+    z = fused2d.v_cycle_sharded_fused(hier, cw, rs, rows=rows, **kw)
     torch.cuda.synchronize()
-    assert vcycle_sharded.shard_t2.launches == before + sp
+    tail_levels = tail[1][0]
+    assert tail[0] == 1 and list(rows) == [0] and rows[0].gathered is not None
+    assert (vcycle_sharded.shard_row_t1.launches,
+            vcycle_sharded.shard_row_t2.launches) == (counts[0] + 1,
+                                                      counts[1] + 1)
+    assert lib.deff_launch_count() - counts[2] == 2 + cycle_launches(
+        [tuple(c.diag.shape[-2:]) for c in tail_levels], r.element_size())
+    zp = fused2d.v_cycle_sharded_fused(hier, cw, rs, plain=True, **kw)
     for g, e in zip(z, zp):
-        assert _rel_err(g, e) <= TOL[dtype]
+        assert torch.equal(g, e), float((g - e).abs().max())
 
 
 @pytest.mark.parametrize("nu", [1, 2])

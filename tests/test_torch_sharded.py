@@ -214,6 +214,72 @@ def test_k8_plain_cycle_matches_jax(banded, monkeypatch):
                                atol=1e-12 * np.abs(zj).max())
 
 
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_k8_row_plain_matches_per_shard_plain_and_jax(n):
+    """K8's row-wide plain version at SP=n -- each shard reading its
+    neighbours' rows in place, T1 writing the restrictions into the
+    gathered tail's plane, T2 reading e_c from it -- equals the per-shard
+    plain version fed exchanged strips, and one application of the cycle
+    equals the JAX package's (interpret mode) to atol 1e-12 * max|z|."""
+    hl = vcycle_sharded.HALO
+    ny, nx = 64, 32
+    d = _medium(6, (1, ny, nx))
+    (c, _, _), (jc, _, _) = _systems(d)
+    rng = np.random.default_rng(7)
+    r = rng.standard_normal((1, ny, nx))
+    hier = halo._build_sharded_hierarchy_2d(_port_row(c, n), ny // n,
+                                            min_size=8)
+    cw = fused2d._coef_windows(hier.sharded)
+    tail = fused2d.build_fused_tail(hier.sharded, 8)
+    rs = mesh.shard_rows(_cpu_mesh(n), torch.tensor(r))[0]
+
+    row = vcycle_sharded.ShardRow(vcycle_sharded.coef_sources(cw[0]),
+                                  gathered=True)
+    r_src = vcycle_sharded.neighbour_sources(rs, hl)
+    es, rcs = vcycle_sharded.shard_row_t1(row, r_src, omega=0.8, nu=2)
+    rn, rss = mesh.halo_strips(rs, hl)
+    for s in range(n):
+        e_p, rc_p = vcycle_sharded.shard_t1_reference(
+            cw[0][s], rs[s], rn[s], rss[s], omega=0.8, nu=2)
+        assert torch.equal(es[s], e_p) and torch.equal(rcs[s], rc_p)
+    assert torch.equal(row.gathered, torch.cat(rcs, dim=-2))
+    ec = torch.tensor(rng.standard_normal(tuple(row.gathered.shape)))
+    z = vcycle_sharded.shard_row_t2(
+        row, vcycle_sharded.neighbour_sources(es, hl), r_src, ec, omega=0.8,
+        nu=2, over=1.8)
+    ecs = [t.contiguous() for t in torch.split(ec, ny // n // 2, dim=-2)]
+    en, ess = mesh.halo_strips(es, hl)
+    ecn, ecss = mesh.halo_strips(ecs, hl // 2)
+    for s in range(n):
+        z_p = vcycle_sharded.shard_t2_reference(
+            cw[0][s], es[s], en[s], ess[s], rs[s], rn[s], rss[s], ecs[s],
+            ecn[s], ecss[s], omega=0.8, nu=2, over=1.8)
+        assert torch.equal(z[s], z_p)
+
+    rows = {}
+    z = _joined(fused2d.v_cycle_sharded_fused(hier, cw, rs, tail=tail,
+                                              rows=rows, **MG))
+    assert tail[0] == 1 and rows[0].gathered is not None
+    g3 = P(None, "sp", None)
+
+    @functools.partial(
+        shard_map, mesh=_jax_sp_mesh(n),
+        in_specs=(jfvm.StencilCoeffs(*([g3] * 7)), g3), out_specs=g3,
+        check_vma=False)
+    def cycle(c_l, r_l):
+        sh, rep = jhalo._build_sharded_hierarchy_2d(c_l, ny // n, "sp",
+                                                    min_size=8)
+        jcw = jfused._coef_windows(sh, "sp")
+        jtail = jfused.build_fused_tail(sh, "sp", 8)
+        return jfused.v_cycle_sharded_fused(
+            sh, rep, jcw, r_l, axis_name="sp", interpret=True, tail=jtail,
+            **MG)
+
+    zj = np.asarray(jax.jit(cycle)(jc, jnp.asarray(r)))
+    np.testing.assert_allclose(z, zj, rtol=0,
+                               atol=1e-12 * np.abs(zj).max())
+
+
 def test_k8_wrappers_take_cpu_plain_and_refuse_other_devices():
     rng = np.random.default_rng(4)
     planes = [torch.tensor(rng.random((1, r, 16)))

@@ -15,8 +15,13 @@ checkout's):
   iterations;
 * BASELINE config 3 (one 2048^2 image), stored and matrix-free: seconds,
   best of three;
-* K5's k=10 call on that image (B=1 x 2048^2, stored and matrix-free; ms
-  by CUDA events);
+* K4's banded cycle on that image (B=1 x 2048^2: ms a call by CUDA
+  events, device ms, and each launch's device time in launch order: T1,
+  K2's tail, T2) and K5's k=10 call there (stored and matrix-free; ms by
+  CUDA events);
+* K8: one application of the sharded cycle on that image at SP=4 on the
+  card (ms a call, device ms of all its work and of K8's own kernels,
+  each launch's device time);
 * config 3 through ``sharded_solve_mgcg`` on four shards of the card and on
   one: seconds, best of three, iterations and Deff;
 * K6 on BASELINE config 5's volume (B=1 x 256^3 fp32): the banded cycle
@@ -27,7 +32,8 @@ checkout's):
   solve on both legs: seconds, best of three, and iterations.
 
 With ``--only3d`` it times the last two items alone, with each K6 launch's
-device time in launch order.
+device time in launch order; with ``--config3`` config 3's two unsharded
+legs alone (for many pairs of runs in turns).
 
 To compare a parent commit with this tree, unpack it under ``build/`` and
 run the two alternately in one call on the card:
@@ -40,6 +46,7 @@ It needs a CUDA device and exits non-zero without one.
 
 import argparse
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -51,35 +58,13 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 
 
-def launch_us(fn, n, reps):
-    """``[kernel, microseconds]`` of each of the ``n`` launches of one call
-    of ``fn``, in launch order (the least over ``reps`` calls under
-    ``torch.profiler``); kernel names shortened to the function's."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)
-    if len(ev) != n * reps:
-        return None
-    return [[ev[i].name.split("<")[0].split("::")[-1],
-             min(ev[i + n * j].time_range.elapsed_us()
-                 for j in range(reps))] for i in range(n)]
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--only3d", action="store_true",
                     help="time K6, K7 and config 5 only")
+    ap.add_argument("--config3", action="store_true",
+                    help="time config 3's unsharded solves only")
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -106,7 +91,7 @@ def main():
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
     from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import \
         v_cycle_tiled
-    from effectivediffusivityfvm_tpu_torch.parallel import halo, mesh
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, halo, mesh
     from effectivediffusivityfvm_tpu_torch.solvers import multigrid, solvers3d
 
     if Path(pkg.__file__).resolve().parents[1] != tree:
@@ -141,6 +126,19 @@ def main():
                                      one * float("inf"), k, **mg, **extra),
                           reps)
 
+    if args.config3:
+        rng = np.random.default_rng(cs.C3_SEED)
+        img = cs.correlated_binary(rng, cs.C3_SIZE, cs.C3_SIZE)
+        d, c, s, x0 = cs.c3_problem(img, dev)
+        for name, kw in (("config3", dict(cs.C3_KW, first_window=0)),
+                         ("config3_mf", dict(cs.C3_KW, d_field=d,
+                                             first_window=1))):
+            t, times, res = best_of_3(
+                lambda: multigrid.solve_mgcg(c, s, x0, **kw))
+            out[f"{name}_s"], out[f"{name}_runs_s"] = t, times
+            out[f"{name}_iterations"] = int(res.iters)
+        print(json.dumps(out), flush=True)
+        return
     if not args.only3d:
         # the MGCG slice's problem, B=512 x 512^2 (images cached)
         cache = HERE / "build" / "turns_images.npy"
@@ -200,11 +198,44 @@ def main():
         levels, x, mf = cs.tiled_setup(d[None], type(c)(*(a[None] for a in c)),
                                        x0[None], cs.C3_KW["min_size"])
         r = levels[0].b - fvm.apply_operator(levels[0], x)
-        p = v_cycle_tiled(levels, r, **cs.MG3)
+
+        def k4():
+            return v_cycle_tiled(levels, r, **cs.MG3)
+
+        n0 = lib.deff_launch_count()
+        k4()
+        out["k4_launches"] = lib.deff_launch_count() - n0
+        out["k4_ms"] = cs.cuda_ms(k4, 10, warm=2)
+        out["k4_device_ms"] = cs.device_ms(k4, 10)
+        out["k4_launch_us"] = cs.launch_us(k4, 10)
+        p = k4()
         for mode, extra in (("stored", {}), ("mf", mf)):
             out[f"k5_{mode}_ms"] = window_ms(cg_steps_tiled, levels, x, r, p,
                                              cs.K5_TIME_K, cs.MG3, extra)
         del levels, x, mf, r, p
+        # K8: one application of the sharded cycle, B=1 x 2048^2 at SP=4 on
+        # the card (its tables kept across calls where the tree has them)
+        cb = type(c)(*(a[None] for a in c))
+        m, hier, cw, tail = cs.sharded_setup(cb, 4, dev, cs.C3_KW["min_size"])
+        rs = mesh.shard_rows(m, cb.b - fvm.apply_operator(cb, x0[None]))[0]
+        kw8 = dict(tail=tail, **cs.MG3)
+        if "rows" in inspect.signature(
+                fused2d.v_cycle_sharded_fused).parameters:
+            kw8["rows"] = {}
+
+        def k8():
+            return fused2d.v_cycle_sharded_fused(hier, cw, rs, **kw8)
+
+        n0 = lib.deff_launch_count()
+        k8()
+        out["k8_launches"] = lib.deff_launch_count() - n0
+        out["k8_ms"] = cs.cuda_ms(k8, 10, warm=2)
+        own = cs.kernel_device_us(k8, 10, ("row_t1", "row_t2", "shard_t1",
+                                           "shard_t2"))
+        out["k8_own_device_ms"] = None if own is None else own[0] / 1e3
+        out["k8_device_ms"] = None if own is None else own[1] / 1e3
+        out["k8_launch_us"] = cs.launch_us(k8, 5)
+        del cb, m, hier, cw, tail, rs, kw8
         for sp in (4, 1):
             m = mesh.make_mesh(sp, devices=[dev] * sp)
             t, times, res = best_of_3(
@@ -232,7 +263,7 @@ def main():
         out[f"{name}_launches"] = n
         out[f"{name}_ms"] = cs.cuda_ms(fn, 10, warm=2)
         out[f"{name}_device_ms"] = cs.device_ms(fn, 5)
-        out[f"{name}_launch_us"] = launch_us(fn, n, 5)
+        out[f"{name}_launch_us"] = cs.launch_us(fn, 5)
     p = v3.v_cycle3d_tiled(levels, r, **cs.MG5)
     for mode, extra in (("stored", {}), ("mf", mf)):
         out[f"k7_{mode}_ms"] = window_ms(cg_steps3d, levels, x, r, p,

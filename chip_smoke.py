@@ -101,16 +101,22 @@ non-zero):
     4096^2 at SP=4 (a sharded level 1 too); B=2 x 256x320 fp64 at SP=4;
     its launches (2 a fused level plus the tail's), no strip exchanged, and
     an application's wall time beside K8's own device time;
-26. K9 (the sharded three-pass CG steps) against its plain version, B=4 x
-    2048^2, SP=4, k=5, with a frozen image, one that exits at iteration 0
-    and one tripped by its divergence threshold; its graph route (the
-    shards on one card) against its host loop, bit for bit;
+26. K9 (the sharded CG steps: three passes an iteration, each one launch
+    for the row's shards, neighbours and the gathered tail's plane read in
+    place) against its plain version, bit for bit, B=4 x 2048^2, SP=4,
+    k=5, with a frozen image, one that exits at iteration 0 and one
+    tripped by its divergence threshold; no strip exchanged and no coarse
+    plane gathered or split in its window, its graph replays within the
+    live iterations and WINDOW_LAG; its graph route (the shards on one
+    card) against its host loop, bit for bit;
 27. BASELINE config 3's image (phase 14's problem) through
     ``sharded_solve_mgcg`` on four shards of the card and on one, each
     against the same solve on the plain versions and against phase 14's
     unsharded stored solve, with the device count of its K2 image cycles
     equal to the live iterations plus the fresh and refresh cycles and the
-    SP=4 solve timed on the graph route and the host loop in turns, then
+    SP=4 solve timed on the graph route and the host loop in turns, K9's
+    graph replays within the live iterations and WINDOW_LAG a window, and
+    no strip exchange and no coarse gather or split in K9's windows, then
     config 3's generator at 4096^2 at SP=4:
     one float32 solve of the sharded and the unsharded banded engine (the
     float32 relres floor lies above 1e-4 there), and a float64 leg against
@@ -121,9 +127,9 @@ non-zero):
     2`` on phase 10's 64 images against phase 10's table, and the dry-run
     twin (``parallel/dryrun.py``) on four shards;
 29. K8/K9 times (CUDA events; K8's own device time beside the
-    application's) at B=1 and B=4 x 2048^2, SP=4 and SP=1 (K9 on the graph
-    route and the host loop in turns), then one sharded config-3 solve
-    under ``torch.profiler``.
+    application's, K9's passes' device times) at B=1 and B=4 x 2048^2,
+    SP=4 and SP=1 (K9 on the graph route and the host loop in turns), then
+    one sharded config-3 solve under ``torch.profiler``.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -1625,7 +1631,7 @@ def volume_phases(dev, card, lib):
 
 # kernel-name fragments -> the group a sharded profile reports them under
 PROFILE_GROUPS_SHARDED = (
-    ("K9 passes", ("shard_pass_a", "shard_pass_b", "shard_pass_c")),
+    ("K9 passes", ("shard_p_kernel", "shard_x_kernel", "shard_z_kernel")),
     ("K8 T1/T2", ("row_t1", "row_t2")),
     ("K9 finalize", ("fin_init", "fin_alpha", "fin_live", "shard_abs_parts",
                      "select_kernel")),
@@ -1633,6 +1639,8 @@ PROFILE_GROUPS_SHARDED = (
     ("strip and gather copies", ("Memcpy", "copy_kernel", "CatArray")),
 )
 K8_KERNELS = ("row_t1", "row_t2")     # K8's kernels (csrc/vcycle_sharded.cu)
+K9_PASSES = ("shard_p_kernel", "shard_x_kernel",   # K9's passes
+             "shard_z_kernel")                     # (csrc/cgstep_sharded.cu)
 C4K_SIZE = 4096                       # phase 25/27: a sharded level 1 too
 K9_TIME_K = 10                        # iterations per timed K9 call
 
@@ -1661,21 +1669,88 @@ def sharded_setup(c, sp, dev, min_size):
 
 
 def sharded_work(hier, tail, sp, bsz, itemsize, nu, k=None):
-    """Bytes and operations of one sharded cycle (``k=None``) or of a K9
-    call of ``k`` iterations with every image live, reckoned as
-    cycle_work/tiled_work do over the levels the cycle visits: the sharded
-    levels above the tail as whole grids, then the tail's hierarchy."""
+    """Bytes and operations of one sharded cycle (``k=None``: a K8
+    application) or of a K9 call of ``k`` iterations with every image live,
+    by tiled_work's rule, over the levels the cycle visits: a sharded
+    level's working set is larger than L2 at the main path's sizes, so it
+    counts as a whole grid in every pass that must read it -- K8's T1 and
+    T2 each read r and the three coefficient planes, and z is written (9
+    planes a level above the tail); K9 each iteration reads x, r, p, z and
+    level 0's three coefficient planes once and writes x, r, p, z once (11
+    planes), plus the cycle from level 1 -- and the tail's hierarchy as
+    cycle_work counts it, once a cycle.  Operations: cycle_work's over
+    every level, and for K9 22 a level-0 cell an iteration for the CG
+    updates, products and sums.  The earlier reckoning counted level 0
+    once a call."""
     stop = tail[0] if tail[0] is not None else len(hier.sharded)
     rest = tail[1][0] if tail[0] is not None else hier.replicated[0]
-    cells = [c[0].diag.shape[-2] * sp * c[0].diag.shape[-1]
+    fused = [bsz * c[0].diag.shape[-2] * sp * c[0].diag.shape[-1]
              for c in hier.sharded[:stop]]
-    cells += [c.diag.shape[-2] * c.diag.shape[-1] for c in rest]
-    nbytes = itemsize * bsz * (3 * sum(cells) + 2 * cells[0])
-    ops = bsz * (5 + 24 * nu) * sum(cells)
+    tail_bytes, tail_ops, _ = cycle_work(rest, bsz, itemsize, nu)
+    ops = (5 + 24 * nu) * sum(fused) + tail_ops
+    from1 = itemsize * 9 * sum(fused[1:]) + tail_bytes
     if k is None:
-        return nbytes, ops
-    n0 = bsz * cells[0]
-    return nbytes + itemsize * n0 * 4, k * (ops + n0 * 22)
+        return itemsize * 9 * fused[0] + from1, ops
+    n0 = fused[0]
+    return k * (itemsize * 11 * n0 + from1), k * (ops + 22 * n0)
+
+
+class K9Watch:
+    """Inside K9's windows only, counts the strip exchanges (``halo_strips``
+    wherever it is called, and K9's own cross-device exchanges) and the
+    coarse planes gathered or split (``gathered_cycle``, ``all_gather``).
+    ``watch.wrap(fn)`` marks a K9 call; within ``with watch:`` the solver's
+    K9 (``fused2d_cg.cg_steps_sharded``) is marked too."""
+
+    def __init__(self):
+        from effectivediffusivityfvm_tpu_torch.ops.kernels import (
+            cgstep_sharded, vcycle_sharded)
+        from effectivediffusivityfvm_tpu_torch.parallel import (
+            fused2d, fused2d_cg, halo, mesh)
+
+        self.k9 = cgstep_sharded.cg_steps_sharded
+        self.inside = False
+        self.strips = self.gathers = 0
+        self.targets = [(m, "halo_strips", "strips") for m in (
+            mesh, vcycle_sharded, cgstep_sharded, fused2d, halo)]
+        self.targets += [(fused2d, "gathered_cycle", "gathers"),
+                         (halo, "all_gather", "gathers"),
+                         (mesh, "all_gather", "gathers")]
+        self.solver = fused2d_cg
+        self.saved = []
+
+    def wrap(self, fn):
+        def call(*a, **k):
+            ex = self.k9.exchanges
+            self.inside = True
+            try:
+                return fn(*a, **k)
+            finally:
+                self.inside = False
+                self.strips += self.k9.exchanges - ex
+        return call
+
+    def _counted(self, fn, what):
+        def call(*a, **k):
+            if self.inside:
+                setattr(self, what, getattr(self, what) + 1)
+            return fn(*a, **k)
+        return call
+
+    def __enter__(self):
+        for mod, name, what in self.targets:
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, self._counted(getattr(mod, name), what))
+        self.saved.append((self.solver, "cg_steps_sharded",
+                           self.solver.cg_steps_sharded))
+        self.solver.cg_steps_sharded = self.wrap(
+            self.solver.cg_steps_sharded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self.saved):
+            setattr(mod, name, fn)
+        self.saved = []
 
 
 def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
@@ -1688,7 +1763,8 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import (
         batch_sum, cg_steps)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_sharded import (
-        ShardWorkspace, cg_steps_sharded, cg_steps_sharded_reference)
+        WINDOW_LAG, ShardWorkspace, cg_steps_sharded,
+        cg_steps_sharded_reference)
     from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import \
         cg_steps_tiled
     from effectivediffusivityfvm_tpu_torch.ops.kernels import vcycle_sharded
@@ -1726,11 +1802,11 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         """Run fn with K9 on its host loop (every workspace made meanwhile
         takes graph=False), to compare the two routes."""
         init = ShardWorkspace.__init__
-        init.__defaults__ = (False,)
+        init.__defaults__ = (False, None)
         try:
             return fn()
         finally:
-            init.__defaults__ = (True,)
+            init.__defaults__ = (True, None)
 
     # -- 25: K8 against its plain version, one application of the cycle
     t0 = time.perf_counter()
@@ -1824,42 +1900,44 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
 
     def k9_run(fn, plain, k=5):
         xs, rs, ps = (mesh.shard_rows(m4, t)[0] for t in (x4, r4, p4))
+        kw9 = fused2d.k9_coarse(hier4, cw4, xs, tail=tail4, plain=plain,
+                                **MG3)
         out = fn(cw4[0], xs, rs, ps, rz.clone(), active, stop, hi, k,
-                 coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
-                     hier4, cw4, rc, level=1, tail=tail4, plain=plain,
-                     live=live, **MG3), omega=MG3["omega"], nu=MG3["nu"],
-                 over=MG3["over"])
+                 omega=MG3["omega"], nu=MG3["nu"], over=MG3["over"], **kw9)
         return [joined(out[i]) for i in range(3)] + list(out[3:])
 
     r0 = cg_steps_sharded.replays
-    got = k9_run(cg_steps_sharded, False)
+    with K9Watch() as watch:
+        got = k9_run(watch.wrap(cg_steps_sharded), False)
+        torch.cuda.synchronize()
     replays = cg_steps_sharded.replays - r0
     loop = host_loop(lambda: k9_run(cg_steps_sharded, False))
     ref = k9_run(cg_steps_sharded_reference, True)
     torch.cuda.synchronize()
-    check(replays == 5, f"K9 graph route: {replays} replays")
-    check(all(bool(torch.equal(g, h)) for g, h in zip(got, loop)),
-          "K9 graph route != host loop")
     kd = got[4].tolist()
     check(kd == ref[4].tolist(), f"K9 k_done {kd} != plain {ref[4].tolist()}")
     check(kd[:3] == [5, 0, 0] and kd[3] >= 1, f"K9 k_done {kd}")
+    check(max(kd) <= replays <= max(kd) + WINDOW_LAG,
+          f"K9 graph route: {replays} replays for {max(kd)} live iterations")
+    check(watch.strips == 0 and watch.gathers == 0,
+          f"K9 on one card: {watch.strips} strip exchanges, "
+          f"{watch.gathers} coarse gathers or splits")
+    check(all(bool(torch.equal(g, h)) for g, h in zip(got, loop)),
+          "K9 graph route != host loop")
     k9_err = 0.0
-    for nm, g, e in zip("xrp", got[:3], ref[:3]):
-        for b in range(4):
-            err = float((g[b] - e[b]).abs().max())
-            scale = float(e[b].abs().max())
-            check(err <= 1e-6 * scale,
-                  f"K9 {nm}[{b}] err {err} > 1e-6*{scale}")
-            k9_err = max(k9_err, err)
-    rz_err = float(((got[3] - ref[3]).abs() / ref[3].abs()).max())
-    check(rz_err <= 1e-6, f"K9 rz rel err {rz_err}")
+    for nm, g, e in zip(("x", "r", "p", "rz"), got[:4], ref[:4]):
+        err = float((g - e).abs().max())
+        check(bool(torch.equal(g, e)),
+              f"K9 {nm}: max|kernel - plain| {err} (bit-equal expected)")
+        k9_err = max(k9_err, err)
     for g, s0 in zip(got[:3], (x4, r4, p4)):
         check(bool(torch.equal(g[1], s0[1])), "K9 frozen image changed")
     phase(26, t0, f"K9 vs plain, B=4 x {C3_SIZE}^2 fp32, SP=4, k=5: k_done "
-          f"{kd}, "
-          f"max abs err x/r/p {k9_err:.3e}, rz max rel err {rz_err:.3e}; "
+          f"{kd}, max abs err x/r/p/rz {k9_err:.3e}, bit-equal True; "
           f"graph route ({replays} replays) bit-equal to the host loop in "
-          f"x, r, p, rz and k_done")
+          f"x, r, p, rz and k_done; in the kernel's window "
+          f"{watch.strips} strip exchanges, {watch.gathers} coarse gathers "
+          f"or splits")
     del got, ref, loop
 
     # -- 27: BASELINE config 3 through sharded_solve_mgcg
@@ -1904,8 +1982,9 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         cyc0 = lib.deff_image_cycle_count()
         rep0 = cg_steps_sharded.replays
         t1 = time.perf_counter()
-        res = halo.sharded_solve_mgcg(c, s, x0, m, **kw)
-        torch.cuda.synchronize()
+        with K9Watch() as watch:
+            res = halo.sharded_solve_mgcg(c, s, x0, m, **kw)
+            torch.cuda.synchronize()
         t_first = time.perf_counter() - t1
         launched = counts()
         replays = cg_steps_sharded.replays - rep0
@@ -1926,7 +2005,12 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
         check(cycles == iters + launched["K9"] + 1,
               f"config 3 {name}: {cycles} K2 image cycles for {iters} live "
               f"iterations and {launched['K9']} windows")
-        check(replays > 0, f"config 3 {name}: no K9 graph replays")
+        check(0 < replays <= iters + WINDOW_LAG * launched["K9"],
+              f"config 3 {name}: {replays} K9 graph replays for {iters} "
+              f"live iterations in {launched['K9']} windows")
+        check(watch.strips == 0 and watch.gathers == 0,
+              f"config 3 {name}: {watch.strips} strip exchanges and "
+              f"{watch.gathers} coarse gathers or splits in K9's windows")
         if size == C3_SIZE:
             plain = halo.sharded_solve_mgcg(c, s, x0, m, plain=True, **kw)
             p_deff, p_iters = float(plain.deff), int(plain.iters)
@@ -1983,7 +2067,10 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
               f"{', '.join(f'{t:.4f}' for t in times)} s, "
               f"{min(times) / iters * 1e3:.4f} ms/iteration, peak memory "
               f"{peak / 2**30:.3f} GiB, launches {launched}, K9 graph "
-              f"replays {replays}, K2 image cycles (device count) "
+              f"replays {replays} (at most {iters} + {WINDOW_LAG} a "
+              f"window), in K9's windows {watch.strips} strip exchanges and "
+              f"{watch.gathers} coarse gathers or splits, K2 image cycles "
+              f"(device count) "
               f"{cycles} = {iters} live iterations + {launched['K9'] + 1} "
               f"fresh and refresh{turns}")
         t0 = time.perf_counter()
@@ -2081,28 +2168,23 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
             inf = torch.full((bsz,), float("inf"), device=dev)
 
             def k9(fn, plain, reps, graph=True):
-                """A K9 call of K9_TIME_K iterations on fresh shards; the
-                kernel calls share one workspace (the graph route captures
-                in the first, the warm-up) and one coarse callable."""
+                """A K9 call of K9_TIME_K iterations on fresh shards, as
+                the solver makes it (``fused2d.k9_coarse``); the kernel
+                calls share one workspace (the graph route captures in the
+                first, the warm-up) and one coarse callable."""
                 states = [[mesh.shard_rows(m, t)[0] for t in (xb, rb, pb)]
                           for _ in range(reps)]
-                work = []
-
-                def coarse(rc, live):
-                    return fused2d.v_cycle_sharded_fused(
-                        hier, cw, rc, level=1, tail=tail, plain=plain,
-                        live=live, **MG3)
+                kw9 = fused2d.k9_coarse(hier, cw, states[0][0], tail=tail,
+                                        plain=plain, **MG3)
 
                 def call():
                     xs, rs_, ps = states.pop()
-                    kw9 = {}
-                    if not plain:
-                        if not work:
-                            work.append(ShardWorkspace(cw[0], xs, graph))
-                        kw9 = dict(workspace=work[0])
+                    if not plain and "workspace" not in kw9:
+                        kw9["workspace"] = ShardWorkspace(
+                            cw[0], xs, graph, kw9.get("coarse_plane"))
                     fn(cw[0], xs, rs_, ps, rzb, ones, zero, inf, K9_TIME_K,
-                       coarse=coarse, omega=MG3["omega"], nu=MG3["nu"],
-                       over=MG3["over"], **kw9)
+                       omega=MG3["omega"], nu=MG3["nu"], over=MG3["over"],
+                       **kw9)
                 return call
 
             n0 = lib.deff_launch_count()
@@ -2112,6 +2194,9 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
             tt = [cuda_ms(k9(cg_steps_sharded, False, 4, graph=g), 3)
                   for g in (True, False, False, True)]
             ms9, ms9_loop = min(tt[0], tt[3]), min(tt[1], tt[2])
+            passes = [kernel_device_us(k9(cg_steps_sharded, False, 3), 2,
+                                       (frag,))
+                      for frag in K9_PASSES]
             ms9_p = cuda_ms(k9(cg_steps_sharded_reference, True, 2), 1)
             bd9 = bound(*sharded_work(hier, tail, sp, bsz, item, MG3["nu"],
                                       K9_TIME_K), item)
@@ -2125,7 +2210,10 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
                 f"({ms9_loop / K9_TIME_K:.4f}; turns graph, loop, loop, "
                 f"graph {', '.join(f'{t:.4f}' for t in tt)} ms); plain "
                 f"{ms9_p:.4f} ms, bound {bd9[0]:.4f} ms by {bd9[1]}, "
-                f"{per_iter:g} library launches/iteration")
+                f"{per_iter:g} library launches/iteration; device "
+                + (", ".join(f"pass {nm} {us[0] / 1e3:.4f} ms" for nm, us in
+                             zip("PXZ", passes)) + f" of {passes[0][1] / 1e3:.4f}"
+                   if all(passes) else "not measured"))
             del hier, cw, tail, rs, pb, rows
     phase(29, t0, f"K8/K9 times {card}, {C3_SIZE}^2 fp32: " + "; ".join(lines))
     t0 = time.perf_counter()

@@ -75,26 +75,7 @@ struct Fine2 {
   int ny, nx;
 };
 
-// Damping factors of one V(nu, nu) leg, by value into the kernels.
-struct WK {
-  double w[MAX_NU];
-};
-
-// for_cells with a halo h known only at run time: the H-halo array's cells
-// at least H - h from its edge.
-template <int H, typename F>
-__device__ __forceinline__ void for_ring(int h, int i0, int j0, int ny,
-                                         int nx, F f) {
-  using RG = Reg<H>;
-  const int m = H - h;
-  for (int c = threadIdx.x; c < RG::N; c += THREADS) {
-    const int a = c / RG::W, bcol = c - a * RG::W;
-    if (a < m || a >= RG::R - m || bcol < m || bcol >= RG::W - m) continue;
-    const int gi = i0 - H + a, gj = j0 - H + bcol;
-    if (gi < 0 || gi >= ny || gj < 0 || gj >= nx) continue;
-    f(c, gi, gj);
-  }
-}
+static_assert(MAX_NU <= WK_MAX, "a leg's damping factors fit WK");
 
 // The level-0 windows AW, AN, DI of a pass with halo H: staged (stored) or
 // rebuilt from the staged D window DW (matrix-free).

@@ -1,7 +1,8 @@
 // The level-0 tile scaffolding of the 2D CG passes (K1, cgstep.cu; K5,
-// cgstep_tiled.cu): 64x16 tiles of THREADS threads, each staged in shared
-// memory with a halo by cp.async, the cells of a ring inside that halo
-// visited by compile-time widths, and the neighbour sum on staged arrays.
+// cgstep_tiled.cu; K9, cgstep_sharded.cu): 64x16 tiles of THREADS
+// threads, each staged in shared memory with a halo by cp.async, the cells
+// of a ring inside that halo visited by compile-time widths, and the
+// neighbour sum on staged arrays.
 #pragma once
 
 #include "vcycle.cuh"
@@ -75,6 +76,28 @@ __device__ __forceinline__ void for_cells(int i0, int j0, int ny, int nx,
     f((a + H - h) * Reg<H>::W + (bcol + H - h), gi, gj);
   }
 }
+
+// for_cells with a halo h known only at run time: the H-halo array's cells
+// at least H - h from its edge.
+template <int H, typename F>
+__device__ __forceinline__ void for_ring(int h, int i0, int j0, int ny,
+                                         int nx, F f) {
+  using RG = Reg<H>;
+  const int m = H - h;
+  for (int c = threadIdx.x; c < RG::N; c += THREADS) {
+    const int a = c / RG::W, bcol = c - a * RG::W;
+    if (a < m || a >= RG::R - m || bcol < m || bcol >= RG::W - m) continue;
+    const int gi = i0 - H + a, gj = j0 - H + bcol;
+    if (gi < 0 || gi >= ny || gj < 0 || gj >= nx) continue;
+    f(c, gi, gj);
+  }
+}
+
+// Damping factors of one V(nu, nu) leg, by value into the kernels.
+constexpr int WK_MAX = 8;
+struct WK {
+  double w[WK_MAX];
+};
 
 // nbsum (vcycle.cuh) on staged arrays of row width W: the same terms in the
 // same order, with the grid bounds taken from the global index.

@@ -1,5 +1,6 @@
 // Leaving a CG window once no image is live, shared by the host loops of
-// K1 (cgstep.cu), K5 (cgstep_tiled.cu) and K7 (cgstep3d.cu).
+// K1 (cgstep.cu), K5 (cgstep_tiled.cu) and K7 (cgstep3d.cu), and by K9's
+// graph replays (cgstep_sharded.cu, a ring of its own per workspace).
 //
 // The JAX windows are while_loops that stop at the first iteration that
 // starts with no live image ((i < k) & any(live)).  The liveness lives on
@@ -48,6 +49,19 @@ struct WindowRing {
   int last = -1;                        // the previous window's last event
 };
 
+// The ring's pinned, mapped flags and their events, on the current device.
+inline cudaError_t ring_alloc(WindowRing& r) {
+  cudaError_t e = cudaHostAlloc(reinterpret_cast<void**>(&r.host),
+                                WINDOW_RING * sizeof(int),
+                                cudaHostAllocMapped | cudaHostAllocPortable);
+  if (e == cudaSuccess)
+    e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&r.dev), r.host,
+                                 0);
+  for (int j = 0; j < WINDOW_RING && e == cudaSuccess; ++j)
+    e = cudaEventCreateWithFlags(&r.ev[j], cudaEventDisableTiming);
+  return e;
+}
+
 inline WindowRing& window_ring(int device) {
   static WindowRing rings[WINDOW_DEVICES];
   return rings[device];
@@ -67,15 +81,7 @@ class WindowExit {
     ring_ = &window_ring(d);
     lock_ = std::unique_lock<std::mutex>(ring_->mu);
     if (ring_->host == nullptr) {
-      err_ = cudaHostAlloc(reinterpret_cast<void**>(&ring_->host),
-                           WINDOW_RING * sizeof(int),
-                           cudaHostAllocMapped | cudaHostAllocPortable);
-      if (err_ == cudaSuccess)
-        err_ = cudaHostGetDevicePointer(reinterpret_cast<void**>(&ring_->dev),
-                                        ring_->host, 0);
-      for (int j = 0; j < WINDOW_RING && err_ == cudaSuccess; ++j)
-        err_ = cudaEventCreateWithFlags(&ring_->ev[j],
-                                        cudaEventDisableTiming);
+      err_ = ring_alloc(*ring_);
       if (err_ != cudaSuccess) { ring_ = nullptr; return; }
     }
     if (ring_->last >= 0) err_ = cudaEventSynchronize(ring_->ev[ring_->last]);

@@ -60,10 +60,14 @@ _ENTRIES = {
     "deff_march3_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
     "deff_shard_tiles": ([_I, _I], _I),
     "deff_shard_row_max": ([], _I),
+    # K9's window ring (csrc/cgstep_sharded.cu)
+    "deff_shard_ring_new": ([], _P),
+    "deff_shard_ring_free": ([_P], None),
+    "deff_shard_ring_flag": ([_P, _I], _P),
+    "deff_shard_ring_mark": ([_P, _I, _P], _I),
+    "deff_shard_ring_live": ([_P, _I], _I),
 }
 for _t in ("f32", "f64"):
-    # the sharded entries take their planes as one array of pointers (a
-    # shard body and its north/south strips for each plane)
     # K8's row entries take per shard a table of pointers and one of image
     # strides (ops/kernels/vcycle_sharded.py, ShardRow)
     _ENTRIES[f"deff_shard_row_t1_{_t}"] = (
@@ -79,26 +83,27 @@ for _t in ("f32", "f64"):
          _I, _I, _P], _I)           # partials per image, offset, stream
     _ENTRIES[f"deff_shard_fin_{_t}"] = (
         [_I, _I, _P, _I,            # kind, B, state[], partials per image
-         _P, _P], _I)               # active (init only), stream
-    _ENTRIES[f"deff_shard_pass_a_{_t}"] = (
-        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
-         _P, _P,                    # planes[], p (out)
-         _P, _I, _I, _I, _P], _I)   # state[], per image, offset, nu, stream
+         _P, _P, _P], _I)           # active (init only), window flag, stream
     _ENTRIES[f"deff_shard_select_{_t}"] = (
         [_I, _I,                    # B, cells a plane
          _P, _P, _P,                # r (out), r buffers 0 and 1
          _P, _P, _P,                # p (out), p buffers 0 and 1
          _P, _P], _I)               # parity per image, stream
-    _ENTRIES[f"deff_shard_pass_b_{_t}"] = (
-        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
-         _P, _P, _P, _P, _P,        # planes[], x, r (out), e, coarse residual
-         _P, _I, _I,                # state[], per image, offset
-         _P, _I, _P], _I)           # ws[], nu, stream
-    _ENTRIES[f"deff_shard_pass_c_{_t}"] = (
-        [_I, _I, _I, _I,            # B, ny_local, nx, strip rows
-         _P, _P, _D,                # planes[], z, over
-         _P, _I, _I,                # state[], per image, offset
-         _P, _I, _P], _I)           # ws[], nu, stream
+    # K9's passes take per shard of a launch a table of pointers and one of
+    # image strides (ops/kernels/cgstep_sharded.py, ShardWorkspace), and
+    # each shard's place in the row
+    _ENTRIES[f"deff_shard_p_{_t}"] = (
+        [_I, _I, _I, _I, _I,        # shards, shards of the row, B, ny_l, nx
+         _P, _P, _P,                # pointer table, stride table, places
+         _P, _P], _I)               # state[], stream
+    _ENTRIES[f"deff_shard_x_{_t}"] = (
+        [_I, _I, _I, _I, _I,        # shards, shards of the row, B, ny_l, nx
+         _P, _P, _P,                # pointer table, stride table, places
+         _P, _P, _I, _P], _I)       # state[], ws[], nu, stream
+    _ENTRIES[f"deff_shard_z_{_t}"] = (
+        [_I, _I, _I, _I, _I,        # shards, shards of the row, B, ny_l, nx
+         _P, _P, _P,                # pointer table, stride table, places
+         _P, _P, _I, _D, _P], _I)   # state[], ws[], nu, over, stream
     _ENTRIES[f"deff_v_cycle_{_t}"] = (
         [_I, _I, _P, _P,            # B, L, ny[], nx[]
          _P, _P, _P,                # aw[], an[], dinv[] (pointer arrays)

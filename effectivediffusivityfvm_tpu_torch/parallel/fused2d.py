@@ -41,7 +41,7 @@ from .halo import (ShardedHierarchy, _gathered_levels, _v_cycle_sharded_2d,
 from .mesh import halo_strips
 
 __all__ = ["v_cycle_sharded_fused", "fused_shard_level_ok", "shard_band",
-           "build_fused_tail"]
+           "build_fused_tail", "k9_coarse"]
 
 
 def shard_band(ny_local: int, nx: int, itemsize: int = 4) -> int:
@@ -123,6 +123,58 @@ def _shard_row(hier, coef_wins, level, tail, rs):
     return row
 
 
+def _tail_in_place(hier, tail, level, row, *, nu, omega, coarse_iters, over,
+                   plain=False, live=None):
+    """The gathered K2 tail below ``level`` on ``row.gathered`` (the
+    shards' restrictions at their rows), read in place: its correction
+    plane.  ``live`` (per shard, ``(B,)``) gates it: an image whose flag is
+    0 gets a zero correction."""
+    levels = _next_gathered(hier, tail, level)[0]
+    act = None if live is None else live[0].to(row.device)
+    mg = dict(omega=omega, coarse_iters=coarse_iters, over=over)
+    if plain:
+        return v_cycle_reference(levels, row.gathered, nu=nu, active=act,
+                                 **mg)
+    return v_cycle(levels, row.gathered, nu=nu, active=act,
+                   level_args=row.tail_args, **mg)
+
+
+def k9_coarse(hier, coef_wins, xs, *, nu, omega, coarse_iters, over,
+              tail=None, plain=False, rows=None):
+    """K9's coarse arguments for a row whose level-0 shards are like ``xs``
+    (:func:`~..ops.kernels.cgstep_sharded.cg_steps_sharded`'s ``coarse``
+    and ``coarse_plane``).  Where level 0's K8 tables restrict into the
+    gathered tail's plane (every shard on one device, the next level that
+    tail, no padding: :func:`_shard_row`), ``coarse_plane`` is that plane
+    and ``coarse(plane, live)`` runs K2 on it in place, so that K9
+    restricts into it and reads the correction from K2's output: no gather
+    and no split.  Elsewhere ``coarse(rcs, live)`` runs the cycle from
+    level 1 on the shards' restricted residuals.  ``rows`` is the solve's
+    dict of K8 tables (:func:`v_cycle_sharded_fused`); its level-0 entry is
+    made here if missing."""
+    mg = dict(nu=nu, omega=omega, coarse_iters=coarse_iters, over=over,
+              plain=plain)
+    rows = {} if rows is None else rows
+
+    def cycle(rcs, live):
+        return v_cycle_sharded_fused(hier, coef_wins, rcs, level=1,
+                                     tail=tail, live=live, rows=rows, **mg)
+
+    if 0 not in rows:
+        rows[0] = _shard_row(hier, coef_wins, 0, tail, xs)
+    row = rows[0]
+    if row.gathered is None:
+        return dict(coarse=cycle)
+
+    def on_plane(plane, live):
+        if plane is not row.gathered:
+            raise ValueError("k9_coarse: the correction is made on the "
+                             "tail's own plane")
+        return _tail_in_place(hier, tail, 0, row, live=live, **mg)
+
+    return dict(coarse=on_plane, coarse_plane=row.gathered)
+
+
 def v_cycle_sharded_fused(hier: ShardedHierarchy, coef_wins, rs, *, nu,
                           omega, coarse_iters, over, level=0, tail=None,
                           plain=False, live=None, rows=None):
@@ -160,14 +212,8 @@ def v_cycle_sharded_fused(hier: ShardedHierarchy, coef_wins, rs, *, nu,
     r_src = neighbour_sources([r.contiguous() for r in rs], HALO)
     es, rcs = t1(row, r_src, omega=omega, nu=nu)
     if row.gathered is not None:
-        levels = _next_gathered(hier, tail, level)[0]
-        act = None if live is None else live[0].to(row.device)
-        if plain:
-            ec_src = v_cycle_reference(levels, row.gathered, nu=nu,
-                                       active=act, **mg)
-        else:
-            ec_src = v_cycle(levels, row.gathered, nu=nu, active=act,
-                             level_args=row.tail_args, **mg)
+        ec_src = _tail_in_place(hier, tail, level, row, nu=nu, plain=plain,
+                                live=live, **mg)
     else:
         e_c = v_cycle_sharded_fused(hier, coef_wins, rcs, nu=nu,
                                     level=level + 1, tail=tail, plain=plain,

@@ -3,10 +3,11 @@ every shard, K8's sharded cycle levels below them, and the outer driver
 with checks, refresh and the divergence net (torch port of
 ``effectivediffusivityfvm_tpu.parallel.fused2d_cg``).
 
-One iteration (``ops/kernels/cgstep_sharded.py``): pass A (``p = z + beta
+One iteration (``ops/kernels/cgstep_sharded.py``): pass P (``p = z + beta
 p``, ``q = A p``, partial ``<p, q>``), the per-image sum over the shards and
-alpha, pass B (``x``, ``r`` and T1), the coarse levels from level 1
-(:func:`.fused2d.v_cycle_sharded_fused`), pass C (T2 and partial ``<r,
+alpha, pass X (``x``, ``r`` and T1), the coarse levels from level 1
+(:func:`.fused2d.k9_coarse`: K2 on the gathered tail's plane in place, or
+:func:`.fused2d.v_cycle_sharded_fused`), pass Z (T2 and partial ``<r,
 z>``), beta.  Every shard of an image reads the same sums, so the shards
 stay in lockstep.
 
@@ -25,8 +26,8 @@ import torch
 from ..ops.kernels.cgstep_sharded import (ShardWorkspace, cg_steps_sharded,
                                           cg_steps_sharded_reference)
 from ..ops.kernels.vcycle_sharded import HALO
-from .fused2d import (_coef_windows, build_fused_tail, shard_band,
-                      v_cycle_sharded_fused)
+from .fused2d import (_coef_windows, build_fused_tail, k9_coarse,
+                      shard_band, v_cycle_sharded_fused)
 from .halo import (_build_sharded_hierarchy_2d, _deff_local,
                    _neighbor_sum_2d_local)
 from .mesh import psum
@@ -56,20 +57,24 @@ class _Row:
         self.kw = dict(nu=nu, tail=self.tail, plain=plain, **mg)
         self.npts = ny_l * c_row[0].diag.shape[-1] * len(c_row)
         self.k9 = None          # K9's workspace, kept for the whole solve
+        self.k9_kw = None       # K9's coarse arguments, likewise
         self.k8 = {}            # K8's tables per level, likewise
 
-    def coarse(self, rcs, live):
-        """K9's coarse callable: the cycle from level 1."""
-        return self.cycle(rcs, level=1, live=live)
-
     def cg_kwargs(self, xs):
-        """The keywords of K9's windows: on a card, the solve's workspace
-        (its buffers and graphs live as long as the solve)."""
+        """The keywords of K9's windows: its coarse arguments
+        (:func:`.fused2d.k9_coarse`: the gathered tail's plane restricted
+        into and read in place where it can be) and, on a card, the solve's
+        workspace (its buffers and graphs live as long as the solve)."""
+        if self.k9_kw is None:
+            self.k9_kw = k9_coarse(self.hier, self.coef_wins, xs,
+                                   rows=self.k8, **self.kw)
         if self.kw["plain"] or xs[0].device.type != "cuda":
-            return {}
+            return dict(self.k9_kw)
         if self.k9 is None:
-            self.k9 = ShardWorkspace(self.coef_wins[0], xs)
-        return dict(workspace=self.k9)
+            self.k9 = ShardWorkspace(
+                self.coef_wins[0], xs,
+                coarse_plane=self.k9_kw.get("coarse_plane"))
+        return dict(self.k9_kw, workspace=self.k9)
 
     def cycle(self, rs, level=0, live=None):
         return v_cycle_sharded_fused(self.hier, self.coef_wins, rs,
@@ -177,7 +182,7 @@ def run_mgcg_sharded_fused(c_rows, s_rows, x_rows, *, tol, max_iter,
             out = cg_fn([c for c in row.coef_wins[0]], x[d], r[d], p[d],
                         part(rz, d), part(active.to(dtype), d),
                         part(stop_sum, d), part(hi_sum, d), k,
-                        coarse=row.coarse, omega=mg_omega, nu=nu, over=over,
+                        omega=mg_omega, nu=nu, over=over,
                         **row.cg_kwargs(x[d]))
             x[d], r[d], p[d] = out[0], out[1], out[2]
             rz_rows.append(out[3])

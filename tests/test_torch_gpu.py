@@ -705,17 +705,43 @@ def test_shard_cycle_kernels_match_plain(cuda, sp, dtype, nu, monkeypatch):
         assert torch.equal(g, e), float((g - e).abs().max())
 
 
-@pytest.mark.parametrize("nu", [1, 2])
+def _no_strips_or_gathers(mp):
+    """Make every strip exchange and every gather of coarse planes raise."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import (
+        cgstep_sharded, vcycle_sharded)
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, halo, mesh
+
+    def refuse(*a, **k):
+        raise AssertionError("a strip was exchanged or a coarse plane "
+                             "gathered on one device")
+
+    for mod, name in ((mesh, "halo_strips"), (vcycle_sharded, "halo_strips"),
+                      (cgstep_sharded, "halo_strips"),
+                      (fused2d, "halo_strips"), (fused2d, "gathered_cycle"),
+                      (halo, "all_gather"), (mesh, "all_gather")):
+        mp.setattr(mod, name, refuse)
+
+
+@pytest.mark.parametrize("nu", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("sp", [1, 2, 4])
-def test_shard_cg_steps_kernel_matches_plain(cuda, sp, dtype, nu):
-    """Image 0 runs the window, 1 is frozen, 2 exits at iteration 0 on its
-    stop, 3 overshoots (rz inflated) and trips its hi after one step."""
+@pytest.mark.parametrize("sp,ny", [(1, 64), (2, 64), (4, 64), (4, 72)])
+def test_shard_cg_steps_kernel_matches_plain(cuda, sp, ny, dtype, nu,
+                                             monkeypatch):
+    """K9 in the solver's form (``fused2d.k9_coarse``: the restrictions
+    written into the gathered tail's plane, the correction read from K2's
+    output in place) against its plain version: float32 bit for bit,
+    float64 within TOL (the double partials summed in another order).  At
+    SP=4 with 72 rows a shard holds 18, so its last tile row is partial.
+    The kernel's window exchanges no strip and gathers or splits no coarse
+    plane.  Image 0 runs the window, 1 is frozen, 2 exits at iteration 0
+    on its stop, 3 overshoots (rz inflated) and trips its hi after one
+    step."""
     from effectivediffusivityfvm_tpu_torch.ops.kernels import cgstep_sharded
     from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
 
-    m, c, hier, cw, tail, x, r = _sharded_problem(cuda, dtype, 4, 64, 40, sp,
+    m, c, hier, cw, tail, x, r = _sharded_problem(cuda, dtype, 4, ny, 40, sp,
                                                   seed=1)
+    sched = dict(SHARD_MG, omega=SCHEDULES[nu])
     p = r * c.diag_inv
     rz = torch.sum(r * p, dim=(-2, -1))
     sr0 = torch.sum(r.abs(), dim=(-2, -1))
@@ -728,25 +754,80 @@ def test_shard_cg_steps_kernel_matches_plain(cuda, sp, dtype, nu):
 
     def run(fn, plain):
         xs, rs, ps = (mesh.shard_rows(m, t)[0] for t in (x, r, p))
+        kw = fused2d.k9_coarse(hier, cw, xs, nu=nu, tail=tail, plain=plain,
+                               **sched)
+        assert "coarse_plane" in kw
         out = fn(cw[0], xs, rs, ps, rz.clone(), active, stop, hi, 4,
-                 coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
-                     hier, cw, rc, nu=nu, level=1, tail=tail, plain=plain,
-                     live=live, **SHARD_MG),
-                 omega=0.8, nu=nu, over=1.8)
+                 omega=sched["omega"], nu=nu, over=sched["over"], **kw)
         return [torch.cat(out[i], dim=-2) for i in range(3)] + list(out[3:])
 
     before = cgstep_sharded.cg_steps_sharded.launches
-    got = run(cgstep_sharded.cg_steps_sharded, False)
+    exchanges = cgstep_sharded.cg_steps_sharded.exchanges
+    with monkeypatch.context() as mp:
+        _no_strips_or_gathers(mp)
+        got = run(cgstep_sharded.cg_steps_sharded, False)
+        torch.cuda.synchronize()
     ref = run(cgstep_sharded.cg_steps_sharded_reference, True)
     torch.cuda.synchronize()
     assert cgstep_sharded.cg_steps_sharded.launches == before + 1
-    assert got[4].tolist() == ref[4].tolist() == [4, 0, 0, 1]
-    for g, e in zip(got[:3], ref[:3]):
-        for b in range(4):
-            assert _rel_err(g[b], e[b]) <= TOL[dtype]
-    torch.testing.assert_close(got[3], ref[3], rtol=10 * TOL[dtype], atol=0)
-    for g, s in zip(got[:3], (x, r, p)):
-        assert torch.equal(g[1], s[1])          # frozen: bit-unchanged
+    assert cgstep_sharded.cg_steps_sharded.exchanges == exchanges
+    _check_cg_window(got, ref, (x, r, p, rz), dtype, exact_frozen=True)
+
+
+@pytest.mark.parametrize("layout", ["pairs", "spread"])
+def test_shard_cg_steps_across_devices(cuda, layout):
+    """K9's host loop with the shards of a row on several cards (``pairs``:
+    two shards a card, the neighbours on one card read in place and the
+    pair across cards through strips; ``spread``: one shard a card) against
+    its plain version, float32 bit for bit: one launch a pass a card, the
+    partials copied between the cards before each finalize."""
+    from effectivediffusivityfvm_tpu_torch.ops.kernels import cgstep_sharded
+    from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
+
+    need = 2 if layout == "pairs" else 4
+    if torch.cuda.device_count() < need:
+        pytest.skip(f"needs {need} CUDA devices")
+    devs = [torch.device("cuda", i) for i in (
+        (0, 0, 1, 1) if layout == "pairs" else (0, 1, 2, 3))]
+    dtype = torch.float32
+    _, c, _, _ = _problem(cuda, dtype, 4, 64, 40, seed=1)
+    m = mesh.make_mesh(4, devices=devs)
+    sh = [mesh.shard_rows(m, a)[0] for a in c]
+    row = [fvm.StencilCoeffs(*(f[s] for f in sh)) for s in range(4)]
+    from effectivediffusivityfvm_tpu_torch.parallel import halo
+
+    hier = halo._build_sharded_hierarchy_2d(row, 16, min_size=4)
+    cw = fused2d._coef_windows(hier.sharded)
+    tail = fused2d.build_fused_tail(hier.sharded, 4)
+    x = torch.arange(40, dtype=dtype, device=cuda).div(40).expand(
+        4, 64, 40).contiguous()
+    r = c.b - fvm.apply_operator(c, x)
+    p = r * c.diag_inv
+    rz = torch.sum(r * p, dim=(-2, -1))
+    sr0 = torch.sum(r.abs(), dim=(-2, -1))
+    rz[3] *= 1e3
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0], dtype=dtype, device=cuda)
+    stop = torch.zeros_like(sr0)
+    stop[2] = 10 * sr0[2]
+    hi = torch.full_like(sr0, float("inf"))
+    hi[3] = 2 * sr0[3]
+
+    def run(fn, plain):
+        xs, rs, ps = (mesh.shard_rows(m, t)[0] for t in (x, r, p))
+        kw = fused2d.k9_coarse(hier, cw, xs, nu=2, tail=tail, plain=plain,
+                               **SHARD_MG)
+        out = fn(cw[0], xs, rs, ps, rz.clone(), active, stop, hi, 4,
+                 omega=SHARD_MG["omega"], nu=2, over=SHARD_MG["over"], **kw)
+        return ([torch.cat([t.to(cuda) for t in out[i]], dim=-2)
+                 for i in range(3)] + list(out[3:]))
+
+    exchanges = cgstep_sharded.cg_steps_sharded.exchanges
+    got = run(cgstep_sharded.cg_steps_sharded, False)
+    assert cgstep_sharded.cg_steps_sharded.exchanges > exchanges
+    ref = run(cgstep_sharded.cg_steps_sharded_reference, True)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    _check_cg_window(got, ref, (x, r, p, rz), dtype, exact_frozen=True)
 
 
 def test_sharded_solve_on_gpu_matches_plain_on_cpu(cuda):
@@ -769,10 +850,39 @@ def test_sharded_solve_on_gpu_matches_plain_on_cpu(cuda):
     torch.testing.assert_close(got.deff.cpu(), ref.deff, rtol=1e-9, atol=0)
 
 
+def test_sharded_solve_across_devices_matches_one_card(cuda):
+    """The fused sharded MGCG solve with its four shards on four cards (K8's
+    and K9's host loops, strips between the cards) against the same solve
+    on four shards of one card (K9's graph route, neighbours read in
+    place): the same iterations and Deff (float64; the sums run in the
+    same order on both)."""
+    from effectivediffusivityfvm_tpu_torch.parallel import halo, mesh
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    d, c, _, _ = _problem(cuda, torch.float64, 2, 64, 40, seed=2)
+    spec = make_flux_spec(d, 0.0, 1.0)
+    x0 = torch.arange(40, dtype=torch.float64, device=cuda).div(40)
+    x0 = x0.expand(2, 64, 40)
+    kw = dict(tol=1e-6, max_iter=200, check_every=10,
+              criterion="relresidual", nu1=2, nu2=2, min_size=4,
+              coarse_iters=8)
+    one = halo.sharded_solve_mgcg(c, spec, x0,
+                                  mesh.make_mesh(4, devices=[cuda] * 4), **kw)
+    four = halo.sharded_solve_mgcg(
+        c, spec, x0, mesh.make_mesh(4, devices=[torch.device("cuda", i)
+                                                for i in range(4)]), **kw)
+    assert four.iters.cpu().tolist() == one.iters.cpu().tolist()
+    torch.testing.assert_close(four.deff.cpu(), one.deff.cpu(), rtol=1e-12,
+                               atol=0)
+
+
 def test_shard_cg_steps_window_ends_with_the_last_live_image(cuda):
     """K9 on two images that both reach their stop at iteration 3 of a k=10
-    window: the K2 tail does work in three iterations for each image (the
-    device count of image cycles; the other seven replays are gated), and
+    window: the graph route replays at most WINDOW_LAG iterations after the
+    third (it reads a flag the live finalize marks, one iteration behind),
+    the K2 tail does work in three iterations for each image (the device
+    count of image cycles; a replay after the last live one is gated), and
     x/r/p equal a k=3 window's."""
     from effectivediffusivityfvm_tpu_torch.ops.kernels import cgstep_sharded
     from effectivediffusivityfvm_tpu_torch.parallel import fused2d, mesh
@@ -809,7 +919,9 @@ def test_shard_cg_steps_window_ends_with_the_last_live_image(cuda):
     r0 = cgstep_sharded.cg_steps_sharded.replays
     got, kd, cycles = run(10, stop)
     assert kd == [3, 3]
-    assert cgstep_sharded.cg_steps_sharded.replays == r0 + 10
+    # the window leaves at most WINDOW_LAG replays after the last live one
+    replays = cgstep_sharded.cg_steps_sharded.replays - r0
+    assert 3 <= replays <= 3 + cgstep_sharded.WINDOW_LAG
     assert cycles == 2 * 3                      # live iterations, no more
     for g, w in zip(got, planes):
         assert torch.equal(g, w)

@@ -299,6 +299,30 @@ def test_k8_wrappers_take_cpu_plain_and_refuse_other_devices():
 
 # ---------------------------------------------------- K9: CG steps (plain)
 
+def _jax_k9_steps(jc, n, ny, k, arrays):
+    """JAX's ``_cg_steps_sharded`` (V(2,2), omega 0.8, min_size 8) over
+    ``n`` shards of the system ``jc`` on the torch ``arrays`` (x, r, p, rz,
+    active, stop, hi)."""
+    g3 = P(None, "sp", None)
+
+    @functools.partial(
+        shard_map, mesh=_jax_sp_mesh(n),
+        in_specs=(jfvm.StencilCoeffs(*([g3] * 7)), g3, g3, g3, P(), P(), P(),
+                  P()),
+        out_specs=(g3, g3, g3, P(), P()), check_vma=False)
+    def steps(c_l, x_l, r_l, p_l, rz_, act, stop_, hi_):
+        sh, rep = jhalo._build_sharded_hierarchy_2d(c_l, ny // n, "sp",
+                                                    min_size=8)
+        jcw = jfused._coef_windows(sh, "sp")
+        jtail = jfused.build_fused_tail(sh, "sp", 8)
+        return jfused_cg._cg_steps_sharded(
+            sh, rep, jcw, x_l, r_l, p_l, rz_, act, stop_, hi_, k, nu=2,
+            omega=0.8, coarse_iters=8, over=1.8, axis_name="sp",
+            reduce_any=jnp.any, interpret=True, tail=jtail)
+
+    return jax.jit(steps)(jc, *(jnp.asarray(t.numpy()) for t in arrays))
+
+
 def test_k9_plain_cg_steps_match_jax():
     """k=3 fused sharded CG iterations on 4 images at SP=4: one live, one
     frozen, one that exits at iteration 0 and one tripped by its divergence
@@ -330,31 +354,62 @@ def test_k9_plain_cg_steps_match_jax():
             hier, cw, rc, level=1, tail=tail, live=live, **MG),
         omega=0.8, nu=2, over=1.8)
 
-    g3 = P(None, "sp", None)
-
-    @functools.partial(
-        shard_map, mesh=_jax_sp_mesh(n),
-        in_specs=(jfvm.StencilCoeffs(*([g3] * 7)), g3, g3, g3, P(), P(), P(),
-                  P()),
-        out_specs=(g3, g3, g3, P(), P()), check_vma=False)
-    def steps(c_l, x_l, r_l, p_l, rz_, act, stop_, hi_):
-        sh, rep = jhalo._build_sharded_hierarchy_2d(c_l, ny // n, "sp",
-                                                    min_size=8)
-        jcw = jfused._coef_windows(sh, "sp")
-        jtail = jfused.build_fused_tail(sh, "sp", 8)
-        return jfused_cg._cg_steps_sharded(
-            sh, rep, jcw, x_l, r_l, p_l, rz_, act, stop_, hi_, k, nu=2,
-            omega=0.8, coarse_iters=8, over=1.8, axis_name="sp",
-            reduce_any=jnp.any, interpret=True, tail=jtail)
-
-    ref = jax.jit(steps)(jc, *(jnp.asarray(t.numpy()) for t in
-                               (x, r, p, rz, active, stop, hi)))
+    ref = _jax_k9_steps(jc, n, ny, k, (x, r, p, rz, active, stop, hi))
     assert out[4].tolist() == np.asarray(ref[4]).tolist() == [3, 0, 0, 1]
     for got, want in zip(out[:3], ref[:3]):
         want = np.asarray(want)
         np.testing.assert_allclose(_joined(got), want, rtol=1e-10,
                                    atol=1e-10 * np.abs(want).max())
     np.testing.assert_allclose(out[3].numpy(), np.asarray(ref[3]),
+                               rtol=1e-10)
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_k9_plain_on_the_tail_plane_matches_split_form_and_jax(n):
+    """K9's plain version in the solver's form (``fused2d.k9_coarse``: each
+    shard's restriction written at its rows of the gathered tail's plane,
+    K2 on that plane, the correction's rows read in place) against the same
+    steps with the shards' own coarse planes (the cycle gathers and splits
+    them), bit for bit, and against JAX's ``_cg_steps_sharded`` at SP = n:
+    k=2 on two images, one live and one frozen."""
+    ny, nx, k = 64, 32, 2
+    (c, _, x0), (jc, _, _) = _systems(_medium(9, (2, ny, nx)))
+    r = c.b - fvm.apply_operator(c, x0)
+    p = r * c.diag_inv
+    rz = torch.sum(r * p, dim=(-2, -1))
+    active = torch.tensor([1.0, 0.0], dtype=torch.float64)
+    stop = torch.zeros(2, dtype=torch.float64)
+    hi = torch.full((2,), np.inf, dtype=torch.float64)
+    hier = halo._build_sharded_hierarchy_2d(_port_row(c, n), ny // n,
+                                            min_size=8)
+    cw = fused2d._coef_windows(hier.sharded)
+    tail = fused2d.build_fused_tail(hier.sharded, 8)
+    m = _cpu_mesh(n)
+
+    def run(kw):
+        xs, rs, ps = (mesh.shard_rows(m, t.clone())[0] for t in (x0, r, p))
+        out = cgstep_sharded.cg_steps_sharded_reference(
+            cw[0], xs, rs, ps, rz, active, stop, hi, k, omega=0.8, nu=2,
+            over=1.8, **kw)
+        return [_joined(out[i]) for i in range(3)] + [out[3], out[4]]
+
+    kw = fused2d.k9_coarse(hier, cw, mesh.shard_rows(m, x0)[0], tail=tail,
+                           **MG)
+    assert tail[0] == 1 and tuple(kw["coarse_plane"].shape) == (2, ny // 2,
+                                                                 nx // 2)
+    on_plane = run(kw)
+    split = run(dict(coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
+        hier, cw, rc, level=1, tail=tail, live=live, **MG)))
+    for a, b in zip(on_plane[:3], split[:3]):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(on_plane[3], split[3])
+    assert on_plane[4].tolist() == split[4].tolist() == [k, 0]
+    ref = _jax_k9_steps(jc, n, ny, k, (x0, r, p, rz, active, stop, hi))
+    for got, want in zip(on_plane[:3], ref[:3]):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=1e-10,
+                                   atol=1e-10 * np.abs(want).max())
+    np.testing.assert_allclose(on_plane[3].numpy(), np.asarray(ref[3]),
                                rtol=1e-10)
 
 

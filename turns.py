@@ -22,6 +22,11 @@ checkout's):
 * K8: one application of the sharded cycle on that image at SP=4 on the
   card (ms a call, device ms of all its work and of K8's own kernels,
   each launch's device time);
+* K9: a call of k=10 iterations on that image at SP=4 on the card, as the
+  solver makes it (the tree's ``fused2d.k9_coarse`` where it has one; each
+  call restores x, r and p first, three plane copies inside the time): ms
+  a call by CUDA events, device ms, each pass's device ms and the graph
+  replays a call;
 * config 3 through ``sharded_solve_mgcg`` on four shards of the card and on
   one: seconds, best of three, iterations and Deff;
 * K6 on BASELINE config 5's volume (B=1 x 256^3 fp32): the banded cycle
@@ -235,7 +240,47 @@ def main():
         out["k8_own_device_ms"] = None if own is None else own[0] / 1e3
         out["k8_device_ms"] = None if own is None else own[1] / 1e3
         out["k8_launch_us"] = cs.launch_us(k8, 5)
-        del cb, m, hier, cw, tail, rs, kw8
+        # K9: k=10 iterations at SP=4, B=1, every image live
+        from effectivediffusivityfvm_tpu_torch.ops.kernels import \
+            cgstep_sharded as k9mod
+
+        rb = cb.b - fvm.apply_operator(cb, x0[None])
+        pb = torch.cat(k8(), dim=-2)
+        rzb = batch_sum(rb * pb)
+        one = torch.ones(1, device=dev)
+        fresh = [mesh.shard_rows(m, t)[0] for t in (x0[None], rb, pb)]
+        state = [[t.clone() for t in shards] for shards in fresh]
+        if hasattr(fused2d, "k9_coarse"):
+            kw9 = fused2d.k9_coarse(hier, cw, state[0], tail=tail, **cs.MG3)
+            kw9["workspace"] = k9mod.ShardWorkspace(
+                cw[0], state[0], True, kw9.get("coarse_plane"))
+        else:
+            kw9 = dict(coarse=lambda rc, live: fused2d.v_cycle_sharded_fused(
+                hier, cw, rc, level=1, tail=tail, live=live, **cs.MG3),
+                workspace=k9mod.ShardWorkspace(cw[0], state[0]))
+
+        def k9():
+            for dst, src in zip(state, fresh):
+                for a, b in zip(dst, src):
+                    a.copy_(b)
+            return k9mod.cg_steps_sharded(
+                cw[0], *state, rzb, one, 0 * one, one * float("inf"),
+                cs.K9_TIME_K, omega=cs.MG3["omega"], nu=cs.MG3["nu"],
+                over=cs.MG3["over"], **kw9)
+
+        k9()
+        r0 = k9mod.cg_steps_sharded.replays
+        k9()
+        out["k9_replays_a_call"] = k9mod.cg_steps_sharded.replays - r0
+        out["k9_ms"] = cs.cuda_ms(k9, 5, warm=1)
+        out["k9_device_ms"] = cs.device_ms(k9, 3)
+        for nm, frags in zip("pxz", (("shard_p_kernel", "shard_pass_a"),
+                                     ("shard_x_kernel", "shard_pass_b"),
+                                     ("shard_z_kernel", "shard_pass_c"))):
+            own = cs.kernel_device_us(k9, 3, frags)
+            out[f"k9_pass_{nm}_device_ms"] = (None if own is None
+                                              else own[0] / 1e3)
+        del cb, m, hier, cw, tail, rs, kw8, kw9, state, fresh, rb, pb
         for sp in (4, 1):
             m = mesh.make_mesh(sp, devices=[dev] * sp)
             t, times, res = best_of_3(

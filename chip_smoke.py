@@ -129,7 +129,31 @@ non-zero):
 29. K8/K9 times (CUDA events; K8's own device time beside the
     application's, K9's passes' device times) at B=1 and B=4 x 2048^2,
     SP=4 and SP=1 (K9 on the graph route and the host loop in turns), then
-    one sharded config-3 solve under ``torch.profiler``.
+    one sharded config-3 solve under ``torch.profiler``;
+30. BASELINE config 3's ``cg`` leg (bench_configs.py: 2048^2 fp32,
+    Jacobi-PCG to relresidual 1e-8 within 20000 iterations, a check every
+    500): iterations, relres, seconds and windows; finite, no divergence,
+    relres below the first check's;
+31. BASELINE config 2 (512^2, per-pixel D log-uniform over 3 decades,
+    fp32) through ``solve_rbsor`` on the reference protocol (deff 1e-5, a
+    check every 10000 sweeps): sweeps, Deff, seconds, Gcell-iters/s; Deff
+    within 1e-3 of a scipy float64 direct solve;
+32. config 3's f64 ``dmg`` leg (no deflation, relres 1e-8 within 600
+    iterations) on K4, the route the auto rule takes at 2048^2, best of 3
+    after a warm-up, K4's launches a solve and a profile; then at 1024^2
+    on K2 (forced); each against the same solve on the plain versions
+    (iterations within 2, Deff rtol 1e-6);
+33. the reference demo's setting (a synthetic 2007x1002 3-phase lossless
+    PNG, Dg 1237500, float64, dmg, relres 1e-10) through ``python -m
+    effectivediffusivityfvm_tpu_torch.cli`` and through ``cli.main`` to
+    read the field: components, iterations, relres (<= 1e-10) and the
+    boundary Deff against ``deff_flux_average`` (within 1e-4);
+34. eight 256^2 3-phase images through ``batch_sim_3phase`` with dcg,
+    cgir and dmg, each against its single-image solves (rtol 1e-8), and
+    dmg on ``Devices: 2``, ``DP: 2`` (cuda:0 twice) against the batch;
+35. config 5's 256^3 volume through ``solve_cg_3d`` (2000 iterations at
+    most, a check every 100), then a 64^3 slice of it through ``.npy`` CLI
+    runs with rbsor and cg, whose Deff agree to 1e-3.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -2253,6 +2277,412 @@ def sharded_phases(dev, card, lib, c3_stored, imgs64, inp10_text, table10):
     ]
 
 
+# -- phases 30-35: the Krylov solvers (slice 3)
+CG3_KW = dict(tol=1e-8, max_iter=20_000, check_every=500,
+              criterion="relresidual")          # bench_configs.py:157
+C2_SIZE, C2_SEED = 512, 2
+C2_KW = dict(tol=1e-5, max_iter=400_000, check_every=10_000,
+             criterion="deff")                  # bench_configs.py:76
+DMG3_KW = dict(tol=1e-8, max_iter=600, check_every=20,
+               criterion="relresidual", min_size=32,
+               coarse_iters=64)                 # bench_configs.py:142
+DMG_K2_SIZE = 1024                              # phase 32's forced-K2 leg
+DEMO_SHAPE, DEMO_SEED = (2007, 1002), 13        # the reference demo's size
+DEMO_DG = 1237500.0
+DEMO_MAX_ITER = 3000
+B34, N34 = 8, 256                               # phase 34's batch
+# phase 34's gas diffusivity by solver: cgir's float32 inner CG stalls at
+# its 8000-iteration cap on these media from the second outer step on, so
+# it runs at Dg = 10 (three outer steps); dcg walks two homotopy
+# pre-stages at Dg = 1000, which dmg skips
+DG34 = {"dcg": 1000.0, "cgir": 10.0, "dmg": 1000.0}
+C5_SLICE = 64                                   # phase 35's CLI volumes
+PROFILE_GROUPS_DMG = (
+    ("K4 T1/T2", ("BandedLeg",)),
+    ("K4's K2 tail", K2_KERNELS),
+)
+
+
+def grayscale_field(rng, n, sigma=6.0):
+    """bench_configs.py's config-2 generator: Gaussian-smoothed noise
+    scaled to 0..255 (pixel value -> per-pixel D)."""
+    from scipy import ndimage
+
+    noise = ndimage.gaussian_filter(rng.standard_normal((n, n)), sigma=sigma)
+    lo, hi = noise.min(), noise.max()
+    return ((noise - lo) / (hi - lo) * 255).astype(np.uint8)
+
+
+def blob_image(shape, seed, gas, solid):
+    """A 3-phase image in the style of tests/test_cg.py's gas blobs, scaled
+    up: fluid (150) with gas discs (0) and then solid discs (255); ``gas``
+    and ``solid`` are ``(count, (r_min, r_max))``, the gas discs drawn from
+    ``default_rng(seed)``, the solid ones from ``default_rng(seed + 100)``.
+    Discs may cross the image's edges, the Dirichlet columns included."""
+    ny, nx = shape
+    img = np.full(shape, 150, np.uint8)
+    for value, (count, radii), rng in (
+            (0, gas, np.random.default_rng(seed)),
+            (255, solid, np.random.default_rng(seed + 100))):
+        for _ in range(count):
+            r = int(rng.integers(*radii))
+            ci, cj = int(rng.integers(0, ny)), int(rng.integers(0, nx))
+            i0, i1 = max(ci - r, 0), min(ci + r + 1, ny)
+            j0, j1 = max(cj - r, 0), min(cj + r + 1, nx)
+            ii, jj = np.ogrid[i0:i1, j0:j1]
+            sub = img[i0:i1, j0:j1]
+            sub[(ii - ci) ** 2 + (jj - cj) ** 2 < r * r] = value
+    return img
+
+
+def write_png(path, img):
+    """A lossless 8-bit grayscale PNG (filter 0, zlib), written without
+    PIL."""
+    import struct
+    import zlib
+
+    ny, nx = img.shape
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[i].tobytes() for i in range(ny))
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", nx, ny, 8, 0,
+                                                  0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw, 6))
+                     + chunk(b"IEND", b""))
+
+
+def direct_deff(coeffs, spec):
+    """Deff of a scipy float64 direct solve of the system ``coeffs`` (one
+    image, moved to the host in float64)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.ops.flux import boundary_deff
+
+    ny, nx = coeffs.diag.shape
+
+    def flat(t):
+        return t.detach().to("cpu", torch.float64).numpy().ravel()
+
+    a = sp.diags([flat(coeffs.diag), -flat(coeffs.a_w)[1:],
+                  -flat(coeffs.a_e)[:-1], -flat(coeffs.a_n)[nx:],
+                  -flat(coeffs.a_s)[:-nx]], [0, -1, 1, -nx, nx],
+                 format="csc")
+    x = spla.spsolve(a, flat(coeffs.b)).reshape(ny, nx)
+    spec64 = type(spec)(*(t.detach().to("cpu", torch.float64) for t in spec))
+    return float(boundary_deff(spec64, torch.from_numpy(x)))
+
+
+def observe(module, name, seen):
+    """Wrap ``module.name`` so that each call's result is appended to
+    ``seen``; returns the original (put it back when done)."""
+    fn = getattr(module, name)
+
+    def run(*a, **kw):
+        out = fn(*a, **kw)
+        seen.append(out)
+        return out
+    setattr(module, name, run)
+    return fn
+
+
+def krylov_phases(dev, card, lib):
+    """Phases 30-35: the Krylov solvers on the card."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch import cli
+    from effectivediffusivityfvm_tpu_torch.config import SimulationConfig
+    from effectivediffusivityfvm_tpu_torch.models import phases
+    from effectivediffusivityfvm_tpu_torch.ops import fvm
+    from effectivediffusivityfvm_tpu_torch.ops.flux import (deff_flux_average,
+                                                            make_flux_spec)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import \
+        v_cycle_tiled
+    from effectivediffusivityfvm_tpu_torch.pipeline import batch, single
+    from effectivediffusivityfvm_tpu_torch.pipeline import volume as pvol
+    from effectivediffusivityfvm_tpu_torch.solvers import (cg, deflation,
+                                                           dmg, rbsor,
+                                                           solvers3d)
+
+    def zero_counts():
+        v_cycle.launches = v_cycle_tiled.launches = 0
+
+    def counts():
+        return {"K2": v_cycle.launches, "K4": v_cycle_tiled.launches}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    # -- 30: config 3's cg leg (bench_configs.py:104-110, 150-161)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(C3_SEED)
+    img3 = correlated_binary(rng, C3_SIZE, C3_SIZE)
+    d3, c3, s3, x03 = c3_problem(img3, dev)
+    first = cg.solve_cg(c3, s3, x03, **dict(CG3_KW, max_iter=1))
+    res, secs = timed(lambda: cg.solve_cg(c3, s3, x03, **CG3_KW))
+    its, relres, deff = int(res.iters), float(res.conv), float(res.deff)
+    windows = 1 + -(-(its - 1) // CG3_KW["check_every"])
+    diverged = its < CG3_KW["max_iter"] and relres > CG3_KW["tol"]
+    check(np.isfinite(relres) and np.isfinite(deff), f"cg relres {relres}, "
+          f"Deff {deff}")
+    check(not diverged, f"cg stopped at {its} iterations with relres "
+          f"{relres}: the divergence net fired")
+    check(relres < float(first.conv), f"cg relres {relres} not below the "
+          f"first check's {float(first.conv)}")
+    phase(30, t0, f"config 3 cg {card}: {C3_SIZE}^2 fp32, {its} iterations, "
+          f"relres {relres:.3e} (first check {float(first.conv):.3e}), Deff "
+          f"{deff:.6f}, {secs:.3f} s, {windows} windows "
+          f"({secs / its * 1e3:.4f} ms/iteration)")
+    del c3, s3, x03, res, first
+
+    # -- 31: BASELINE config 2 (bench_configs.py:60-90)
+    t0 = time.perf_counter()
+    n = C2_SIZE
+    img2 = grayscale_field(np.random.default_rng(C2_SEED), n)
+    d2 = torch.tensor(10.0 ** (-3.0 * (1.0 - img2 / 255.0)),
+                      dtype=torch.float32, device=dev)
+    c2 = fvm.fvm_coefficients(d2, 0.0, 1.0)
+    s2 = make_flux_spec(d2, 0.0, 1.0)
+    x02 = (torch.arange(n, dtype=torch.float32, device=dev) / n).expand(n, n)
+    res, secs = timed(lambda: rbsor.solve_rbsor(c2, s2, x02, **C2_KW))
+    sweeps, deff2 = int(res.iters), float(res.deff)
+    t1 = time.perf_counter()
+    d2_64 = d2.double().cpu()
+    want = direct_deff(fvm.fvm_coefficients(d2_64, 0.0, 1.0),
+                       make_flux_spec(d2_64, 0.0, 1.0))
+    t_direct = time.perf_counter() - t1
+    rel2 = abs(deff2 - want) / abs(want)
+    check(rel2 <= 1e-3, f"config 2 Deff {deff2} vs direct {want}: rel err "
+          f"{rel2}")
+    phase(31, t0, f"config 2 rbsor {card}: {n}^2 fp32, omega "
+          f"{rbsor.omega_opt(n, n):.6f}, {sweeps} sweeps, Deff {deff2:.6f}, "
+          f"conv {float(res.conv):.3e}, {secs:.3f} s, "
+          f"{sweeps * n * n / secs / 1e9:.3f} Gcell-iters/s; scipy float64 "
+          f"direct solve Deff {want:.6f} ({t_direct:.1f} s on the host), rel "
+          f"err {rel2:.3e}")
+    del c2, s2, x02, res
+
+    # -- 32: config 3's dmg leg (bench_configs.py:130-148) on K4, then at
+    # 1024^2 on K2 (forced)
+    t0 = time.perf_counter()
+    lines = []
+    dmg_launches = {}
+    for size, use_pallas in ((C3_SIZE, None), (DMG_K2_SIZE, True)):
+        img = img3 if size == C3_SIZE else correlated_binary(
+            np.random.default_rng(C3_SEED), size, size)
+        d64, c64, s64, x064 = c3_problem(img, dev, torch.float64)
+        route = (dmg._dmg_engine_auto((size, size), torch.float32, 2)
+                 if use_pallas is None else use_pallas)
+        check(route == ("tiled" if size == C3_SIZE else True),
+              f"dmg route at {size}^2: {route!r}")
+        kw = dict(DMG3_KW, use_pallas=use_pallas)
+        zero_counts()
+        res, first_s = timed(lambda: dmg.solve_dmg(c64, s64, x064, **kw))
+        per_solve = counts()
+        key = "K4" if route == "tiled" else "K2"
+        check(per_solve[key] > 0 and sum(per_solve.values())
+              == per_solve[key], f"dmg {size}^2 launches {per_solve}")
+        dmg_launches[key] = per_solve[key]
+        times = [timed(lambda: dmg.solve_dmg(c64, s64, x064, **kw))[1]
+                 for _ in range(3)]
+        plain = dmg.solve_dmg(c64, s64, x064, plain=True, **kw)
+        d_it = abs(int(res.iters) - int(plain.iters))
+        rel = abs(float(res.deff) - float(plain.deff)) / abs(float(
+            plain.deff))
+        check(d_it <= 2 and rel <= 1e-6, f"dmg {size}^2 vs plain: "
+              f"iterations {int(res.iters)} vs {int(plain.iters)}, Deff rel "
+              f"err {rel}")
+        line = (f"{size}^2 f64 on {key} ({'auto' if use_pallas is None else 'forced'}): "
+                f"{int(res.iters)} iterations, relres {float(res.conv):.3e}, "
+                f"Deff {float(res.deff):.6f}, best of 3 {min(times):.4f} s "
+                f"(runs {', '.join(f'{t:.4f}' for t in times)}; first "
+                f"{first_s:.3f} s), {per_solve[key]} {key} launches a solve; "
+                f"vs plain: iterations {int(plain.iters)}, Deff rel err "
+                f"{rel:.3e}")
+        if route == "tiled":
+            prof = profile_solve(lambda: dmg.solve_dmg(c64, s64, x064, **kw),
+                                 PROFILE_GROUPS_DMG)
+            line += f"; profile: {profile_line(prof)}"
+        lines.append(line)
+        del d64, c64, s64, x064, res, plain
+    phase(32, t0, f"config 3 dmg {card}: " + "; ".join(lines))
+
+    # -- 33: the reference demo's setting through the CLI
+    t0 = time.perf_counter()
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    demo = blob_image(DEMO_SHAPE, DEMO_SEED, gas=(60, (32, 160)),
+                      solid=(40, (8, 40)))
+    png = WORK_DIR / "demo.png"
+    write_png(png, demo)
+    csv = WORK_DIR / "demo.csv"
+    inp = WORK_DIR / "input_demo.txt"
+    inp.write_text(f"Phases: 3\nInputName: {png}\nDs: 0\nDf: 1\n"
+                   f"Dg: {DEMO_DG:.0f}\nDtype: float64\nSolver: dmg\n"
+                   f"Criterion: relresidual\nConvergence: 1e-10\n"
+                   f"MaxIter: {DEMO_MAX_ITER}\nVerbose: 1\n"
+                   f"OutputName: {csv}\n")
+    csv.unlink(missing_ok=True)
+    zero_counts()
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "effectivediffusivityfvm_tpu_torch.cli",
+         str(inp)], cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    wall_cli = time.perf_counter() - t1
+    check(proc.returncode == 0, f"the CLI returned {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    taken = re.findall(r"Iterations taken = (\d+)", proc.stdout)
+    row = csv.read_text().splitlines()[1].split(",")
+    # the same run in this process, to read the field and the space
+    spaces, results = [], []
+    build = observe(dmg, "build_component_deflation", spaces)
+    solve3p = observe(single, "single_sim_3phase", results)
+    cli.single_sim_3phase = single.single_sim_3phase
+    try:
+        rc = cli.main([str(inp)], device=dev)
+        torch.cuda.synchronize()
+    finally:
+        dmg.build_component_deflation = build
+        single.single_sim_3phase = cli.single_sim_3phase = solve3p
+    l_demo = counts()
+    check(rc == 0 and len(results) == 1 and len(spaces) == 1,
+          f"cli.main returned {rc}")
+    r33 = results[0]
+    m = spaces[0].m if spaces[0] is not None else 0
+    classes = phases.three_phase_classes(demo)
+    d_demo = torch.tensor(phases.d_field_from_classes(
+        classes, 1.0, 0.0, DEMO_DG, dtype=np.float64))
+    avg = float(deff_flux_average(d_demo, torch.from_numpy(r33.x), 0.0,
+                                  1.0))
+    gap = abs(r33.deff - avg) / abs(avg)
+    check(r33.conv <= 1e-10, f"demo relres {r33.conv} after {r33.iters} "
+          "iterations")
+    check(gap <= 1e-4, f"demo boundary Deff {r33.deff} vs all-cuts "
+          f"{avg}: {gap}")
+    check(l_demo["K4"] > 0, f"demo launches {l_demo}")
+    check(taken and int(taken[-1]) == r33.iters and abs(
+        float(row[4]) - r33.deff) <= 1e-3 * abs(r33.deff),
+          f"the CLI run: iterations {taken}, CSV {row}")
+    phase(33, t0, f"demo setting via the CLI {card}: {DEMO_SHAPE[0]}x"
+          f"{DEMO_SHAPE[1]} 3-phase, Dg {DEMO_DG:.0f}, f64 dmg, m {m} "
+          f"components, {r33.iters} iterations, relres {r33.conv:.3e}, Deff "
+          f"{r33.deff:.6f} (all-cuts {avg:.6f}, gap {gap:.3e}), solve "
+          f"{r33.time_s:.3f} s; {l_demo['K4']} K4 launches; the "
+          f"`python -m ...cli` run {wall_cli:.1f} s wall, CSV Deff {row[4]}, "
+          f"conv {row[7]}")
+    del d_demo, results
+
+    # -- 34: the batch and mesh routes, eight 256^2 3-phase images
+    t0 = time.perf_counter()
+    imgs34 = [blob_image((N34, N34), 40 + i, gas=(24, (4, 20)),
+                         solid=(8, (4, 20))) for i in range(B34)]
+    lines, tables = [], {}
+    for solver in ("dcg", "cgir", "dmg"):
+        cfg = SimulationConfig(
+            n_phase=3, d_fluid=1.0, d_solid=0.0, d_gas=DG34[solver],
+            dtype="float64", solver=solver, criterion="relresidual",
+            convergence=1e-10, max_iter=20 if solver == "cgir" else 5000,
+            output_name=str(WORK_DIR / f"batch34_{solver}.csv"))
+        Path(cfg.output_name).unlink(missing_ok=True)
+        zero_counts()
+        table, secs = timed(lambda: batch.batch_sim_3phase(
+            cfg, imgs=list(imgs34), device=dev))
+        l34 = counts()
+        tables[solver] = table
+        singles = np.array([single.single_sim_3phase(
+            cfg, img=im, write_output=False, device=dev).deff
+            for im in imgs34])
+        rel = np.abs(table[:, 4] - singles) / np.abs(singles)
+        check(bool(np.all(rel <= 1e-8)), f"{solver} batch vs single Deff rel "
+              f"err {rel.max()}")
+        check(bool(np.all(table[:, 7] <= 1e-10)), f"{solver} batch conv "
+              f"{table[:, 7].max()}")
+        if solver == "dmg":
+            check(l34["K2"] > 0, f"dmg batch launches {l34}")
+        lines.append(f"{solver} (Dg {DG34[solver]:.0f}): batch {secs:.3f} s, "
+                     f"Deff {table[:, 4].min():.4f}"
+                     f"..{table[:, 4].max():.4f}, max conv "
+                     f"{table[:, 7].max():.3e}, vs single solves max rel err "
+                     f"{rel.max():.3e}" + (f", K2 launches {l34['K2']}"
+                                           if solver == "dmg" else ""))
+    cfg_dp = SimulationConfig(
+        n_phase=3, d_fluid=1.0, d_solid=0.0, d_gas=DG34["dmg"],
+        dtype="float64", solver="dmg", criterion="relresidual", convergence=1e-10,
+        max_iter=5000, devices=2, dp=2,
+        output_name=str(WORK_DIR / "batch34_dmg_dp.csv"))
+    Path(cfg_dp.output_name).unlink(missing_ok=True)
+    table_dp = batch.batch_sim_3phase(
+        cfg_dp, imgs=list(imgs34), device=dev,
+        mesh_devices=[torch.device(dev)] * 2)
+    rel = (np.abs(table_dp[:, 4] - tables["dmg"][:, 4])
+           / np.abs(tables["dmg"][:, 4]))
+    check(bool(np.all(rel <= 1e-8)), f"dmg DP route vs batch rel err "
+          f"{rel.max()}")
+    lines.append(f"dmg Devices 2 DP 2 on cuda:0 twice vs the batch: max rel "
+                 f"err {rel.max():.3e}")
+    phase(34, t0, f"batch routes {card}, {B34} x {N34}^2 3-phase f64: "
+          + "; ".join(lines))
+
+    # -- 35: 3D: config 5's volume through solve_cg_3d, then a 64^3 slice
+    # of it through the .npy CLI with rbsor and cg
+    t0 = time.perf_counter()
+    fluid5 = c5_fluid((C5_SIZE,) * 3, C5_SEED)
+    d5, c5, s5, x05 = c5_problem(fluid5, dev)
+    res, secs = timed(lambda: solvers3d.solve_cg_3d(
+        c5, s5, x05, tol=1e-4, max_iter=2000, check_every=100,
+        criterion="relresidual"))
+    check(np.isfinite(float(res.conv)) and np.isfinite(float(res.deff)),
+          f"3D cg relres {float(res.conv)}")
+    line = (f"{C5_SIZE}^3 fp32 solve_cg_3d: {int(res.iters)} iterations, "
+            f"relres {float(res.conv):.3e}, Deff {float(res.deff):.6f}, "
+            f"{secs:.3f} s")
+    del d5, c5, s5, x05, res
+    vol = np.where(fluid5[:C5_SLICE, :C5_SLICE, :C5_SLICE], 0,
+                   255).astype(np.uint8)
+    np.save(WORK_DIR / "vol64.npy", vol)
+    got = {}
+    for solver in ("rbsor", "cg"):
+        inp = WORK_DIR / f"input_vol64_{solver}.txt"
+        out = WORK_DIR / f"vol64_{solver}.csv"
+        out.unlink(missing_ok=True)
+        inp.write_text(f"Phases: 2\nInputName: {WORK_DIR / 'vol64.npy'}\n"
+                       f"Ds: {CONTRAST}\nDf: 1\nSolver: {solver}\n"
+                       f"Dtype: float64\nCriterion: relresidual\n"
+                       f"Convergence: 1e-8\nCheckEvery: 500\n"
+                       f"MaxIter: 200000\nOutputName: {out}\n")
+        seen = []
+        volume_sim = observe(pvol, "volume_sim", seen)
+        try:
+            t1 = time.perf_counter()
+            rc = cli.main([str(inp)], device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        finally:
+            pvol.volume_sim = volume_sim
+        check(rc == 0 and len(seen) == 1, f"the {solver} volume CLI run "
+              f"returned {rc}")
+        got[solver] = seen[0]
+        line += (f"; {C5_SLICE}^3 f64 {solver} via the CLI: Deff "
+                 f"{seen[0].deff:.6f}, conv {seen[0].conv:.3e}, "
+                 f"{seen[0].iters} iterations, solve {seen[0].time_s:.3f} s "
+                 f"({wall:.1f} s wall)")
+    rel = abs(got["rbsor"].deff - got["cg"].deff) / abs(got["cg"].deff)
+    check(rel <= 1e-3, f"3D rbsor Deff {got['rbsor'].deff} vs cg "
+          f"{got['cg'].deff}")
+    phase(35, t0, f"3D {card}: {line}; rbsor vs cg rel err {rel:.3e}")
+    return dmg_launches
+
+
 def main():
     import torch
 
@@ -2780,6 +3210,8 @@ def main():
     torch.cuda.empty_cache()
     sharded_rows = sharded_phases(dev, card, lib, c3_ref["stored"],
                                   imgs[:64], inp10.read_text(), table10)
+    torch.cuda.empty_cache()
+    krylov_phases(dev, card, lib)
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
     k3_ms, _, k3_ms_p, _, k3_bound = next(iter(k3_times.values()))

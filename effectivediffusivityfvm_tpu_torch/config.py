@@ -11,8 +11,8 @@ ignored, so an existing reference ``input.txt`` drops in unchanged.  On top of
 that the dataclass carries the JAX package's extra knobs (dtype, solver
 choice, check cadence, sharding).  The fields, keys and validation are the
 JAX package's exactly, so every ``input.txt`` it accepts parses here; the
-pipelines refuse the settings whose solvers or engines are not ported yet
-(``solvers/dispatch.py``, ``pipeline/batch.py``).
+pipelines refuse the settings whose engines are not ported yet
+(``pipeline/batch.py``, ``pipeline/volume.py``).
 """
 
 from __future__ import annotations

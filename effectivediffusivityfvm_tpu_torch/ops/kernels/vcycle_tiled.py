@@ -141,13 +141,17 @@ def v_cycle_tiled_reference(levels, r, *, omega=0.8, nu: int = 1,
 
 
 def v_cycle_tiled(levels, r, *, omega=0.8, nu: int = 1,
-                  coarse_iters: int = 32, over: float = 1.8) -> torch.Tensor:
+                  coarse_iters: int = 32, over: float = 1.8,
+                  level_args=None) -> torch.Tensor:
     """One banded V(nu, nu) cycle ``z = M r`` on a ``(B, py, px)`` batch.
 
     ``levels`` is ``build_hierarchy(..., pad_levels=True)`` of an operator
     padded to :func:`tiled_pad_shape`; ``nu <= HALO``.  A CPU tensor runs
     the plain version; a CUDA tensor launches T1 and T2 (float32 or
     float64) around K2's cycle on ``levels[1:]``, from one C entry.
+    ``level_args``: the :class:`~.vcycle.LevelArgs` of ``levels``, kept by a
+    caller that runs the cycle on one hierarchy again and again (else built
+    for the call).
     """
     if nu < 1 or nu > HALO:
         raise ValueError(f"v_cycle_tiled: nu={nu} must be in 1..{HALO}")
@@ -160,7 +164,7 @@ def v_cycle_tiled(levels, r, *, omega=0.8, nu: int = 1,
 
     _check_levels(levels, r)
     lib = load_library()
-    la = LevelArgs(levels, r)
+    la = LevelArgs(levels, r) if level_args is None else level_args
     bsz = r.shape[0]
     check_plane(r, "r", (bsz,) + la.shapes[0], r)
     z = torch.empty_like(r)

@@ -358,8 +358,8 @@ def _v_cycle_sharded_2d(hier: ShardedHierarchy, rs, *, nu1=1, nu2=1,
     return e
 
 
-_RUN_PCG = ("pcg.run_pcg, which the torch package does not have yet "
-            "(ROADMAP slice 3)")
+_RUN_PCG = ("the sharded modes under pcg.run_pcg, which the torch package "
+            "does not have yet (ROADMAP Queue 1)")
 
 
 def sharded_solve_mgcg(

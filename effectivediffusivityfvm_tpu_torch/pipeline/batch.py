@@ -27,10 +27,12 @@ the devices given by the caller's ``mesh_devices`` (default: every visible
 CUDA device; a device may repeat).  ``SP: 1`` splits the batch over dp and
 runs the regular batched solver on each chunk's device; ``SP > 1`` also
 splits the rows and runs the sharded solvers (``jacobi``, ``mgcg``).
+The deflated solvers (``dcg``, ``dmg``) take each image's gas-component
+mask, on one device and on each dp chunk of a mesh alike.
 
 Not ported yet: the compacting batch solve (``Compact: 1`` with mgcg,
-slice 3), ``dcg``/``dmg`` (slice 3, on a mesh too), and ``Pallas:
-off|interpret`` (the JAX package's XLA and interpreter engines).
+ROADMAP Queue 1, ``solvers/compact.py``), and ``Pallas: off|interpret``
+(the JAX package's XLA and interpreter engines).
 ``Pallas:`` maps as the JAX package maps it:
 ``force`` runs the "cgstep" engine (K1/K2) at every size, ``auto`` lets the
 solver choose (the banded K4/K5 engine for float32 grids past the
@@ -67,7 +69,7 @@ def _check_supported(cfg: SimulationConfig) -> None:
     if cfg.compact_batches and cfg.solver in ("cg", "mgcg"):
         raise NotImplementedError(
             "Compact: 1 (the compacting batch solve) is not ported to the "
-            "torch package yet (ROADMAP slice 3)")
+            "torch package yet (ROADMAP Queue 1, solvers/compact.py)")
     if cfg.solver == "mgcg" and cfg.pallas in ("off", "interpret"):
         raise NotImplementedError(
             f"Pallas: {cfg.pallas} selects an engine of the JAX package that "
@@ -124,32 +126,56 @@ def _pad_batch(tree, mult: int):
             BoundaryFluxSpec(*map(pad_one, spec)), pad_one(x0)), bsz
 
 
-def _solve_group_dp_shardmap(cfg, mesh, coeffs, spec, x0, tol, max_iter):
+def _deflated_batched(cfg, coeffs, spec, x0, tol, max_iter, members):
+    """The batched ``dmg``/``dcg`` solve with per-image gas masks."""
+    if cfg.solver == "dmg":
+        from ..solvers.dmg import solve_dmg_batched
+
+        return solve_dmg_batched(coeffs, spec, x0, tol=tol,
+                                 max_iter=max_iter,
+                                 check_every=cfg.check_every,
+                                 criterion=cfg.criterion, members=members)
+    from ..solvers.deflation import solve_dcg_batched
+
+    return solve_dcg_batched(coeffs, spec, x0, tol=tol, max_iter=max_iter,
+                             check_every=cfg.check_every, members=members)
+
+
+def _solve_group_dp_shardmap(cfg, mesh, coeffs, spec, x0, tol, max_iter,
+                             members=None):
     """The dp-only group solve: dp chunk ``d`` of the batch runs the regular
-    batched solver (its CUDA kernels included) on mesh device ``d``.  Each
-    image's solve is independent of the others in its batch, so the result
-    equals the single-device run of the same images."""
+    batched solver (its CUDA kernels included) on mesh device ``d``; the
+    deflated solvers take the chunk's slice of ``members``.  Each image's
+    solve is independent of the others in its batch, so the result equals
+    the single-device run of the same images."""
     bl = x0.shape[0] // mesh.dp
     kw = _solver_kwargs(cfg, tol, max_iter)
     parts = []
     for d in range(mesh.dp):
         dev = mesh.devices[d]
         sl = slice(d * bl, (d + 1) * bl)
-        parts.append(solve_batched(
-            cfg.solver, fvm.StencilCoeffs(*(a[sl].to(dev) for a in coeffs)),
-            BoundaryFluxSpec(*(a[sl].to(dev) for a in spec)),
-            x0[sl].to(dev), **kw))
+        args = (fvm.StencilCoeffs(*(a[sl].to(dev) for a in coeffs)),
+                BoundaryFluxSpec(*(a[sl].to(dev) for a in spec)),
+                x0[sl].to(dev))
+        if cfg.solver in ("dcg", "dmg"):
+            parts.append(_deflated_batched(
+                cfg, *args, tol, max_iter,
+                None if members is None else members[sl]))
+        else:
+            parts.append(solve_batched(cfg.solver, *args, **kw))
     return SolveResult(*(torch.cat([getattr(r, f).to(x0.device)
                                     for r in parts])
                          for f in SolveResult._fields))
 
 
-def _solve_group_on_mesh(cfg, mesh, coeffs, spec, x0, tol, max_iter):
+def _solve_group_on_mesh(cfg, mesh, coeffs, spec, x0, tol, max_iter,
+                         gas_np=None):
     """Run one shape group's batched solve on the pipeline mesh.
 
-    ``sp == 1``: the batch split over dp (:func:`_solve_group_dp_shardmap`).
-    ``sp > 1``: the rows split too, through the sharded Jacobi or MGCG
-    solver (``jacobi``/``mgcg`` only)."""
+    ``sp == 1``: the batch split over dp (:func:`_solve_group_dp_shardmap`;
+    ``gas_np``, the per-image gas masks of the deflated solvers, padded as
+    the batch is).  ``sp > 1``: the rows split too, through the sharded
+    Jacobi or MGCG solver (``jacobi``/``mgcg`` only)."""
     dp, sp = mesh.dp, mesh.sp
     (coeffs, spec, x0), bsz = _pad_batch((coeffs, spec, x0), dp)
     if sp > 1:
@@ -176,12 +202,13 @@ def _solve_group_on_mesh(cfg, mesh, coeffs, spec, x0, tol, max_iter):
                 max_iter=max_iter,
                 check_every=cfg.check_every or 10_000, criterion=cfg.criterion)
     else:
-        if cfg.solver in ("dcg", "dmg"):
-            raise NotImplementedError(
-                f"solver {cfg.solver!r} is not ported to the torch package "
-                "yet, on a mesh or off it (ROADMAP slice 3)")
+        members = None
+        if gas_np is not None:
+            pad = x0.shape[0] - bsz
+            members = np.concatenate(
+                [gas_np, np.repeat(gas_np[-1:], pad, axis=0)]) if pad else gas_np
         res = _solve_group_dp_shardmap(cfg, mesh, coeffs, spec, x0, tol,
-                                       max_iter)
+                                       max_iter, members)
     return SolveResult(*(a[:bsz] for a in res))
 
 
@@ -246,9 +273,14 @@ def solve_image_group_3phase(cfg: SimulationConfig, imgs_np: np.ndarray,
     mesh = _pipeline_mesh(cfg, dev, mesh_devices)
 
     def solve(coeffs, spec, x, tol, max_iter):
+        # dcg/dmg take the per-image gas-component masks for their
+        # deflation spaces (as single._solve3p does for one image)
         if mesh is not None:
             return _solve_group_on_mesh(cfg, mesh, coeffs, spec, x, tol,
-                                        max_iter)
+                                        max_iter, gas_np=gas_np)
+        if cfg.solver in ("dcg", "dmg"):
+            return _deflated_batched(cfg, coeffs, spec, x, tol, max_iter,
+                                     gas_np)
         return solve_batched(cfg.solver, coeffs, spec, x,
                              **_solver_kwargs(cfg, tol, max_iter))
 
@@ -263,7 +295,10 @@ def solve_image_group_3phase(cfg: SimulationConfig, imgs_np: np.ndarray,
             phases.amplify((im > 200) | ff.isolated, cfg.mesh_amp_y, cfg.mesh_amp_x)
         )
     classes = np.stack(class_list)
-    mask = torch.as_tensor(np.stack(mask_list), device=dev)
+    mask_np = np.stack(mask_list)
+    mask = torch.as_tensor(mask_np, device=dev)
+    gas_np = ((classes == phases.GAS) & ~mask_np
+              if cfg.solver in ("dcg", "dmg") else None)
     bsz, ny, nx = classes.shape
 
     def build(dcg_val):
@@ -281,7 +316,9 @@ def solve_image_group_3phase(cfg: SimulationConfig, imgs_np: np.ndarray,
         bsz, ny, nx)
     stage_max_iter = (1_000_000 if cfg.solver in ("jacobi", "rbsor", "jacobi_pallas")
                       else cfg.max_iter)
-    for stage_num, dcg_t in enumerate(dcg_stages(cfg.d_gas), start=1):
+    # dmg skips the homotopy pre-stages (kappa-robust; see single.py)
+    stages = [] if cfg.solver == "dmg" else dcg_stages(cfg.d_gas)
+    for stage_num, dcg_t in enumerate(stages, start=1):
         vprint(cfg.verbose, f"Pre-Cond Stage {stage_num}: DCG = {dcg_t:1.3e}")
         coeffs, spec = build(dcg_t)
         res = solve(coeffs, spec, x, cfg.convergence * 10, stage_max_iter)

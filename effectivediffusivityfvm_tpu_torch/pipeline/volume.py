@@ -6,7 +6,8 @@ stack) with the same grayscale phase conventions as 2D images.  The
 pipelines mirror the 2D orchestration: porosity / phase fractions, 3D flood
 fill screening, the diffusivity volume, DCF continuation (2-phase) or the
 DCG homotopy (3-phase) with warm starts, and a solve on the 7-point
-operator -- multigrid-PCG on K6/K7 (``Solver: mgcg``) or weighted Jacobi.
+operator -- multigrid-PCG on K6/K7 (``Solver: mgcg``), diagonal-PCG
+(``cg``), red-black SOR (``rbsor``) or weighted Jacobi.
 Host work is numpy; the D volume and everything after it live on ``device``
 (``"cuda"`` unless the caller asks for ``"cpu"``).
 
@@ -68,7 +69,7 @@ def _effective_solver_3d(cfg) -> str:
     """The 3D solver actually used: cgir/dcg/jacobi_pallas have no 3D
     variant and substitute mgcg -- loudly, and the symmetric-assembly flag
     follows the substitute.  ``dmg`` has a 3D implementation in the JAX
-    package, not ported yet (ROADMAP slice 3)."""
+    package, not ported yet (ROADMAP Queue 1, ``solvers/dmg3d.py``)."""
     if cfg.solver in _SOLVERS or cfg.solver == "dmg":
         return cfg.solver
     warnings.warn(
@@ -81,7 +82,7 @@ def _solver_fn(name, batched):
     if name == "dmg":
         raise NotImplementedError(
             "the 3D solver 'dmg' is not ported to the torch package yet "
-            "(ROADMAP slice 3)")
+            "(ROADMAP Queue 1, solvers/dmg3d.py)")
     return (_BATCHED_SOLVERS if batched else _SOLVERS)[name]
 
 

@@ -1,10 +1,12 @@
 """Solver registry: route a config's solver name to an implementation
 (torch port of ``effectivediffusivityfvm_tpu.solvers.dispatch``).
 
-Ported: ``jacobi`` (plain PyTorch sweeps), ``jacobi_pallas`` (the K3 CUDA
-kernel) and ``mgcg`` (the K1/K2 CUDA kernels, or K4/K5 on the banded
-engine).  The JAX package's other solver names are accepted by the
-configuration and refused here, naming the ROADMAP slice that ports them.
+Every solver of the JAX package: ``jacobi`` and ``rbsor`` (plain PyTorch
+sweeps), ``jacobi_pallas`` (the K3 CUDA kernel), ``cg``, ``cgir`` and
+``dcg`` (the PCG engines in plain PyTorch, as the JAX package runs them in
+XLA), ``mgcg`` (the K1/K2 CUDA kernels, or K4/K5 on the banded engine) and
+``dmg`` (deflated PCG with a K2 or K4 V-cycle).  All share one call
+signature and :class:`~.driver.SolveResult`.
 """
 
 from __future__ import annotations
@@ -12,9 +14,6 @@ from __future__ import annotations
 from .driver import SolveResult
 
 __all__ = ["solve", "solve_batched", "needs_spd", "SolveResult"]
-
-# solver name -> ROADMAP slice that ports it
-_NOT_PORTED = {"rbsor": 3, "cg": 3, "cgir": 3, "dcg": 3, "dmg": 3}
 
 
 def needs_spd(name: str) -> bool:
@@ -46,10 +45,21 @@ def _lookup(name: str, batched: bool):
             del omega   # accepted for signature parity, as the JAX solver does
             return solve(coeffs, spec, x0, **kw)
         return mgcg
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported to the torch package yet "
-            f"(ROADMAP slice {_NOT_PORTED[name]})")
+    if name == "rbsor":
+        from .rbsor import solve_rbsor, solve_rbsor_batched
+        return solve_rbsor_batched if batched else solve_rbsor
+    if name == "cg":
+        from .cg import solve_cg, solve_cg_batched
+        return solve_cg_batched if batched else solve_cg
+    if name == "cgir":
+        from .refine import solve_cgir, solve_cgir_batched
+        return solve_cgir_batched if batched else solve_cgir
+    if name == "dcg":
+        from .deflation import solve_dcg, solve_dcg_batched
+        return solve_dcg_batched if batched else solve_dcg
+    if name == "dmg":
+        from .dmg import solve_dmg, solve_dmg_batched
+        return solve_dmg_batched if batched else solve_dmg
     raise ValueError(f"unknown solver {name!r}")
 
 

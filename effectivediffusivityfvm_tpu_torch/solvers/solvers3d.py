@@ -1,6 +1,6 @@
 """3D solvers on the 7-point voxel operator (torch port of
-``effectivediffusivityfvm_tpu.solvers.solvers3d``): weighted Jacobi and
-multigrid-PCG.
+``effectivediffusivityfvm_tpu.solvers.solvers3d``): weighted Jacobi,
+red-black SOR, diagonal-PCG and multigrid-PCG.
 
 * The 2x2x2 aggregation-Galerkin hierarchy: restriction sums a block,
   prolongation injects piecewise-constant corrections, and ``R A P`` of a
@@ -11,12 +11,15 @@ multigrid-PCG.
   (:func:`~..ops.kernels.cgstep3d.cg_steps3d`), with the driver refreshing
   every active volume at every check through the stored level 0 and K6's
   banded cycle (:func:`~..ops.kernels.vcycle3d.v_cycle3d_tiled`).
-* ``solve_jacobi_3d*`` run the sweep driver (:mod:`.driver`) with the 3D
-  Jacobi sweep in plain PyTorch, as the JAX package runs it in XLA.
+* ``solve_jacobi_3d*`` and ``solve_rbsor_3d*`` run the sweep driver
+  (:mod:`.driver`) with the 3D Jacobi sweep or the red-black SOR sweep
+  (``(k+i+j)`` parity colouring) in plain PyTorch, as the JAX package runs
+  them in XLA; ``solve_cg_3d*`` run the PCG engine (:mod:`.pcg`) with the
+  3D matvec and the reciprocal diagonal.
 
-``rbsor``, ``cg`` (and the pipelines' ``dmg``) have no counterpart yet
-(ROADMAP slice 3); the JAX package's XLA MGCG engine (``use_pallas=False``)
-is not ported (ROADMAP, "Do not port").  All solvers return
+The pipelines' 3D ``dmg`` has no counterpart yet (ROADMAP Queue 1,
+``dmg3d``); the JAX package's XLA MGCG engine (``use_pallas=False``) is not
+ported (ROADMAP, "Do not port").  All solvers return
 :class:`~.driver.SolveResult`; the batched variants take ``(B, nz, ny,
 nx)``.
 """
@@ -37,6 +40,8 @@ from ..ops.kernels.vcycle3d import (HALO_Z, band_z_for, pad_op_3d,
                                     v_cycle3d_tiled_reference)
 from . import driver
 from .driver import SolveResult
+from .pcg import run_pcg
+from .rbsor import omega_opt, sweeps_fn
 
 __all__ = [
     "solve_jacobi_3d", "solve_rbsor_3d", "solve_cg_3d", "solve_mgcg_3d",
@@ -434,16 +439,66 @@ def solve_jacobi_3d_batched(coeffs, spec, x0, *, omega: float = 2.0 / 3.0,
         criterion=criterion, **_monitors(coeffs, spec))
 
 
-def _not_ported(name):
-    def solve(*args, **kwargs):
-        raise NotImplementedError(
-            f"the 3D solver {name!r} is not ported to the torch package yet "
-            "(ROADMAP slice 3)")
-    solve.__name__ = f"solve_{name}_3d"
-    return solve
+def solve_rbsor_3d(coeffs, spec, x0, *, omega: float = 0.0,
+                   tol: float = 1e-5, max_iter: int = 500_000,
+                   check_every: int = 0,
+                   criterion: str = "deff") -> SolveResult:
+    """Red-black SOR on one volume, coloured by ``(k+i+j)`` parity; ``omega``
+    0 picks :func:`~.rbsor.omega_opt` of the largest dim."""
+    n = max(x0.shape[-3:])
+    return driver.run_single(
+        sweeps_fn(coeffs, omega or omega_opt(n, n), 3,
+                  fvm3d.neighbor_sum_3d), coeffs, spec, x0, tol=tol,
+        max_iter=max_iter,
+        check_every=driver.resolve_check_every(check_every, 10_000),
+        criterion=criterion, **_monitors(coeffs, spec))
 
 
-solve_rbsor_3d = _not_ported("rbsor")
-solve_rbsor_3d_batched = _not_ported("rbsor")
-solve_cg_3d = _not_ported("cg")
-solve_cg_3d_batched = _not_ported("cg")
+def solve_rbsor_3d_batched(coeffs, spec, x0, *, omega: float = 0.0,
+                           tol: float = 1e-5, max_iter: int = 500_000,
+                           check_every: int = 0,
+                           criterion: str = "deff") -> SolveResult:
+    """Batched :func:`solve_rbsor_3d` with per-volume freezing."""
+    n = max(x0.shape[-3:])
+    return driver.run_batched(
+        sweeps_fn(coeffs, omega or omega_opt(n, n), 3,
+                  fvm3d.neighbor_sum_3d), coeffs, spec, x0, tol=tol,
+        max_iter=max_iter,
+        check_every=driver.resolve_check_every(check_every, 10_000),
+        criterion=criterion, **_monitors(coeffs, spec))
+
+
+# --------------------------------------------------------------------------
+# Diagonal-PCG
+# --------------------------------------------------------------------------
+
+def _pcg3(coeffs, spec, x0, batched, *, tol, max_iter, check_every,
+          criterion):
+    return run_pcg(
+        matvec=lambda p: fvm3d.apply_operator_3d(coeffs, p),
+        precond=lambda r, active=None: coeffs.diag_inv * r,
+        b=coeffs.b,
+        x0=x0,
+        deff_fn=lambda x: boundary_deff_3d(spec, x),
+        tol=tol, max_iter=max_iter,
+        check_every=driver.resolve_check_every(check_every, 100),
+        criterion=criterion, grid_ndim=3, batched=batched,
+    )
+
+
+def solve_cg_3d(coeffs, spec, x0, *, omega: float = 0.0, tol: float = 1e-8,
+                max_iter: int = 100_000, check_every: int = 0,
+                criterion: str = "residual") -> SolveResult:
+    """Jacobi-preconditioned CG on one volume (:func:`~.pcg.run_pcg`);
+    ``omega`` is signature parity."""
+    return _pcg3(coeffs, spec, x0, False, tol=tol, max_iter=max_iter,
+                 check_every=check_every, criterion=criterion)
+
+
+def solve_cg_3d_batched(coeffs, spec, x0, *, omega: float = 0.0,
+                        tol: float = 1e-8, max_iter: int = 100_000,
+                        check_every: int = 0,
+                        criterion: str = "residual") -> SolveResult:
+    """Batched :func:`solve_cg_3d` with per-volume freezing."""
+    return _pcg3(coeffs, spec, x0, True, tol=tol, max_iter=max_iter,
+                 check_every=check_every, criterion=criterion)

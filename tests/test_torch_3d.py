@@ -385,9 +385,16 @@ def test_solver_refusals_and_auto_rule():
                     (dict(min_size=8), ValueError)):       # one level only
         with pytest.raises(err):
             ts3.solve_mgcg_3d(c, spec, x0, **kw)
-    for fn in (ts3.solve_rbsor_3d, ts3.solve_cg_3d, ts3.solve_cg_3d_batched):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            fn(c, spec, x0)
+    # rbsor and cg are ported: they run on the same system
+    for fn, kw in ((ts3.solve_rbsor_3d, dict(tol=1e-10, check_every=10)),
+                   (ts3.solve_cg_3d, dict(tol=1e-10)),
+                   (ts3.solve_cg_3d_batched, dict(tol=1e-10))):
+        batched = fn is ts3.solve_cg_3d_batched
+        args = (c, spec, x0) if not batched else (
+            type(c)(*(a[None] for a in c)), type(spec)(*(a[None] for a in spec)),
+            x0[None])
+        res = fn(*args, criterion="residual", **kw)
+        assert float(res.conv.max()) <= 1e-10
 
 
 # ------------------------------------------------------------ pipelines
@@ -508,8 +515,15 @@ def test_volume_solver_substitution_and_refusals():
         assert pvol._effective_solver_3d(cfg) == "mgcg"
     for name in ("rbsor", "cg", "dmg"):
         cfg = SimulationConfig(n_phase=2, d_fluid=1.0, d_solid=1e-3,
-                               dtype="float64", solver=name)
+                               dtype="float64", solver=name,
+                               criterion="residual", convergence=1e-10,
+                               check_every=10)
         with warnings.catch_warnings():
             warnings.simplefilter("error")
-            with pytest.raises(NotImplementedError, match="slice 3"):
-                pvol.volume_sim(cfg, _slab(6, 6, 6), device="cpu")
+            if name == "dmg":       # the 3D dmg is the next slice's
+                with pytest.raises(NotImplementedError, match="dmg3d"):
+                    pvol.volume_sim(cfg, _slab(6, 6, 6), device="cpu")
+            else:                   # rbsor and cg run, without substitution
+                res = pvol.volume_sim(cfg, _slab(6, 6, 6), device="cpu")
+                want = 0.5 + 0.5 * 1e-3
+                assert abs(res.deff - want) <= 1e-5 * want

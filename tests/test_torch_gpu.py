@@ -40,7 +40,10 @@ from effectivediffusivityfvm_tpu_torch.ops.kernels.jacobi import (
 from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import (
     LevelArgs, cycle_launches, cycle_resident_from, v_cycle,
     v_cycle_reference)
-from effectivediffusivityfvm_tpu_torch.solvers import multigrid, solvers3d
+from effectivediffusivityfvm_tpu_torch.models import phases
+from effectivediffusivityfvm_tpu_torch.solvers import (deflation, dmg,
+                                                       multigrid, rbsor,
+                                                       solvers3d)
 
 pytestmark = pytest.mark.gpu
 
@@ -979,3 +982,92 @@ def test_shard_cg_steps_graph_route_equals_host_loop(cuda, sp, dtype):
             assert torch.equal(g, h)
     for g, s in zip(graphed[1][:3], (x, r, p)):
         assert torch.equal(g[1], s[1])          # frozen: bit-unchanged
+
+
+# ------------------------------------------------------------ dmg on K2/K4
+
+
+def _gas_blobs(dev, n, seed=0):
+    """Gas discs (D = 1e6) in fluid (D = 1), float64, one disc of radius
+    n/5 among them (a long segment for the coarse apply)."""
+    rng = np.random.default_rng(seed)
+    img = np.full((n, n), 150, np.uint8)
+    ii, jj = np.ogrid[:n, :n]
+    for k in range(n // 16):
+        ci, cj = rng.integers(8, n - 8, 2)
+        r = n // 5 if k == 0 else int(rng.integers(3, 10))
+        img[(ii - ci) ** 2 + (jj - cj) ** 2 < r * r] = 0
+    classes = phases.three_phase_classes(img)
+    d = torch.tensor(phases.d_field_from_classes(classes, 1.0, 0.0, 1e6,
+                                                 dtype=np.float64),
+                     device=dev)
+    x0 = (torch.arange(n, dtype=torch.float64, device=dev) / n).expand(
+        n, n).clone()
+    return (fvm.fvm_coefficients(d, 0.0, 1.0), make_flux_spec(d, 0.0, 1.0),
+            x0, classes == phases.GAS)
+
+
+@pytest.mark.parametrize("use_pallas,n", [(True, 256), ("tiled", 256),
+                                          (None, 512)])
+def test_solve_dmg_kernels_match_plain(cuda, use_pallas, n):
+    """dmg's cycle on K2 (forced, and auto at 512^2) and on K4 (forced):
+    the kernels are bit-equal to their plain versions, so the solves are
+    too."""
+    c, s, x0, gas = _gas_blobs(cuda, n)
+    kw = dict(member=gas, tol=1e-10, max_iter=400, use_pallas=use_pallas)
+    before = (v_cycle.launches, vt.v_cycle_tiled.launches)
+    got = dmg.solve_dmg(c, s, x0, **kw)
+    torch.cuda.synchronize()
+    k2, k4 = (v_cycle.launches - before[0],
+              vt.v_cycle_tiled.launches - before[1])
+    assert (k4 > 0 and k2 == 0) if use_pallas == "tiled" else (
+        k2 > 0 and k4 == 0)
+    assert k2 + k4 >= int(got.iters)             # a cycle an iteration
+    ref = dmg.solve_dmg(c, s, x0, plain=True, **kw)
+    assert int(got.iters) == int(ref.iters)
+    np.testing.assert_allclose(float(got.deff), float(ref.deff), rtol=1e-10)
+    assert float(got.conv) == float(ref.conv) and float(got.conv) < 1e-6
+
+
+def test_coarse_apply_is_the_same_every_run(cuda):
+    c, _, _, gas = _gas_blobs(cuda, 512)
+    space = deflation.build_component_deflation(c, gas)
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    r = torch.randn((512, 512), generator=gen, dtype=torch.float64).to(cuda)
+    w = torch.rand((512, 512), generator=gen, dtype=torch.float64).to(cuda)
+    seg = deflation.Segments(space)
+    runs = [deflation._coarse_apply(space, r, w, seg) for _ in range(3)]
+    assert all(torch.equal(runs[0], other) for other in runs[1:])
+    cpu = deflation._coarse_apply(
+        deflation.DeflationSpace(*(t.cpu() for t in space[:3]), m=space.m),
+        r.cpu(), w.cpu())
+    np.testing.assert_allclose(runs[0].cpu().numpy(), cpu.numpy(),
+                               rtol=1e-11, atol=1e-13 * float(cpu.abs().max()))
+
+
+@pytest.mark.parametrize("ndim,batched", [(2, False), (2, True), (3, True)])
+def test_rbsor_graph_route_matches_cpu(cuda, ndim, batched):
+    """On the card the red-black sweep replays as a CUDA graph; the sweep
+    has no reduction, so the card and the CPU give the same numbers."""
+    rng = np.random.default_rng(4)
+    shape = (2,) * batched + ((12, 16, 20) if ndim == 3 else (48, 40))
+    d = torch.tensor(np.exp(rng.uniform(0, np.log(1e3), shape)))
+    nx = shape[-1]
+    if ndim == 3:
+        c, s = fvm3d.fvm_coefficients_3d(d, 0.0, 1.0), fvm3d.make_flux_spec_3d(
+            d, 0.0, 1.0)
+        solve = (solvers3d.solve_rbsor_3d_batched if batched
+                 else solvers3d.solve_rbsor_3d)
+    else:
+        c, s = fvm.fvm_coefficients(d, 0.0, 1.0), make_flux_spec(d, 0.0, 1.0)
+        solve = rbsor.solve_rbsor_batched if batched else rbsor.solve_rbsor
+    x0 = (torch.arange(nx, dtype=torch.float64) / nx).expand(shape)
+    kw = dict(tol=1e-9, max_iter=20_000, check_every=100, criterion="deff")
+    ref = solve(c, s, x0, **kw)
+    got = solve(type(c)(*(a.to(cuda) for a in c)),
+                type(s)(*(a.to(cuda) for a in s)), x0.to(cuda), **kw)
+    assert got.iters.tolist() == ref.iters.tolist()
+    np.testing.assert_allclose(got.deff.cpu().numpy(), ref.deff.numpy(),
+                               rtol=1e-12)
+    np.testing.assert_allclose(got.x.cpu().numpy(), ref.x.numpy(),
+                               rtol=1e-12, atol=1e-14)

@@ -272,9 +272,9 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
     np.save(tmp_path / "vol.npy", np.zeros((4, 4, 4), np.uint8))
     _write_png(tmp_path / "00000.jpg", _img2(1, 8))
     for text, word in (("InputName: vol.npy\nSolver: dmg\nDtype: float64\n",
-                        "slice 3"),
-                       ("InputName: vol.npy\nSolver: rbsor\n", "slice 3"),
-                       ("Solver: dmg\nDtype: float64\n", "slice 3"),
+                        "dmg3d"),
+                       ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
+                        "Compact: 1\n", "Compact: 1"),
                        # the mesh routes are ported; on the CPU the CLI
                        # sees one device
                        ("RunBatch: 1\nNumImages: 1\nDevices: 2\n",

@@ -148,12 +148,42 @@ non-zero):
     effectivediffusivityfvm_tpu_torch.cli`` and through ``cli.main`` to
     read the field: components, iterations, relres (<= 1e-10) and the
     boundary Deff against ``deff_flux_average`` (within 1e-4);
-34. eight 256^2 3-phase images through ``batch_sim_3phase`` with dcg,
+34. four 256^2 3-phase images through ``batch_sim_3phase`` with dcg,
     cgir and dmg, each against its single-image solves (rtol 1e-8), and
     dmg on ``Devices: 2``, ``DP: 2`` (cuda:0 twice) against the batch;
 35. config 5's 256^3 volume through ``solve_cg_3d`` (2000 iterations at
     most, a check every 100), then a 64^3 slice of it through ``.npy`` CLI
-    runs with rbsor and cg, whose Deff agree to 1e-3.
+    runs with rbsor and cg, whose Deff agree to 1e-3;
+36. 3D ``dmg`` (``solve_dmg_3d``, f64, its f32 cycle on K6's banded route
+    at 256^3): config 5's medium with gas balls through both Dirichlet
+    faces, Dg 1000, against the same solve on the plain versions
+    (iterations within 2, Deff rtol 1e-6), relres <= 1e-10 or the cap, a
+    profile; then the volume as ``.npy`` through the CLI (``Phases: 3``,
+    ``Solver: dmg``);
+37. ``Compact: 1``: BASELINE config 4 (512^2, B=256) through
+    ``solve_mgcg_batched`` and ``solve_batched_compacted`` (segment 50),
+    every image conv <= 1e-6, Deff within 1e-4 of the unsegmented batch,
+    the segments and sub-batch sizes, K1/K2 launches; then through
+    ``batch_sim`` in float64 with ``Compact: 0`` and ``1``, every image
+    conv <= 1e-6, Deff within 1e-4;
+38. the sharded MGCG routes under ``run_pcg``: config 3's generator at
+    2044x2048 on four shards of the card (511-row shards: the cycle-only
+    route, K2 on the gathered image, in fp32 and f64; ``use_pallas=False``
+    in f64) and a log-uniform 24x96 f64 medium (6-row shards), each
+    against its
+    plain-version run (iterations within 2, rtol 1e-6) and, in f64, the
+    unsharded ``solve_mgcg`` (rtol 1e-3);
+39. the z-slab sharded 3D solvers: config 5 at SP=4 on the card through
+    ``sharded_solve_mgcg_3d`` (its tail on K6; f64 to relres 1e-6)
+    against its plain version, the same solve on one slab (iterations
+    within 2, rtol 1e-4: its tail starts lower) and ``solve_mgcg_3d``
+    (rtol 1e-4), through
+    ``sharded_solve_jacobi_3d`` (300 sweeps, fp32) and
+    ``sharded_solve_cg_3d`` (200 iterations, f64) against the unsharded
+    solvers (rtol 1e-6), and the dry-run twin's 3D leg;
+40. native preprocessing: the library builds; the flood fill of config
+    3's 2048^2 image and of 256 x 128^2 images equal to the scipy route's
+    and to ``participating_mask_device`` on the card; their times.
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -2290,7 +2320,7 @@ DMG_K2_SIZE = 1024                              # phase 32's forced-K2 leg
 DEMO_SHAPE, DEMO_SEED = (2007, 1002), 13        # the reference demo's size
 DEMO_DG = 1237500.0
 DEMO_MAX_ITER = 3000
-B34, N34 = 8, 256                               # phase 34's batch
+B34, N34 = 4, 256                               # phase 34's batch
 # phase 34's gas diffusivity by solver: cgir's float32 inner CG stalls at
 # its 8000-iteration cap on these media from the second outer step on, so
 # it runs at Dg = 10 (three outer steps); dcg walks two homotopy
@@ -2681,6 +2711,509 @@ def krylov_phases(dev, card, lib):
           f"{got['cg'].deff}")
     phase(35, t0, f"3D {card}: {line}; rbsor vs cg rel err {rel:.3e}")
     return dmg_launches
+
+
+
+# -- phases 36-40: the rest of the solver matrix and native preprocessing
+DMG3D_SIZE, DMG3D_DG = 256, 1000.0              # phase 36's volume, Dg
+# 100 iterations: the 256^3 medium needs more than 600 to reach 1e-10
+# (relres 1.329e-05 at 600 on an NVIDIA H100 80GB HBM3 at 700 W), so the
+# phase reports its cap and holds the relres there to DMG3D_CAP_RELRES
+# (3.273e-04 at 100 on that card); the JAX package's solve has the port's
+# residual history on a 64^3 copy (tests/solver_matrix_witness.py)
+DMG3D_KW = dict(tol=1e-10, max_iter=100, check_every=10,
+                criterion="relresidual")
+DMG3D_CAP_RELRES = 1e-3
+C4_SIZE, C4_BATCH, C4_SEED = 512, 256, 4        # bench_configs.py config 4
+C4_KW = dict(tol=1e-6, max_iter=3000, check_every=10, criterion="residual",
+             min_size=16, coarse_iters=32, nu1=2, nu2=2, over=1.8)
+C4_SEGMENT = 50
+SH_SHAPE = (2044, 2048)                         # phase 38: 511-row shards
+SH_SMALL = (24, 96)                             # phase 38: 6-row shards
+H3D_CG_CAP, H3D_JAC_CAP = 200, 300              # phase 39's caps
+K6_SPLIT_SIZES = (16, 32, 64, 96, 128, 192, 256)  # phase 36: whole vs banded
+K6_SPLIT_BATCHES = (1, 8)
+NATIVE_BATCH, NATIVE_SIZE = 256, 128            # phase 40: the CLI batch
+
+
+def gas_volume(fluid, seed, count=48, radii=(6, 20)):
+    """A 3-phase volume from a config-5 fluid mask: fluid 150, solid 255,
+    then gas balls (0) from ``default_rng(seed)``, a quarter of them
+    centred on each Dirichlet face (x = 0 and x = nx - 1)."""
+    rng = np.random.default_rng(seed)
+    vol = np.where(fluid, 150, 255).astype(np.uint8)
+    nz, ny, nx = vol.shape
+    for k in range(count):
+        r = int(rng.integers(*radii))
+        c = [int(rng.integers(0, n)) for n in (nz, ny, nx)]
+        if k % 4 == 0:
+            c[2] = 0
+        elif k % 4 == 1:
+            c[2] = nx - 1
+        lo = [max(v - r, 0) for v in c]
+        hi = [min(v + r + 1, n) for v, n in zip(c, (nz, ny, nx))]
+        kk, ii, jj = np.ogrid[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        sub = vol[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        sub[(kk - c[0]) ** 2 + (ii - c[1]) ** 2 + (jj - c[2]) ** 2
+            < r * r] = 0
+    return vol
+
+
+def k6_cycle_split(dev, sizes=K6_SPLIT_SIZES, batches=K6_SPLIT_BATCHES,
+                   reps=10):
+    """One dmg3d preconditioner cycle (``dmg3d._cycle3``: the float32 raw
+    operator, its level tables built once) on K6's whole and banded routes,
+    in ms a call by CUDA events, on config 5's medium at each ``n^3`` of
+    ``sizes`` and each batch of ``batches``: ``{(bsz, n): (whole,
+    banded)}``, the numbers ``dmg3d._dmg3d_engine_auto`` is set from."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.ops.fvm3d import StencilCoeffs3D
+    from effectivediffusivityfvm_tpu_torch.solvers import dmg3d
+
+    out = {}
+    mg = dict(nu=2, mg_omega=0.8, coarse_iters=32, min_size=4, over=1.8,
+              plain=False)
+    for bsz in batches:
+        for n in sizes:
+            if bsz * n ** 3 > 256 ** 3:
+                continue
+            fluid = np.stack([c5_fluid((n,) * 3, C5_SEED + b)
+                              for b in range(bsz)])
+            _, c, _, _ = c5_problem(fluid, dev)
+            raw = StencilCoeffs3D(*(a.to(torch.float32) for a in c))
+            r = torch.randn(raw.b.shape, generator=torch.Generator(
+                device=dev).manual_seed(n), device=dev)
+            times = []
+            for engine in (True, "tiled3d"):
+                cycle = dmg3d._cycle3(raw, engine, **mg)
+                times.append(cuda_ms(lambda: cycle(r), reps))
+                del cycle
+            out[(bsz, n)] = tuple(times)
+            del c, raw, r
+            torch.cuda.empty_cache()
+    return out
+
+
+def solver_matrix_phases(dev, card, lib):
+    """Phases 36-40: 3D dmg on K6, the compacting batch solve on K1/K2, the
+    sharded MGCG routes under run_pcg (K2, and K8 where a band exists), the
+    z-slab sharded 3D solvers (K6 tail) and the native preprocessing.
+    Returns the new paths' launch counts."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch import cli
+    from effectivediffusivityfvm_tpu_torch.config import parse_input_file
+    from effectivediffusivityfvm_tpu_torch.models import (_native, floodfill,
+                                                          phases, volume)
+    from effectivediffusivityfvm_tpu_torch.ops import fvm, fvm3d
+    from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import cg_steps
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle3d import (
+        v_cycle3d, v_cycle3d_tiled)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_sharded import (
+        shard_row_t1, shard_row_t2)
+    from effectivediffusivityfvm_tpu_torch.parallel import halo, halo3d
+    from effectivediffusivityfvm_tpu_torch.parallel.dryrun import \
+        dryrun_multichip
+    from effectivediffusivityfvm_tpu_torch.parallel.mesh import make_mesh
+    from effectivediffusivityfvm_tpu_torch.pipeline import batch
+    from effectivediffusivityfvm_tpu_torch.pipeline import volume as pvol
+    from effectivediffusivityfvm_tpu_torch.solvers import (compact, dispatch,
+                                                           dmg3d, multigrid,
+                                                           solvers3d)
+
+    wrappers = {"K1": cg_steps, "K2": v_cycle, "K6 whole": v_cycle3d,
+                "K6 banded": v_cycle3d_tiled, "K8 T1": shard_row_t1,
+                "K8 T2": shard_row_t2}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in wrappers.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    launches = {}
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+
+    # -- 36: 3D dmg on K6, bench3d.py's medium with gas balls through both
+    # Dirichlet faces, f64 (the cycle f32 on K6's whole route, which
+    # k6_cycle_split times against the banded one)
+    t0 = time.perf_counter()
+    split = k6_cycle_split(dev)
+    split_text = ", ".join(f"B={b} {n}^3 {w:.4f}/{t:.4f}"
+                           for (b, n), (w, t) in split.items())
+    n = DMG3D_SIZE
+    vol = gas_volume(c5_fluid((n,) * 3, C5_SEED), C5_SEED)
+    classes = phases.three_phase_classes(vol)
+    ff = volume.flood_fill_3d(vol > 200)
+    mask = (vol > 200) | ff.isolated
+    gas = (classes == phases.GAS) & ~mask
+    d = torch.tensor(phases.d_field_from_classes(
+        classes, 1.0, 0.0, DMG3D_DG, dtype=np.float64), device=dev)
+    c = fvm3d.fvm_coefficients_3d(d, 0.0, 1.0, mask=torch.as_tensor(
+        mask, device=dev), symmetric=True)
+    s = fvm3d.make_flux_spec_3d(d, 0.0, 1.0)
+    x0 = (torch.arange(n, dtype=torch.float64, device=dev) / n).expand(
+        (n,) * 3)
+    route = dmg3d._dmg3d_engine_auto((n,) * 3, torch.float32, 2)
+    key = "K6 banded" if route == "tiled3d" else "K6 whole"
+    (defl, t_space) = timed(lambda: dmg3d.build_component_deflation_3d(
+        c, gas))
+    kw = dict(DMG3D_KW, defl=defl)
+    zero_counts()
+    res, secs = timed(lambda: dmg3d.solve_dmg_3d(c, s, x0, **kw))
+    l36 = counts()
+    check(l36[key] > 0, f"dmg3d launches {l36}")
+    plain = dmg3d.solve_dmg_3d(c, s, x0, plain=True, **kw)
+    d_it = abs(int(res.iters) - int(plain.iters))
+    r_p = rel(res.deff, plain.deff)
+    check(d_it <= 2 and r_p <= 1e-6, f"dmg3d vs plain: iterations "
+          f"{int(res.iters)} vs {int(plain.iters)}, Deff rel err {r_p}")
+    relres = float(res.conv)
+    capped = int(res.iters) >= DMG3D_KW["max_iter"]
+    check(relres <= 1e-10 or (capped and relres <= DMG3D_CAP_RELRES),
+          f"dmg3d relres {relres} after {int(res.iters)} iterations")
+    prof = profile_solve(lambda: dmg3d.solve_dmg_3d(c, s, x0, **kw),
+                         PROFILE_GROUPS_3D)
+    launches["dmg3d"] = l36[key]
+    line = (f"{n}^3 3-phase f64, Dg {DMG3D_DG:.0f}, m {defl.m} components "
+            f"(space built in {t_space:.2f} s), cycle {route!r}: "
+            f"{int(res.iters)} iterations{' (the cap)' if capped else ''}, "
+            f"relres {relres:.3e}, Deff {float(res.deff):.6f}, {secs:.3f} s, "
+            f"{l36[key]} {key} launches (K6 whole {l36['K6 whole']}); vs "
+            f"plain: iterations {int(plain.iters)}, Deff rel err {r_p:.3e}; "
+            f"profile: {profile_line(prof)}; one cycle, K6 whole/banded ms: "
+            f"{split_text}")
+    del res, plain, c, s, d, x0, defl
+    torch.cuda.empty_cache()
+    npy = WORK_DIR / "vol_dmg3d.npy"
+    np.save(npy, vol)
+    csv = WORK_DIR / "vol_dmg3d.csv"
+    csv.unlink(missing_ok=True)
+    inp = WORK_DIR / "input_vol_dmg3d.txt"
+    inp.write_text(f"Phases: 3\nInputName: {npy}\nDs: 0\nDf: 1\n"
+                   f"Dg: {DMG3D_DG:.0f}\nDtype: float64\nSolver: dmg\n"
+                   f"Criterion: relresidual\nConvergence: 1e-10\n"
+                   f"CheckEvery: 10\nMaxIter: {DMG3D_KW['max_iter']}\n"
+                   f"OutputName: {csv}\n")
+    seen = []
+    sim = observe(pvol, "volume_sim_3phase", seen)
+    try:
+        zero_counts()
+        rc, wall = timed(lambda: cli.main([str(inp)], device=dev))
+    finally:
+        pvol.volume_sim_3phase = sim
+    l_cli = counts()
+    check(rc == 0 and len(seen) == 1 and l_cli[key] > 0,
+          f"the dmg .npy CLI run returned {rc}, launches {l_cli}")
+    row = csv.read_text().splitlines()[1].split(",")
+    check(abs(float(row[4]) - seen[0].deff) <= 1e-4 * abs(seen[0].deff),
+          f"the dmg .npy CSV row {row}")
+    phase(36, t0, f"dmg3d {card}: {line}; the .npy CLI run: "
+          f"{seen[0].iters} iterations, relres {seen[0].conv:.3e}, Deff "
+          f"{seen[0].deff:.6f}, solve {seen[0].time_s:.3f} s ({wall:.1f} s "
+          f"wall), {l_cli[key]} {key} launches")
+    del seen, vol, classes, mask, gas
+
+    # -- 37: Compact: 1 on config 4 (bench_configs.py:169-204), B=256
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(C4_SEED)
+    imgs4 = np.stack([correlated_binary(rng, C4_SIZE, C4_SIZE, sigma=4.0)
+                      for _ in range(C4_BATCH)])
+    _, c4, s4, x04 = c3_problem(imgs4, dev)
+    zero_counts()
+    ref, t_plain = timed(lambda: multigrid.solve_mgcg_batched(c4, s4, x04,
+                                                              **C4_KW))
+    l_plain = counts()
+    subs = []
+
+    def recorded(coeffs, spec, x, **kw):
+        subs.append(int(x.shape[0]))
+        return multigrid.solve_mgcg_batched(coeffs, spec, x, **kw)
+
+    zero_counts()
+    got, t_comp = timed(lambda: compact.solve_batched_compacted(
+        recorded, c4, s4, x04, segment=C4_SEGMENT, **C4_KW))
+    l_comp = counts()
+    conv = got.conv.cpu().numpy()
+    r_c = np.abs(got.deff.cpu().numpy() - ref.deff.cpu().numpy()) / np.abs(
+        ref.deff.cpu().numpy())
+    check(bool(np.all(conv <= C4_KW["tol"])), f"compacted conv {conv.max()}")
+    check(bool(np.all(r_c <= 1e-4)), f"compacted vs unsegmented Deff rel "
+          f"err {r_c.max()}")
+    check(l_comp["K1"] > 0 and l_comp["K2"] > 0, f"compacted launches "
+          f"{l_comp}")
+    launches["compact"] = l_comp
+    it_ref = ref.iters.cpu().numpy()
+    # the CLI route (the pipeline's mgcg settings) in float64: in float32
+    # one image of the 256 stops above tol 1e-6 unsegmented too (1.05e-6,
+    # the float32 floor of the pipeline's cycle on this medium), so the
+    # comparison is made where both runs converge
+    tables, t_cli, l_cli, subs_cli = {}, {}, {}, []
+    lookup = dispatch._lookup
+
+    def recording(name, batched):
+        fn = lookup(name, batched=batched)
+
+        def run(coeffs, spec, x, **kw):
+            subs_cli.append(int(x.shape[0]))
+            return fn(coeffs, spec, x, **kw)
+        return run
+
+    for comp in (0, 1):
+        csv = WORK_DIR / f"batch_compact_{comp}.csv"
+        csv.unlink(missing_ok=True)
+        inp = WORK_DIR / f"input_compact_{comp}.txt"
+        inp.write_text(f"Phases: 2\nRunBatch: 1\nNumImages: {C4_BATCH}\n"
+                       f"Ds: {CONTRAST}\nDf: 1\nSolver: mgcg\nCriterion: "
+                       f"residual\nConvergence: {C4_KW['tol']}\n"
+                       f"CheckEvery: 10\nMaxIter: {C4_KW['max_iter']}\n"
+                       f"Dtype: float64\nCompact: {comp}\nOutputName: {csv}\n")
+        zero_counts()
+        dispatch._lookup = recording if comp else lookup
+        try:
+            tables[comp], t_cli[comp] = timed(lambda: batch.batch_sim(
+                parse_input_file(str(inp)), imgs=list(imgs4), device=dev))
+        finally:
+            dispatch._lookup = lookup
+        l_cli[comp] = counts()
+    r_cli = np.abs(tables[1][:, 3] - tables[0][:, 3]) / np.abs(tables[0][:, 3])
+    bad = np.flatnonzero(np.maximum(tables[0][:, 6], tables[1][:, 6])
+                         > C4_KW["tol"])
+    check(bad.size == 0 and l_cli[1]["K1"] > 0,
+          f"the Compact: 1 CLI run: images {bad.tolist()} conv "
+          f"{tables[1][bad, 6].tolist()} (unsegmented "
+          f"{tables[0][bad, 6].tolist()}), launches {l_cli[1]}")
+    check(bool(np.all(r_cli <= 1e-4)), f"Compact: 1 vs Compact: 0 Deff "
+          f"rel err {r_cli.max()}")
+    # the re-pack at full width: a later segment runs on fewer images
+    check(len(subs_cli) > 1 and subs_cli[0] == C4_BATCH
+          and min(subs_cli[1:]) < C4_BATCH,
+          f"the Compact: 1 CLI run's sub-batches {subs_cli}")
+    launches["compact CLI"] = l_cli[1]
+    phase(37, t0, f"Compact: 1 {card}: config 4, {C4_BATCH} x {C4_SIZE}^2 "
+          f"fp32: unsegmented {t_plain:.3f} s ({it_ref.min()}..."
+          f"{it_ref.max()} iterations, launches {l_plain}); compacted "
+          f"(segment {C4_SEGMENT}) {t_comp:.3f} s, {len(subs)} segments, "
+          f"sub-batches {subs}, launches {l_comp}, max conv {conv.max():.3e}"
+          f", Deff vs unsegmented max rel err {r_c.max():.3e}; the CLI "
+          f"batch in f64 (the pipeline's mgcg settings): Compact: 0 "
+          f"{t_cli[0]:.3f} s, launches {l_cli[0]}; Compact: 1 "
+          f"{t_cli[1]:.3f} s, {len(subs_cli)} segments, sub-batches "
+          f"{subs_cli}, launches {l_cli[1]}; max conv "
+          f"{tables[1][:, 6].max():.3e}, Deff max rel err {r_cli.max():.3e}")
+    del c4, s4, x04, ref, got, imgs4
+
+    # -- 38: the sharded MGCG routes under run_pcg, config 3's generator.
+    # In float32 at 2044x2048 every engine stops above relres 1e-4 at the
+    # float32 floor (on an H100: route (a) 131 iterations at 5.9e-4, the
+    # unsharded banded engine 96 at 1.1e-2, Deff 0.2142 and 0.4597 against
+    # 0.2108 in float64), so the float32 leg is held to its plain version
+    # only and the comparisons with the unsharded solve run in float64
+    t0 = time.perf_counter()
+    lines = []
+    f64_kw = dict(C3_KW, tol=1e-5, max_iter=600)
+    for label, shape, use_pallas, kw, dtype, vs_one in (
+            ("(a) cycle-only, 511-row shards", SH_SHAPE, None, C3_KW,
+             torch.float32, False),
+            ("(a) cycle-only, 511-row shards", SH_SHAPE, None, f64_kw,
+             torch.float64, True),
+            ("(b) use_pallas=False, 511-row shards", SH_SHAPE, False,
+             f64_kw, torch.float64, True),
+            # a 24-row strip of config 3's medium does not percolate (at
+            # 24x2048 on an H100 relres stayed above 27 over 400 iterations,
+            # Deff ~0): this leg solves a log-uniform D of one decade, 96
+            # wide so that the coarsest grid is solved; its rows coarsen to
+            # 3 only below min_size 32
+            ("(a) cycle-only, 6-row shards", SH_SMALL, None,
+             dict(C3_KW, min_size=4, tol=1e-9), torch.float64, True)):
+        if shape == SH_SMALL:
+            d = np.exp(np.random.default_rng(C3_SEED).uniform(
+                0.0, np.log(10.0), shape))
+            dt = torch.tensor(d, dtype=dtype, device=dev)
+            c = fvm.fvm_coefficients(dt, 0.0, 1.0)
+            s = make_flux_spec(dt, 0.0, 1.0)
+            x0 = (torch.arange(shape[1], dtype=dtype, device=dev)
+                  / shape[1]).expand(shape)
+        else:
+            img = correlated_binary(np.random.default_rng(C3_SEED), *shape)
+            _, c, s, x0 = c3_problem(img, dev, dtype)
+        mesh = make_mesh(4, dp=1, sp=4, devices=[dev] * 4)
+        zero_counts()
+        res, secs = timed(lambda: halo.sharded_solve_mgcg(
+            c, s, x0, mesh, use_pallas=use_pallas, **kw))
+        l38 = counts()
+        check(l38["K2"] > 0, f"route {label} launches {l38}")
+        plain = halo.sharded_solve_mgcg(c, s, x0, mesh,
+                                        use_pallas=use_pallas, plain=True,
+                                        **kw)
+        one = multigrid.solve_mgcg(c, s, x0, **kw)
+        r_p, r_1 = rel(res.deff, plain.deff), rel(res.deff, one.deff)
+        check(abs(int(res.iters) - int(plain.iters)) <= 2 and r_p <= 1e-6,
+              f"route {label} vs plain: iterations {int(res.iters)} vs "
+              f"{int(plain.iters)}, Deff rel err {r_p}")
+        check(r_1 <= 1e-3 or not vs_one, f"route {label} vs the unsharded "
+              f"solve: Deff {float(res.deff)} vs {float(one.deff)}")
+        launches[f"{label} {str(dtype)[6:]}"] = l38
+        lines.append(
+            f"{label} {shape[0]}x{shape[1]} {str(dtype)[6:]} tol "
+            f"{kw['tol']:.0e}: {int(res.iters)} iterations, relres "
+            f"{float(res.conv):.3e}, Deff {float(res.deff):.6f}, "
+            f"{secs:.3f} s, launches K2 {l38['K2']}, K8 {l38['K8 T1']}+"
+            f"{l38['K8 T2']}; vs plain: iterations {int(plain.iters)}, Deff "
+            f"rel err {r_p:.3e}; the unsharded solve_mgcg: "
+            f"{int(one.iters)} iterations, relres {float(one.conv):.3e}, "
+            f"Deff rel err {r_1:.3e}" + ("" if vs_one else " (not gated)"))
+        del c, s, x0, res, plain, one
+    phase(38, t0, f"sharded MGCG under run_pcg {card}: " + "; ".join(lines))
+
+    # -- 39: the z-slab sharded 3D solvers on config 5's volume, SP=4 on
+    # cuda:0; then the dry-run twin's 3D leg
+    t0 = time.perf_counter()
+    fluid5 = c5_fluid((C5_SIZE,) * 3, C5_SEED)
+    mesh = make_mesh(4, dp=1, sp=4, devices=[dev] * 4)
+    lines = []
+    _, c5, s5, x05 = c5_problem(fluid5, dev)
+    # float64 to relres 1e-6: at config 5's fp32 1e-4 the sharded run_pcg
+    # solve and the fused engine stopped at the same 11 iterations 2.1e-4
+    # apart in Deff on an H100 (two solves to 1e-4 by different paths),
+    # and in fp32 the sharded solve ran 2000 iterations without reaching
+    # 1e-5 (the fused engine: 214), as the JAX package's z-slab solve
+    # stalls in float32 on a 128^3 copy (tests/solver_matrix_witness.py)
+    mg5 = {k: C5_KW[k] for k in ("max_iter", "check_every", "criterion",
+                                 "nu1", "nu2", "mg_omega", "coarse_iters",
+                                 "min_size", "over")}
+    mg5.update(tol=1e-6, max_iter=200)
+    del c5, s5, x05
+    _, c5, s5, x05 = c5_problem(fluid5, dev, torch.float64)
+    zero_counts()
+    res, secs = timed(lambda: halo3d.sharded_solve_mgcg_3d(c5, s5, x05,
+                                                           mesh, **mg5))
+    l39 = counts()
+    check(l39["K6 whole"] > 0, f"halo3d mgcg launches {l39}")
+    launches["halo3d mgcg"] = l39["K6 whole"]
+    plain = halo3d.sharded_solve_mgcg_3d(c5, s5, x05, mesh, plain=True,
+                                         **mg5)
+    # the iterations are held against the solve on one slab (its levels
+    # coarsen to the bottom, the SP=4 slabs stop at 2 planes) and against
+    # another engine of the same algorithm: run_pcg unsharded with K6's
+    # banded cycle on the full hierarchy (dmg3d with no coarse space, the
+    # cycle in f64; its relres is taken on the equilibrated system, so it
+    # may stop one check later).  The port's solve_mgcg_3d is the fused K7
+    # engine, whose restarts and cadence differ (on an H100 it took 21
+    # iterations where this one took 31): Deff only
+    sp1 = halo3d.sharded_solve_mgcg_3d(
+        c5, s5, x05, make_mesh(1, dp=1, sp=1, devices=[dev]), **mg5)
+    unsharded = dmg3d.solve_dmg_3d(
+        c5, s5, x05, defl=None, precond_f32=False, use_pallas="tiled3d",
+        nu=mg5["nu1"], **{k: mg5[k] for k in (
+            "tol", "max_iter", "check_every", "criterion", "mg_omega",
+            "coarse_iters", "min_size", "over")})
+    one = solvers3d.solve_mgcg_3d(c5, s5, x05, **dict(mg5, first_window=0))
+    r_p, r_s, r_u, r_1 = (rel(res.deff, plain.deff), rel(res.deff, sp1.deff),
+                          rel(res.deff, unsharded.deff),
+                          rel(res.deff, one.deff))
+    check(abs(int(res.iters) - int(plain.iters)) <= 2 and r_p <= 1e-6,
+          f"halo3d mgcg vs plain: iterations {int(res.iters)} vs "
+          f"{int(plain.iters)}, Deff rel err {r_p}")
+    check(abs(int(res.iters) - int(sp1.iters)) <= 2 and r_s <= 1e-4,
+          f"halo3d mgcg SP=4 vs SP=1: iterations {int(res.iters)} vs "
+          f"{int(sp1.iters)}, Deff rel err {r_s}")
+    check(abs(int(res.iters) - int(unsharded.iters)) <= mg5["check_every"]
+          and r_u <= 1e-4, f"halo3d mgcg vs run_pcg unsharded on K6: "
+          f"iterations {int(res.iters)} vs {int(unsharded.iters)}, Deff rel "
+          f"err {r_u}")
+    check(r_1 <= 1e-4, f"halo3d mgcg vs solve_mgcg_3d: Deff rel err {r_1}")
+    lines.append(f"mgcg V(2,2) f64: {int(res.iters)} iterations, relres "
+                 f"{float(res.conv):.3e}, Deff {float(res.deff):.6f}, "
+                 f"{secs:.3f} s, {l39['K6 whole']} K6 whole launches; vs "
+                 f"plain Deff rel err {r_p:.3e}; vs SP=1 ({int(sp1.iters)} "
+                 f"iterations) {r_s:.3e}; vs run_pcg unsharded on K6 "
+                 f"({int(unsharded.iters)} iterations) {r_u:.3e}; vs "
+                 f"solve_mgcg_3d ({int(one.iters)} iterations) {r_1:.3e}")
+    del res, plain, sp1, unsharded, one, c5, s5, x05
+    _, c5, s5, x05 = c5_problem(fluid5, dev)
+    jac = dict(omega=2.0 / 3.0, tol=1e-12, max_iter=H3D_JAC_CAP,
+               check_every=100, criterion="residual")
+    res, secs = timed(lambda: halo3d.sharded_solve_jacobi_3d(c5, s5, x05,
+                                                             mesh, **jac))
+    one = solvers3d.solve_jacobi_3d(c5, s5, x05, **jac)
+    r_1 = rel(res.deff, one.deff)
+    check(int(res.iters) == int(one.iters) and r_1 <= 1e-6,
+          f"halo3d jacobi vs solve_jacobi_3d: {int(res.iters)} vs "
+          f"{int(one.iters)} sweeps, Deff rel err {r_1}")
+    lines.append(f"jacobi fp32, {int(res.iters)} sweeps: {secs:.3f} s, Deff "
+                 f"rel err vs solve_jacobi_3d {r_1:.3e}")
+    del c5, s5, x05, res, one
+    # the CG leg in float64, so that the comparison sees the sharding and
+    # not float32 rounding over 200 iterations
+    _, c5, s5, x05 = c5_problem(fluid5, dev, torch.float64)
+    cg = dict(tol=1e-12, max_iter=H3D_CG_CAP, check_every=100,
+              criterion="relresidual")
+    res, secs = timed(lambda: halo3d.sharded_solve_cg_3d(c5, s5, x05, mesh,
+                                                         **cg))
+    one = solvers3d.solve_cg_3d(c5, s5, x05, **cg)
+    r_1 = rel(res.deff, one.deff)
+    check(int(res.iters) == int(one.iters) and r_1 <= 1e-6,
+          f"halo3d cg vs solve_cg_3d: {int(res.iters)} vs {int(one.iters)} "
+          f"iterations, Deff rel err {r_1}")
+    lines.append(f"cg f64, {int(res.iters)} iterations: {secs:.3f} s, Deff "
+                 f"rel err vs solve_cg_3d {r_1:.3e}")
+    del c5, s5, x05, res, one
+    dry = dryrun_multichip([dev] * 4, out_dir=str(WORK_DIR))
+    lines.append("dry-run twin: " + dry[1])
+    phase(39, t0, f"halo3d {card}: {C5_SIZE}^3 at SP=4 on one card: "
+          + "; ".join(lines))
+    torch.cuda.empty_cache()
+
+    # -- 40: native preprocessing
+    t0 = time.perf_counter()
+    check(_native.native_available(), "the native library did not build")
+    img3 = correlated_binary(np.random.default_rng(C3_SEED), C3_SIZE,
+                             C3_SIZE)
+    imgs8 = bench_images(NATIVE_BATCH, NATIVE_SIZE)
+    lines = []
+    for label, stack in ((f"config 3's {C3_SIZE}^2", img3[None]),
+                         (f"{NATIVE_BATCH} x {NATIVE_SIZE}^2", imgs8)):
+        solid = stack > 150
+        t1 = time.perf_counter()
+        nat = [floodfill.flood_fill(m) for m in solid]
+        t_nat = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        sci = [floodfill.flood_fill(m, use_native=False) for m in solid]
+        t_sci = time.perf_counter() - t1
+        check(all(np.array_equal(a.participating, b.participating)
+                  and np.array_equal(a.isolated, b.isolated)
+                  and a.path_flag == b.path_flag
+                  for a, b in zip(nat, sci)), f"{label}: native vs scipy")
+        solid_d = torch.as_tensor(solid, device=dev)
+        (part, iso, _), t_dev = timed(
+            lambda: floodfill.participating_mask_device(solid_d))
+        check(np.array_equal(part.cpu().numpy(),
+                             np.stack([a.participating for a in nat]))
+              and np.array_equal(iso.cpu().numpy(),
+                                 np.stack([a.isolated for a in nat])),
+              f"{label}: participating_mask_device vs flood_fill")
+        lines.append(f"{label}: native {t_nat * 1e3:.1f} ms, scipy "
+                     f"{t_sci * 1e3:.1f} ms, equal masks; "
+                     f"participating_mask_device on the card "
+                     f"{t_dev * 1e3:.1f} ms, equal")
+    phase(40, t0, f"native preprocessing {card} ({_native._lib_path().name}): "
+          + "; ".join(lines))
+    return launches
 
 
 def main():
@@ -3212,6 +3745,8 @@ def main():
                                   imgs[:64], inp10.read_text(), table10)
     torch.cuda.empty_cache()
     krylov_phases(dev, card, lib)
+    torch.cuda.empty_cache()
+    solver_matrix_phases(dev, card, lib)
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
     k3_ms, _, k3_ms_p, _, k3_bound = next(iter(k3_times.values()))

@@ -64,10 +64,12 @@ class SimulationConfig:
     batch_size: int = 0               # 0 = solve each same-shape group at once
     incremental_output: bool = True   # write batch CSV rows as they complete
                                       #   (fixes reference all-or-nothing, PDF §3.6)
-    use_floodfill_native: bool = True # the C++ flood fill (not ported yet)
+    use_floodfill_native: bool = True # read by no pipeline, as in the JAX
+                                      #   package; flood_fill's own
+                                      #   use_native defaults to the C++ route
     seed_both_boundaries: bool = True # flood-fill seeding intent (Deff2D.cuh:593-605)
     compact_batches: bool = False     # re-pack active images between solve
-                                      #   segments (not ported yet)
+                                      #   segments (cg/mgcg, solvers/compact.py)
     devices: int = 1                  # devices for the pipeline: 1 = one device,
                                       #   -1 = all visible, n = first n
     dp: int = 0                       # data-parallel extent; 0 = devices//sp

@@ -26,6 +26,7 @@ __all__ = [
     "apply_operator",
     "residual",
     "equilibrate",
+    "decouple_empty_rows",
 ]
 
 
@@ -158,6 +159,20 @@ def residual(coeffs: StencilCoeffs, x: torch.Tensor) -> torch.Tensor:
     """Mean absolute flux imbalance ``mean(|b - A x|)`` over the grid."""
     return torch.mean(torch.abs(coeffs.b - apply_operator(coeffs, x)),
                       dim=(-2, -1))
+
+
+def decouple_empty_rows(coeffs):
+    """``coeffs`` (2D or 3D) with every row that has no conductance at all
+    -- diag 0: a pore the flood fill reaches only across its periodic wrap,
+    which the operator does not have -- made a decoupled identity row
+    (diag 1, as the mask makes one; its couplings and b are 0 already).
+    Its value then no longer matters to any other cell, and the deflated
+    solves' equilibration has a unit scale there where ``1/sqrt(0)`` would
+    turn them to NaN (as it does in the JAX package)."""
+    empty = coeffs.diag == 0
+    one = torch.ones_like(coeffs.diag)
+    return coeffs._replace(diag=torch.where(empty, one, coeffs.diag),
+                           diag_inv=torch.where(empty, one, coeffs.diag_inv))
 
 
 def equilibrate(coeffs: StencilCoeffs):

@@ -54,6 +54,7 @@ from ..fvm3d import StencilCoeffs3D
 from .vcycle import _CTYPE, check_plane, smoothing_schedule, weights
 
 __all__ = ["HALO_Z", "MAX_NU3", "band_z_for", "pad_shape_3d", "pad_op_3d",
+           "Level3Args",
            "coeffs_from_d3", "v_cycle3d_reference", "pre3_reference",
            "post3_reference", "v_cycle3d_tiled_reference", "v_cycle3d",
            "v_cycle3d_tiled", "cycle3_resident_from", "cycle3_launches"]
@@ -292,13 +293,16 @@ def _check_banded(levels, r, nu):
                          f"and {got}")
 
 
-def coarse_tail3(levels, rc, *, omega, nu, coarse_iters, over, plain=False):
+def coarse_tail3(levels, rc, *, omega, nu, coarse_iters, over, plain=False,
+                 tail_args=None):
     """The coarse correction of the restricted residual ``rc`` (on
     ``levels[1]``'s shape): the whole cycle on ``levels[1:]`` (its plain
-    version if ``plain``)."""
-    cycle = v_cycle3d_reference if plain else v_cycle3d
-    return cycle(levels[1:], rc, omega=omega, nu=nu,
-                 coarse_iters=coarse_iters, over=over)
+    version if ``plain``; ``tail_args``, the :class:`Level3Args` of
+    ``levels[1:]``, passed on to the kernel)."""
+    mg = dict(omega=omega, nu=nu, coarse_iters=coarse_iters, over=over)
+    if plain:
+        return v_cycle3d_reference(levels[1:], rc, **mg)
+    return v_cycle3d(levels[1:], rc, level_args=tail_args, **mg)
 
 
 def v_cycle3d_tiled_reference(levels, r, *, omega=0.8, nu: int = 1,
@@ -366,13 +370,15 @@ def _device_ok(t: torch.Tensor, what: str) -> bool:
 
 def v_cycle3d(levels: List[StencilCoeffs3D], r: torch.Tensor, *, omega=0.8,
               nu: int = 1, coarse_iters: int = 32,
-              over: float = 1.8) -> torch.Tensor:
+              over: float = 1.8, level_args=None) -> torch.Tensor:
     """One whole V(nu, nu) cycle ``z = M r`` on a ``(B, nz, ny, nx)`` batch.
 
     ``levels`` is ``build_hierarchy_3d(..., pad_levels=True)`` with volumes
     ``(B, nz_l, ny_l, nx_l)``.  A CPU tensor runs the plain version; a CUDA
     tensor launches the CUDA kernels (float32 or float64, ``nu <=
-    MAX_NU3``): :func:`cycle3_launches` of them.
+    MAX_NU3``): :func:`cycle3_launches` of them.  ``level_args`` (a
+    :class:`Level3Args` of ``levels``, kept by a caller that cycles again
+    and again) spares building the pointer tables each call.
     """
     if nu < 1:
         raise ValueError(f"v_cycle3d: nu={nu} must be >= 1")
@@ -385,7 +391,7 @@ def v_cycle3d(levels: List[StencilCoeffs3D], r: torch.Tensor, *, omega=0.8,
     from ._build import check, load_library
 
     lib = load_library()
-    la = Level3Args(levels, r)
+    la = Level3Args(levels, r) if level_args is None else level_args
     bsz = r.shape[0]
     check_plane(r, "r", (bsz,) + la.shapes[0], r)
     z = torch.empty_like(r)
@@ -408,7 +414,7 @@ v_cycle3d.launches = 0
 
 def v_cycle3d_tiled(levels: List[StencilCoeffs3D], r: torch.Tensor, *,
                     omega=0.8, nu: int = 1, coarse_iters: int = 32,
-                    over: float = 1.8) -> torch.Tensor:
+                    over: float = 1.8, tail_args=None) -> torch.Tensor:
     """One banded V(nu, nu) cycle ``z = M r`` on a ``(B, nz, ny, nx)``
     batch: T1 on level 0, :func:`v_cycle3d` on ``levels[1:]``, T2.
 
@@ -416,7 +422,8 @@ def v_cycle3d_tiled(levels: List[StencilCoeffs3D], r: torch.Tensor, *,
     operator padded to :func:`pad_shape_3d`; ``1 <= nu <= HALO_Z - 1``.  A
     CPU tensor runs the plain version; a CUDA tensor launches the kernels
     (float32 or float64) or raises: T1 and T2 one tile pass each, the tail
-    :func:`cycle3_launches` of ``levels[1:]``.
+    :func:`cycle3_launches` of ``levels[1:]`` (``tail_args``: their
+    :class:`Level3Args`, kept by a caller that cycles again and again).
     """
     if not _device_ok(r, "v_cycle3d_tiled"):
         return v_cycle3d_tiled_reference(levels, r, omega=omega, nu=nu,
@@ -447,7 +454,8 @@ def v_cycle3d_tiled(levels: List[StencilCoeffs3D], r: torch.Tensor, *,
             rc.data_ptr(), ws, nu, stream),
             "v_cycle3d_tiled (T1)")
         ec = coarse_tail3(levels, rc, omega=omega, nu=nu,
-                          coarse_iters=coarse_iters, over=over)
+                          coarse_iters=coarse_iters, over=over,
+                          tail_args=tail_args)
         check(getattr(lib, f"deff_t2_3d_{sfx}")(
             *dims0, *shape1, *coefs, e.data_ptr(), ec.data_ptr(),
             r.data_ptr(), z.data_ptr(), ws, nu, float(over), stream),

@@ -1,15 +1,15 @@
-"""A dry run of the 2D sharded paths on a list of devices: the twin of the
-2D parts of the JAX package's ``__graft_entry__.dryrun_multichip``.
+"""A dry run of the sharded paths on a list of devices: the twin of the
+JAX package's ``__graft_entry__.dryrun_multichip`` (its 2D and 3D legs).
 
     from effectivediffusivityfvm_tpu_torch.parallel.dryrun import \\
         dryrun_multichip
     dryrun_multichip([torch.device("cuda", 0)] * 4)    # four shards, one card
     dryrun_multichip([torch.device("cpu")] * 8, device="cpu")
 
-It runs, on tiny shapes: the dp x sp Jacobi solve, the sp-sharded fused
-MGCG against the unsharded solve, and ``batch_sim`` on a dp mesh with
-Jacobi and with mgcg; it raises on a non-finite or disagreeing result and
-returns one line per part.  The 3D part waits for the sharded 3D solvers.
+It runs, on tiny shapes: the dp x sp Jacobi solve, the z-slab sharded 3D
+CG, the sp-sharded fused MGCG against the unsharded solve, and
+``batch_sim`` on a dp mesh with Jacobi and with mgcg; it raises on a
+non-finite or disagreeing result and returns one line per part.
 """
 
 from __future__ import annotations
@@ -24,11 +24,12 @@ import torch
 from ..config import SimulationConfig
 from ..io.images import parallel_slab
 from ..models import phases
-from ..ops import fvm
+from ..ops import fvm, fvm3d
 from ..ops.flux import make_flux_spec
 from ..pipeline.batch import batch_sim
 from ..solvers.multigrid import solve_mgcg
 from .halo import sharded_solve_jacobi, sharded_solve_mgcg
+from .halo3d import sharded_solve_cg_3d
 from .mesh import make_mesh
 
 __all__ = ["dryrun_multichip"]
@@ -52,7 +53,7 @@ def _check(ok, what):
 
 def dryrun_multichip(devices: Sequence, device=None,
                      out_dir: str = None) -> List[str]:
-    """Run the 2D sharded paths once on a mesh over ``devices``; inputs and
+    """Run the sharded paths once on a mesh over ``devices``; inputs and
     results on ``device`` (default: ``devices[0]``), CSVs under ``out_dir``
     (default: the working directory)."""
     devices = [torch.device(d) for d in devices]
@@ -74,6 +75,22 @@ def dryrun_multichip(devices: Sequence, device=None,
            f"sharded Jacobi Deff {deff}")
     lines.append(f"2D dp x sp Jacobi: mesh (dp={dp}, sp={sp}), batch "
                  f"{batch}, grid ({ny}, {nx}), Deff {deff}")
+
+    # 3D: z-slab sharded CG over sp (halo-exchanged 7-point matvec, dots
+    # summed over the slabs), the JAX twin's 3D leg
+    rng = np.random.default_rng(2)
+    nz, ny3, nx3 = 4 * sp, 8, 16
+    d3 = torch.tensor(np.where(rng.random((nz, ny3, nx3)) < 0.6, 1.0, 1e-3),
+                      dtype=torch.float32, device=dev)
+    x3 = (torch.arange(nx3, dtype=torch.float32, device=dev) / nx3).expand(
+        nz, ny3, nx3)
+    res3 = sharded_solve_cg_3d(fvm3d.fvm_coefficients_3d(d3, 0.0, 1.0),
+                               fvm3d.make_flux_spec_3d(d3, 0.0, 1.0), x3,
+                               mesh, tol=1e-5, max_iter=200, check_every=50)
+    d3v = float(res3.deff)
+    _check(np.isfinite(d3v), f"sharded 3D CG Deff {d3v}")
+    lines.append(f"3D z-slab sharded CG: grid ({nz}, {ny3}, {nx3}), Deff "
+                 f"{d3v:.4f}, iterations {int(res3.iters)}")
 
     # the sp-sharded fused MGCG (K8/K9) against the unsharded solve; mild
     # contrast so Deff is O(1) at tol 1e-4

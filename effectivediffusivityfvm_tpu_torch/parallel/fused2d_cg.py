@@ -28,9 +28,7 @@ from ..ops.kernels.cgstep_sharded import (ShardWorkspace, cg_steps_sharded,
 from ..ops.kernels.vcycle_sharded import HALO
 from .fused2d import (_coef_windows, build_fused_tail, k9_coarse,
                       shard_band, v_cycle_sharded_fused)
-from .halo import (_build_sharded_hierarchy_2d, _deff_local,
-                   _neighbor_sum_2d_local)
-from .mesh import psum
+from .halo import RowSystem, _build_sharded_hierarchy_2d
 
 __all__ = ["run_mgcg_sharded_fused", "sharded_fused_cg_ok"]
 
@@ -42,20 +40,17 @@ def sharded_fused_cg_ok(ny_local: int, nx: int, itemsize: int = 4) -> bool:
     return band >= HALO and band % 2 == 0 and ny_local >= HALO
 
 
-class _Row:
+class _Row(RowSystem):
     """One dp row's system: the sharded hierarchy, the coefficient strips,
     the tail and the monitors."""
 
     def __init__(self, c_row, s_row, *, min_size, mg, nu, plain):
-        ny_l = c_row[0].diag.shape[-2]
-        self.c = c_row
-        self.s = s_row
-        self.hier = _build_sharded_hierarchy_2d(c_row, ny_l,
-                                                min_size=min_size)
+        super().__init__(c_row, s_row)
+        self.hier = _build_sharded_hierarchy_2d(
+            c_row, c_row[0].diag.shape[-2], min_size=min_size)
         self.coef_wins = _coef_windows(self.hier.sharded)
         self.tail = build_fused_tail(self.hier.sharded, min_size)
         self.kw = dict(nu=nu, tail=self.tail, plain=plain, **mg)
-        self.npts = ny_l * c_row[0].diag.shape[-1] * len(c_row)
         self.k9 = None          # K9's workspace, kept for the whole solve
         self.k9_kw = None       # K9's coarse arguments, likewise
         self.k8 = {}            # K8's tables per level, likewise
@@ -80,27 +75,6 @@ class _Row:
         return v_cycle_sharded_fused(self.hier, self.coef_wins, rs,
                                      level=level, live=live, rows=self.k8,
                                      **self.kw)
-
-    def matvec(self, xs):
-        nbs = _neighbor_sum_2d_local(self.c, xs)
-        return [c.diag * x - nb for c, x, nb in zip(self.c, xs, nbs)]
-
-    # The monitors' sums accumulate in float64 and round once, as K9's and
-    # the unsharded engines' reductions do.  Summed in float32 (the JAX
-    # engine's psum of per-shard sums), config 3 at SP=4 took 72 iterations
-    # on an H100 against the unsharded engine's 34: near the float32 floor
-    # the restarts' rounding decides when relres first dips below 1e-4.
-    def dot(self, us, vs):
-        return psum([torch.sum(u * v, dim=(-2, -1), dtype=torch.float64)
-                     for u, v in zip(us, vs)])[0].to(us[0].dtype)
-
-    def mean_abs(self, vs):
-        tot = psum([torch.sum(torch.abs(v), dim=(-2, -1), dtype=torch.float64)
-                    for v in vs])[0]
-        return (tot / self.npts).to(vs[0].dtype)
-
-    def deff(self, xs):
-        return _deff_local(self.s, xs)
 
     def fresh(self, xs):
         r = [c.b - a for c, a in zip(self.c, self.matvec(xs))]

@@ -28,8 +28,8 @@ from ..ops.kernels.vcycle import smoothing_schedule, v_cycle, v_cycle_reference
 from ..solvers import driver
 from ..solvers.driver import SolveResult
 from ..solvers.multigrid import build_hierarchy, prolong, restrict
-from .mesh import (Mesh, all_gather, gather_rows, halo_strips, psum,
-                   shard_batch, shard_rows)
+from .mesh import (Mesh, ShardedField, all_gather, gather_rows, halo_strips,
+                   psum, shard_batch, shard_rows)
 
 __all__ = ["sharded_solve_jacobi", "sharded_solve_mgcg",
            "halo_exchange_rows"]
@@ -101,54 +101,86 @@ def _resid_local(c_row, xs):
     return psum(parts)[0] / n
 
 
+class RowSystem:
+    """One dp row's system as the sharded PCG drivers see it: the shards'
+    coefficients ``c`` and flux specs ``s``, the matvec and the monitors.
+    A subclass gives ``precond(rs, live)`` for
+    :func:`.sharded_pcg.run_pcg_rows`; the 3D rows (:mod:`.halo3d`) change
+    ``grid_ndim``, ``neighbor_sum`` and ``deff``."""
+
+    grid_ndim = 2
+
+    def __init__(self, c_row, s_row):
+        self.c = c_row
+        self.s = s_row
+        self.npts = c_row[0].diag[0].numel() * len(c_row)
+
+    def neighbor_sum(self, xs):
+        return _neighbor_sum_2d_local(self.c, xs)
+
+    def deff(self, xs):
+        return _deff_local(self.s, xs)
+
+    def matvec(self, xs):
+        nbs = self.neighbor_sum(xs)
+        return [c.diag * x - nb for c, x, nb in zip(self.c, xs, nbs)]
+
+    # The monitors' sums accumulate in float64 and round once, as K9's and
+    # the unsharded engines' reductions do.  Summed in float32 (the JAX
+    # engine's psum of per-shard sums), config 3 at SP=4 took 72 iterations
+    # on an H100 against the unsharded engine's 34: near the float32 floor
+    # the restarts' rounding decides when relres first dips below 1e-4.
+    def _sum(self, vs):
+        axes = tuple(range(-self.grid_ndim, 0))
+        return psum([torch.sum(v, dim=axes, dtype=torch.float64)
+                     for v in vs])[0]
+
+    def dot(self, us, vs):
+        return self._sum([u * v for u, v in zip(us, vs)]).to(us[0].dtype)
+
+    def mean_abs(self, vs):
+        return (self._sum([torch.abs(v) for v in vs])
+                / self.npts).to(vs[0].dtype)
+
+
 # ------------------------------------------------- sharded inputs/outputs
 
-class _Field:
-    """A sharded field as the sweep drivers see it: the per-shard tensors
-    ``shards[d][s]`` with the global shape, dtype and result device."""
-
-    def __init__(self, shards, shape, dtype, device):
-        self.shards = shards
-        self.shape = torch.Size(shape)
-        self.dtype = dtype
-        self.device = device
-
-    def dim(self) -> int:
-        return len(self.shape)
-
-
-def _place(mesh: Mesh, coeffs, spec, x0):
+def _place(mesh: Mesh, coeffs, spec, x0, grid_ndim: int = 2):
     """The batched inputs split over the mesh: per row, the shards'
-    coefficients, flux specs and fields.  An unbatched ``(ny, nx)`` problem
-    is solved by every dp row alike, as a batch of one."""
-    batched = x0.dim() == 3
+    coefficients, flux specs and fields, split along the grid's first axis
+    (rows in 2D, z in 3D).  An unbatched problem is solved by every dp row
+    alike, as a batch of one."""
+    batched = x0.dim() == grid_ndim + 1
 
     def batch(a):
         if batched:
             return a
         return a[None].expand((mesh.dp,) + tuple(a.shape))
 
-    if x0.shape[-2] % mesh.sp:
-        raise ValueError(f"image rows ({x0.shape[-2]}) must divide SP "
+    lead = x0.shape[-grid_ndim]
+    if lead % mesh.sp:
+        raise ValueError(f"the grid's first axis ({lead}) must divide SP "
                          f"({mesh.sp})")
-    c_sh = [shard_rows(mesh, batch(a)) for a in coeffs]
-    c_rows = [[fvm.StencilCoeffs(*(f[d][s] for f in c_sh))
+    c_sh = [shard_rows(mesh, batch(a), row_dim=-grid_ndim) for a in coeffs]
+    c_rows = [[type(coeffs)(*(f[d][s] for f in c_sh))
                for s in range(mesh.sp)] for d in range(mesh.dp)]
-    cols = [shard_rows(mesh, batch(spec.d_left), row_dim=-1),
-            shard_rows(mesh, batch(spec.d_right), row_dim=-1)]
-    scal = [shard_batch(mesh, batch(a))
+    faces = [shard_rows(mesh, batch(a), row_dim=1 - grid_ndim)
+             for a in (spec.d_left, spec.d_right)]
+    per_image = x0.shape[:-grid_ndim]
+    scal = [shard_batch(mesh, batch(torch.as_tensor(a).expand(per_image)))
             for a in (spec.c_left, spec.c_right, spec.inv_half_dx)]
-    s_rows = [[BoundaryFluxSpec(cols[0][d][s], cols[1][d][s], scal[0][d][s],
-                                scal[1][d][s], scal[2][d][s])
+    s_rows = [[type(spec)(faces[0][d][s], faces[1][d][s], scal[0][d][s],
+                          scal[1][d][s], scal[2][d][s])
                for s in range(mesh.sp)] for d in range(mesh.dp)]
-    x_rows = shard_rows(mesh, batch(x0))
+    x_rows = shard_rows(mesh, batch(x0), row_dim=-grid_ndim)
     return batched, c_rows, s_rows, x_rows
 
 
-def _unplace(batched, x_rows, vals, device):
+def _unplace(batched, x_rows, vals, device, grid_ndim: int = 2):
     """Gather the result on ``device``: the global field and the per-image
     values ``(B,)``; an unbatched solve reads dp row 0."""
-    x = gather_rows(x_rows if batched else x_rows[:1], device)
+    x = gather_rows(x_rows if batched else x_rows[:1], device,
+                    row_dim=-grid_ndim)
     if batched:
         return SolveResult(x, *vals)
     return SolveResult(x[0], *(v if v.dim() == 0 else v[0] for v in vals))
@@ -198,7 +230,7 @@ def sharded_solve_jacobi(
                 kept.append([torch.where(a.to(n.device)[:, None, None], n, o)
                              for n, o in zip(rows[d], x.shards[d])])
             rows = kept
-        return _Field(rows, x.shape, x.dtype, x.device)
+        return x.like(rows)
 
     kw = dict(
         tol=tol, max_iter=max_iter, check_every=check_every,
@@ -207,7 +239,7 @@ def sharded_solve_jacobi(
                                     x),
         resid_fn=lambda x: per_image(
             lambda d, r: _resid_local(c_rows[d], r), x))
-    x_field = _Field(x_rows, x0.shape, x0.dtype, dev)
+    x_field = ShardedField(x_rows, x0.shape, x0.dtype, dev)
     run = driver.run_batched if batched else driver.run_single
     res = run(sweeps, coeffs, spec, x_field, **kw)
     return _unplace(batched, res.x.shards, res[1:], dev)
@@ -334,14 +366,14 @@ def gathered_cycle(levels_per_shard, rs, *, nu, omega, coarse_iters, over,
 
 def _v_cycle_sharded_2d(hier: ShardedHierarchy, rs, *, nu1=1, nu2=1,
                         omega=0.8, coarse_iters=32, over=1.8, level=0,
-                        plain=False):
+                        plain=False, live=None):
     """The sharded V-cycle in plain torch, a one-row exchange per sweep;
     below the local levels, :func:`gathered_cycle` (K2) on the replicated
-    hierarchy (which takes V(nu1, nu1))."""
+    hierarchy (which takes V(nu1, nu1); ``live`` gates it)."""
     if level == len(hier.sharded):
         return gathered_cycle(hier.replicated, rs, nu=nu1, omega=omega,
                               coarse_iters=coarse_iters, over=over,
-                              plain=plain)
+                              plain=plain, live=live)
     c = hier.sharded[level]
     e = [torch.zeros_like(r) for r in rs]
     for w in smoothing_schedule(omega, nu1):
@@ -351,15 +383,11 @@ def _v_cycle_sharded_2d(hier: ShardedHierarchy, rs, *, nu1=1, nu2=1,
            for r, ci, ei, nb in zip(rs, c, e, nbs)]
     e_c = _v_cycle_sharded_2d(hier, r_c, nu1=nu1, nu2=nu2, omega=omega,
                               coarse_iters=coarse_iters, over=over,
-                              level=level + 1, plain=plain)
+                              level=level + 1, plain=plain, live=live)
     e = [ei + over * prolong(eci) for ei, eci in zip(e, e_c)]
     for w in reversed(smoothing_schedule(omega, nu2)):
         e = _smooth_local_2d(c, e, rs, w)
     return e
-
-
-_RUN_PCG = ("the sharded modes under pcg.run_pcg, which the torch package "
-            "does not have yet (ROADMAP Queue 1)")
 
 
 def sharded_solve_mgcg(
@@ -389,46 +417,58 @@ def sharded_solve_mgcg(
 
     ``x0`` of shape ``(ny, nx)`` solves one image over ``sp``; ``(B, ny,
     nx)`` also splits the batch over ``dp`` with per-image convergence
-    freezing.  The solve runs the fused sharded engine
-    (:func:`.fused2d_cg.run_mgcg_sharded_fused`: K9's three passes per
-    iteration, K8's cycle levels, K2's coarse tail) for V(nu, nu) with ``nu
-    <= 4``, in float32 and float64, on any device (``use_pallas`` None or
-    True).  The JAX package's other modes -- ``use_pallas=False`` (its XLA
-    cycle under ``run_pcg``), V(nu1, nu2) with ``nu1 != nu2`` or ``nu > 4``,
-    and the cycle-only engine it takes when the local block has fewer than
-    ``HALO`` rows -- raise ``NotImplementedError``.  ``plain=True`` runs the
-    kernels' plain versions.  The result lies on ``x0``'s device."""
+    freezing.  The engine, by the cycle and the local block alone (never
+    the device):
+
+      * the fused engine (:func:`.fused2d_cg.run_mgcg_sharded_fused`: K9's
+        three passes per iteration, K8's cycle levels, K2's coarse tail)
+        for V(nu, nu) with ``nu <= 4`` on a block of at least 8 even rows
+        and even columns (``use_pallas`` None or True);
+      * otherwise (a block that fails that test, ``use_pallas=False``, or
+        V(nu, nu) with ``4 < nu <= 8``) ``run_pcg`` with the plain sharded
+        cycle and its gathered K2 tail (:mod:`.sharded_pcg`); this is the
+        JAX package's cycle-only engine too, since K8's band needs the
+        block the fused engine needs.
+
+    V(nu1, nu2) with ``nu1 != nu2``, or ``nu > 8``, raises
+    ``NotImplementedError``: the gathered K2 tail takes V(nu, nu) with
+    ``nu <= 8``, and the single-device port refuses the same cycles
+    (ROADMAP, "Do not port").  ``plain=True`` runs the kernels' plain
+    versions.  The result lies on ``x0``'s device."""
+    from ..ops.kernels.vcycle import MAX_NU as K2_MAX_NU
     from ..ops.kernels.vcycle_sharded import MAX_NU
     from .fused2d_cg import run_mgcg_sharded_fused, sharded_fused_cg_ok
 
     del omega   # accepted for signature parity, as the JAX solver does
-    if use_pallas is False:
-        raise NotImplementedError(
-            "use_pallas=False selects the JAX package's XLA sharded cycle "
-            f"under {_RUN_PCG}; use None or True (the fused engine)")
-    if use_pallas not in (None, True):
+    if use_pallas not in (None, True, False):
         raise ValueError(f"unknown use_pallas {use_pallas!r}")
-    if nu1 != nu2 or not 1 <= nu1 <= MAX_NU:
+    if nu1 != nu2 or not 1 <= nu1 <= K2_MAX_NU:
         raise NotImplementedError(
-            f"V({nu1}, {nu2}): the fused sharded engine takes V(nu, nu) with "
-            f"nu <= {MAX_NU}; the JAX package runs other cycles under "
-            f"{_RUN_PCG}")
+            f"V({nu1}, {nu2}): the sharded engines' gathered K2 tail takes "
+            f"V(nu, nu) with 1 <= nu <= {K2_MAX_NU}; the JAX package's XLA "
+            "cycle for other cycles is not ported (ROADMAP, 'Do not port')")
     ny, nx = x0.shape[-2], x0.shape[-1]
     if ny % mesh.sp:
         raise ValueError(f"image rows ({ny}) must divide SP ({mesh.sp})")
-    if not sharded_fused_cg_ok(ny // mesh.sp, nx, x0.element_size()):
-        raise NotImplementedError(
-            f"a local block of {ny // mesh.sp} x {nx} cannot run the fused "
-            "sharded engine (it needs even sizes and at least 8 rows); the "
-            f"JAX package's cycle-only engine for it runs under {_RUN_PCG}")
-    first_window = driver.resolve_first_window(first_window, check_every,
-                                               criterion)
+    fused_cg = (use_pallas is not False and nu1 <= MAX_NU
+                and sharded_fused_cg_ok(ny // mesh.sp, nx, x0.element_size()))
     batched, c_rows, s_rows, x_rows = _place(mesh, coeffs, spec, x0)
-    x_rows, deff, conv, iters = run_mgcg_sharded_fused(
-        c_rows, s_rows, x_rows, tol=tol, max_iter=max_iter,
-        check_every=check_every, criterion=criterion, nu=nu1,
-        mg_omega=mg_omega, coarse_iters=coarse_iters, min_size=min_size,
-        over=over, first_window=first_window, plain=plain)
+    mg = dict(nu=nu1, mg_omega=mg_omega, coarse_iters=coarse_iters,
+              min_size=min_size, over=over)
+    if fused_cg:
+        first_window = driver.resolve_first_window(first_window, check_every,
+                                                   criterion)
+        x_rows, deff, conv, iters = run_mgcg_sharded_fused(
+            c_rows, s_rows, x_rows, tol=tol, max_iter=max_iter,
+            check_every=check_every, criterion=criterion,
+            first_window=first_window, plain=plain, **mg)
+    else:
+        from .sharded_pcg import run_mgcg_sharded_pcg
+
+        x_rows, deff, conv, iters = run_mgcg_sharded_pcg(
+            c_rows, s_rows, x_rows, batched=batched, shape=x0.shape,
+            tol=tol, max_iter=max_iter, check_every=check_every,
+            criterion=criterion, plain=plain, **mg)
     dev = x0.device
     return _unplace(batched, x_rows,
                     [deff.to(dev), conv.to(dev), iters.to(dev)], dev)

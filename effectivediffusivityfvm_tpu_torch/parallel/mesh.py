@@ -34,7 +34,8 @@ from typing import List, Optional, Sequence
 import torch
 
 __all__ = ["Mesh", "make_mesh", "default_devices", "halo_strips", "psum",
-           "all_gather", "shard_rows", "shard_batch", "gather_rows"]
+           "all_gather", "shard_rows", "shard_batch", "gather_rows",
+           "ShardedField"]
 
 
 class Mesh:
@@ -83,21 +84,27 @@ def make_mesh(n_devices: Optional[int] = None, dp: int = 1,
 
 # ----------------------------------------------------------- collectives
 
-def halo_strips(xs: Sequence[torch.Tensor], h: int, out=None):
+def halo_strips(xs: Sequence[torch.Tensor], h: int, out=None, dim: int = -2):
     """``(norths, souths)`` of a row of shards ``(..., ny_l, nx)``: shard
     ``s`` receives shard ``s-1``'s last ``h`` rows as its north strip and
     shard ``s+1``'s first ``h`` rows as its south strip; the strips beyond
     the global top and bottom are zeros.  ``out = (norths, souths)`` reuses
-    strip buffers (their edge entries must hold zeros)."""
+    strip buffers (their edge entries must hold zeros).  ``dim``: the split
+    axis (-3 for z-slabs of volumes)."""
     n = len(xs)
     if out is None:
-        norths = [x.new_zeros(x.shape[:-2] + (h, x.shape[-1])) for x in xs]
-        souths = [x.new_zeros(x.shape[:-2] + (h, x.shape[-1])) for x in xs]
+        def strip(x):
+            shape = list(x.shape)
+            shape[dim] = h
+            return x.new_zeros(shape)
+        norths = [strip(x) for x in xs]
+        souths = [strip(x) for x in xs]
     else:
         norths, souths = out
     for s in range(1, n):
-        norths[s].copy_(xs[s - 1][..., -h:, :])
-        souths[s - 1].copy_(xs[s][..., :h, :])
+        up = xs[s - 1]
+        norths[s].copy_(up.narrow(dim, up.shape[dim] - h, h))
+        souths[s - 1].copy_(xs[s].narrow(dim, 0, h))
     return norths, souths
 
 
@@ -170,3 +177,65 @@ def gather_rows(xs, device, row_dim: int = -2) -> torch.Tensor:
     """Inverse of :func:`shard_rows`: the global array on ``device``."""
     return torch.cat([torch.cat([x.to(device) for x in row], dim=row_dim)
                       for row in xs], dim=0)
+
+
+# ------------------------------------------------- a field over the mesh
+
+class ShardedField:
+    """A field split over a mesh as the drivers see it: ``shards[d][s]``,
+    the tensors ``(B_l, ...)`` of dp row ``d``, shard ``s``, with the global
+    shape, dtype and result device.
+
+    It carries the algebra ``solvers.pcg.run_pcg`` applies to a field, shard
+    by shard: ``+``, ``-`` and ``*`` with a field of the same layout, ``*``
+    with a per-image tensor ``(B, 1, ...)`` (dp row ``d`` takes images
+    ``[d B_l, (d + 1) B_l)``) or a 0-dim one, and ``torch.where(cond, a,
+    b)`` with such a ``cond``.  So one ``run_pcg`` loop drives every shard,
+    its per-image scalars on the result device."""
+
+    def __init__(self, shards, shape, dtype, device):
+        self.shards = shards
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = device
+
+    def dim(self) -> int:
+        return len(self.shape)
+
+    def like(self, shards) -> "ShardedField":
+        return ShardedField(shards, self.shape, self.dtype, self.device)
+
+    def part(self, v: torch.Tensor, d: int, dev) -> torch.Tensor:
+        """Dp row ``d``'s part of a per-image or 0-dim tensor ``v``, on
+        ``dev``."""
+        if v.dim():
+            bl = self.shards[d][0].shape[0]
+            v = v[d * bl:(d + 1) * bl]
+        return v.to(dev)
+
+    def _zip(self, fn, other):
+        if isinstance(other, ShardedField):
+            return self.like([[fn(a, b) for a, b in zip(ra, rb)]
+                              for ra, rb in zip(self.shards, other.shards)])
+        return self.like([[fn(a, self.part(other, d, a.device)) for a in row]
+                          for d, row in enumerate(self.shards)])
+
+    def __add__(self, other):
+        return self._zip(torch.add, other)
+
+    def __sub__(self, other):
+        return self._zip(torch.sub, other)
+
+    def __mul__(self, other):
+        return self._zip(torch.mul, other)
+
+    __rmul__ = __mul__
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func is not torch.where or kwargs:
+            return NotImplemented
+        cond, a, b = args
+        return a.like([[torch.where(a.part(cond, d, x.device), x, y)
+                        for x, y in zip(ra, rb)]
+                       for d, (ra, rb) in enumerate(zip(a.shards, b.shards))])

@@ -30,9 +30,10 @@ splits the rows and runs the sharded solvers (``jacobi``, ``mgcg``).
 The deflated solvers (``dcg``, ``dmg``) take each image's gas-component
 mask, on one device and on each dp chunk of a mesh alike.
 
-Not ported yet: the compacting batch solve (``Compact: 1`` with mgcg,
-ROADMAP Queue 1, ``solvers/compact.py``), and ``Pallas: off|interpret``
-(the JAX package's XLA and interpreter engines).
+``Compact: 1`` with ``cg`` or ``mgcg`` on one device advances a 2-phase
+group in segments and re-packs the active images between them
+(:mod:`..solvers.compact`).  Not ported: ``Pallas: off|interpret`` (the
+JAX package's XLA and interpreter engines).
 ``Pallas:`` maps as the JAX package maps it:
 ``force`` runs the "cgstep" engine (K1/K2) at every size, ``auto`` lets the
 solver choose (the banded K4/K5 engine for float32 grids past the
@@ -65,11 +66,7 @@ __all__ = ["batch_sim", "batch_sim_3phase", "solve_image_group",
 
 
 def _check_supported(cfg: SimulationConfig) -> None:
-    """Refuse the batch settings whose engines are not ported yet."""
-    if cfg.compact_batches and cfg.solver in ("cg", "mgcg"):
-        raise NotImplementedError(
-            "Compact: 1 (the compacting batch solve) is not ported to the "
-            "torch package yet (ROADMAP Queue 1, solvers/compact.py)")
+    """Refuse the batch settings whose engines are not ported."""
     if cfg.solver == "mgcg" and cfg.pallas in ("off", "interpret"):
         raise NotImplementedError(
             f"Pallas: {cfg.pallas} selects an engine of the JAX package that "
@@ -255,6 +252,14 @@ def solve_image_group(cfg: SimulationConfig, imgs_np: np.ndarray,
     if mesh is not None:
         res, dt = time_fn(_solve_group_on_mesh, cfg, mesh, coeffs, spec, x0,
                           cfg.convergence, cfg.max_iter)
+    elif cfg.compact_batches and cfg.solver in ("cg", "mgcg"):
+        from ..solvers.compact import solve_batched_compacted
+        from ..solvers.dispatch import _lookup
+
+        res, dt = time_fn(solve_batched_compacted,
+                          _lookup(cfg.solver, batched=True), coeffs, spec,
+                          x0, **_solver_kwargs(cfg, cfg.convergence,
+                                               cfg.max_iter))
     else:
         res, dt = time_fn(solve_batched, cfg.solver, coeffs, spec, x0,
                           **_solver_kwargs(cfg, cfg.convergence,

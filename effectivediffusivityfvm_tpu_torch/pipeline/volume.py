@@ -6,8 +6,10 @@ stack) with the same grayscale phase conventions as 2D images.  The
 pipelines mirror the 2D orchestration: porosity / phase fractions, 3D flood
 fill screening, the diffusivity volume, DCF continuation (2-phase) or the
 DCG homotopy (3-phase) with warm starts, and a solve on the 7-point
-operator -- multigrid-PCG on K6/K7 (``Solver: mgcg``), diagonal-PCG
-(``cg``), red-black SOR (``rbsor``) or weighted Jacobi.
+operator -- multigrid-PCG on K6/K7 (``Solver: mgcg``), deflated MGCG on
+K6 (``dmg``, which takes each volume's gas components and skips the
+homotopy pre-stages), diagonal-PCG (``cg``), red-black SOR (``rbsor``) or
+weighted Jacobi.
 Host work is numpy; the D volume and everything after it live on ``device``
 (``"cuda"`` unless the caller asks for ``"cpu"``).
 
@@ -68,8 +70,7 @@ _BATCHED_SOLVERS = {
 def _effective_solver_3d(cfg) -> str:
     """The 3D solver actually used: cgir/dcg/jacobi_pallas have no 3D
     variant and substitute mgcg -- loudly, and the symmetric-assembly flag
-    follows the substitute.  ``dmg`` has a 3D implementation in the JAX
-    package, not ported yet (ROADMAP Queue 1, ``solvers/dmg3d.py``)."""
+    follows the substitute.  ``dmg`` runs :mod:`..solvers.dmg3d`."""
     if cfg.solver in _SOLVERS or cfg.solver == "dmg":
         return cfg.solver
     warnings.warn(
@@ -78,22 +79,28 @@ def _effective_solver_3d(cfg) -> str:
     return "mgcg"
 
 
-def _solver_fn(name, batched):
-    if name == "dmg":
-        raise NotImplementedError(
-            "the 3D solver 'dmg' is not ported to the torch package yet "
-            "(ROADMAP Queue 1, solvers/dmg3d.py)")
-    return (_BATCHED_SOLVERS if batched else _SOLVERS)[name]
-
-
 def _solve3d(cfg, coeffs, spec, x, tol, max_iter, name, batched=False,
-             d_field=None):
+             d_field=None, gas_np=None):
+    """One (batched) volume solve; ``gas_np``: ``dmg``'s gas-component
+    mask (a stack of them when batched), or ``None``."""
     kw = {}
+    if name == "dmg":
+        from ..solvers import dmg3d
+
+        if batched:
+            return dmg3d.solve_dmg_3d_batched(
+                coeffs, spec, x, tol=tol, max_iter=max_iter,
+                check_every=cfg.check_every, criterion=cfg.criterion,
+                members=gas_np)
+        return dmg3d.solve_dmg_3d(
+            coeffs, spec, x, tol=tol, max_iter=max_iter,
+            check_every=cfg.check_every, criterion=cfg.criterion,
+            member=gas_np)
     if name == "mgcg":
         kw["first_window"] = cfg.first_window
         if d_field is not None:
             kw["d_field"] = d_field
-    return _solver_fn(name, batched)(
+    return (_BATCHED_SOLVERS if batched else _SOLVERS)[name](
         coeffs, spec, x, omega=cfg.omega, tol=tol, max_iter=max_iter,
         check_every=cfg.check_every, criterion=cfg.criterion, **kw)
 
@@ -169,14 +176,16 @@ def volume_sim_3phase(cfg: SimulationConfig, vol: np.ndarray,
     _check_volume(vol)
     ff = volume.flood_fill_3d(vol > 200)
     classes = _amplify(cfg, phases.three_phase_classes(vol))
-    mask = torch.as_tensor(_amplify(cfg, (vol > 200) | ff.isolated),
-                           device=dev)
+    mask_np = _amplify(cfg, (vol > 200) | ff.isolated)
+    mask = torch.as_tensor(mask_np, device=dev)
     nz, ny, nx = classes.shape
     svf, lvf = phases.phase_fractions(classes)
     x = _linear_init_3d(nz, ny, nx, cfg.c_left, cfg.c_right, dtype, dev)
 
     solver3d = _effective_solver_3d(cfg)
     symmetric = solver3d in ("cg", "mgcg", "dmg")
+    gas_np = (_amplify(cfg, phases.three_phase_classes(vol) == phases.GAS)
+              & ~mask_np if solver3d == "dmg" else None)
 
     def build(dcg_val):
         d_field = torch.as_tensor(phases.d_field_from_classes(
@@ -189,7 +198,9 @@ def volume_sim_3phase(cfg: SimulationConfig, vol: np.ndarray,
 
     stage_max_iter = (1_000_000 if cfg.solver in ("jacobi", "rbsor")
                       else cfg.max_iter)
-    for stage_num, dcg_t in enumerate(dcg_stages(cfg.d_gas), start=1):
+    # dmg is kappa-robust and skips the homotopy pre-stages (single.py)
+    stages = [] if solver3d == "dmg" else dcg_stages(cfg.d_gas)
+    for stage_num, dcg_t in enumerate(stages, start=1):
         vprint(cfg.verbose, f"Pre-Cond Stage {stage_num}: DCG = {dcg_t:1.3e}")
         coeffs, spec = build(dcg_t)
         res = _solve3d(cfg, coeffs, spec, x, cfg.convergence * 10,
@@ -198,7 +209,7 @@ def volume_sim_3phase(cfg: SimulationConfig, vol: np.ndarray,
 
     coeffs, spec = build(cfg.d_gas)
     res, time_s = time_fn(_solve3d, cfg, coeffs, spec, x, cfg.convergence,
-                          cfg.max_iter, solver3d)
+                          cfg.max_iter, solver3d, gas_np=gas_np)
     deff = float(res.deff) / cfg.d_fluid
     result = VolumeResult(deff=deff, porosity=0.0, path_flag=ff.path_flag,
                           time_s=time_s, n_elements=classes.size,
@@ -310,9 +321,12 @@ def volume_batch_sim_3phase(cfg: SimulationConfig, vols,
         fills = [volume.flood_fill_3d(vols[i] > 200) for i in group]
         classes = np.stack([_amplify(cfg, phases.three_phase_classes(v))
                             for v in stack])
-        mask = torch.as_tensor(np.stack([
-            _amplify(cfg, (v > 200) | ff.isolated)
-            for v, ff in zip(stack, fills)]), device=dev)
+        mask_np = np.stack([_amplify(cfg, (v > 200) | ff.isolated)
+                            for v, ff in zip(stack, fills)])
+        mask = torch.as_tensor(mask_np, device=dev)
+        gas_np = (np.stack([_amplify(cfg, phases.three_phase_classes(v)
+                                     == phases.GAS) for v in stack])
+                  & ~mask_np if solver3d == "dmg" else None)
 
         def build(dcg_val):
             d_field = torch.as_tensor(phases.d_field_from_classes(
@@ -327,7 +341,8 @@ def volume_batch_sim_3phase(cfg: SimulationConfig, vols,
         x = _batch_x0(cfg, classes.shape, dtype, dev)
         stage_max_iter = (1_000_000 if solver3d in ("jacobi", "rbsor")
                           else cfg.max_iter)
-        for stage_num, dcg_t in enumerate(dcg_stages(cfg.d_gas), start=1):
+        stages = [] if solver3d == "dmg" else dcg_stages(cfg.d_gas)
+        for stage_num, dcg_t in enumerate(stages, start=1):
             vprint(cfg.verbose,
                    f"Pre-Cond Stage {stage_num}: DCG = {dcg_t:1.3e}")
             coeffs, spec = build(dcg_t)
@@ -337,7 +352,8 @@ def volume_batch_sim_3phase(cfg: SimulationConfig, vols,
 
         coeffs, spec = build(cfg.d_gas)
         res, dt = time_fn(_solve3d, cfg, coeffs, spec, x, cfg.convergence,
-                          cfg.max_iter, solver3d, batched=True)
+                          cfg.max_iter, solver3d, batched=True,
+                          gas_np=gas_np)
         deff = res.deff.cpu().numpy().astype(np.float64) / cfg.d_fluid
         conv = res.conv.cpu().numpy()
         iters = res.iters.cpu().numpy()

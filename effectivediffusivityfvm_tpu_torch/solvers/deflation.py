@@ -136,8 +136,19 @@ def build_component_deflation(coeffs: fvm.StencilCoeffs,
     m = int(labels.max()) + 1
     if m <= 0:
         return None
-    E = _assemble_e_host(coeffs, labels, m)
+    return factored_space(_assemble_e_host(coeffs, labels, m), labels,
+                          jitter, coeffs.diag.device, coeffs.diag.dtype)
 
+
+def factored_space(E: np.ndarray, labels: np.ndarray, jitter: float,
+                   device, dtype) -> Optional[DeflationSpace]:
+    """The :class:`DeflationSpace` of the coarse matrix ``E`` over the
+    components ``labels`` (2D or 3D): the components with (numerically)
+    zero external conductance -- equipotential islands that cannot affect
+    any flux -- dropped, since their singular E rows would poison the
+    inverse; a relative ``jitter`` on the diagonal; the inverse held in
+    Jacobi-scaled factored form.  ``None`` when no component is kept."""
+    m = E.shape[0]
     row_ext = E.sum(axis=1)
     keep = row_ext > 1e-10 * max(np.max(np.abs(row_ext)), 1e-300)
     if not np.any(keep):
@@ -150,14 +161,14 @@ def build_component_deflation(coeffs: fvm.StencilCoeffs,
         E = E[np.ix_(keep, keep)]
         m = int(keep.sum())
 
-    E += jitter * np.trace(E) / m * np.eye(m)
+    E = E + jitter * np.trace(E) / m * np.eye(m)
     dhalf = np.sqrt(np.diag(E))
     e_hat = E / dhalf[:, None] / dhalf[None, :]
-    dev, dt = coeffs.diag.device, coeffs.diag.dtype
     return DeflationSpace(
-        labels=torch.as_tensor(labels.astype(np.int32), device=dev),
-        e_hat_inv=torch.as_tensor(np.linalg.inv(e_hat), dtype=dt, device=dev),
-        dhalf_inv=torch.as_tensor(1.0 / dhalf, dtype=dt, device=dev),
+        labels=torch.as_tensor(labels.astype(np.int32), device=device),
+        e_hat_inv=torch.as_tensor(np.linalg.inv(e_hat), dtype=dtype,
+                                  device=device),
+        dhalf_inv=torch.as_tensor(1.0 / dhalf, dtype=dtype, device=device),
         m=m,
     )
 

@@ -134,6 +134,7 @@ def _solve_dmg_core(coeffs, spec, x0, defl: Optional[DeflationSpace], *,
                     precond_f32, plain, nu, mg_omega, coarse_iters, min_size,
                     over) -> SolveResult:
     dtype = x0.dtype
+    coeffs = fvm.decouple_empty_rows(coeffs)
     c_eq, s = fvm.equilibrate(coeffs)
     w = 1.0 / s                                  # = sqrt(diag): W' = S^-1 W
 

@@ -17,9 +17,8 @@ red-black SOR, diagonal-PCG and multigrid-PCG.
   them in XLA; ``solve_cg_3d*`` run the PCG engine (:mod:`.pcg`) with the
   3D matvec and the reciprocal diagonal.
 
-The pipelines' 3D ``dmg`` has no counterpart yet (ROADMAP Queue 1,
-``dmg3d``); the JAX package's XLA MGCG engine (``use_pallas=False``) is not
-ported (ROADMAP, "Do not port").  All solvers return
+The pipelines' 3D ``dmg`` is :mod:`.dmg3d`; the JAX package's XLA MGCG
+engine (``use_pallas=False``) is not ported (ROADMAP, "Do not port").  All solvers return
 :class:`~.driver.SolveResult`; the batched variants take ``(B, nz, ny,
 nx)``.
 """

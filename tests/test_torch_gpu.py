@@ -1071,3 +1071,143 @@ def test_rbsor_graph_route_matches_cpu(cuda, ndim, batched):
                                rtol=1e-12)
     np.testing.assert_allclose(got.x.cpu().numpy(), ref.x.numpy(),
                                rtol=1e-12, atol=1e-14)
+
+
+# ------------------------------------------ the rest of the solver matrix
+
+def _gas_volume(n, seed=3):
+    """A small 3-phase volume: fluid with gas balls, two through the x
+    faces, and a few solid ones."""
+    rng = np.random.default_rng(seed)
+    v = np.full((n, n, n), 150, np.uint8)
+    kk, ii, jj = np.ogrid[:n, :n, :n]
+    for k in range(8):
+        c = rng.integers(0, n, 3)
+        c[2] = (0, n - 1)[k] if k < 2 else c[2]
+        v[(kk - c[0]) ** 2 + (ii - c[1]) ** 2 + (jj - c[2]) ** 2 < 16] = 0
+    for _ in range(3):
+        c = rng.integers(0, n, 3)
+        v[(kk - c[0]) ** 2 + (ii - c[1]) ** 2 + (jj - c[2]) ** 2 < 9] = 255
+    return v
+
+
+@pytest.mark.parametrize("use_pallas", [True, "tiled3d"])
+def test_solve_dmg_3d_kernels_match_plain(cuda, use_pallas):
+    """dmg3d's cycle on K6 (whole and banded) against its plain version:
+    the same iterations, Deff to 1e-9."""
+    from effectivediffusivityfvm_tpu_torch.models import volume
+    from effectivediffusivityfvm_tpu_torch.solvers import dmg3d
+
+    vol = _gas_volume(32)
+    classes = phases.three_phase_classes(vol)
+    mask = (vol > 200) | volume.flood_fill_3d(vol > 200).isolated
+    gas = (classes == phases.GAS) & ~mask
+    d = torch.tensor(phases.d_field_from_classes(classes, 1.0, 0.0, 1e3,
+                                                 dtype=np.float64),
+                     device=cuda)
+    c = fvm3d.fvm_coefficients_3d(d, 0.0, 1.0, mask=torch.as_tensor(
+        mask, device=cuda), symmetric=True)
+    s = fvm3d.make_flux_spec_3d(d, 0.0, 1.0)
+    x0 = (torch.arange(32, dtype=torch.float64, device=cuda) / 32).expand(
+        32, 32, 32)
+    kw = dict(member=gas, tol=1e-10, max_iter=400, check_every=10,
+              use_pallas=use_pallas)
+    key = v3.v_cycle3d if use_pallas is True else v3.v_cycle3d_tiled
+    key.launches = 0
+    got = dmg3d.solve_dmg_3d(c, s, x0, **kw)
+    assert key.launches > 0
+    ref = dmg3d.solve_dmg_3d(c, s, x0, plain=True, **kw)
+    assert int(got.iters) == int(ref.iters)
+    assert float(got.conv) <= 1e-10
+    np.testing.assert_allclose(float(got.deff), float(ref.deff), rtol=1e-9)
+
+
+def test_compacted_batch_matches_unsegmented(cuda):
+    """Compaction on K1/K2: every image converged, Deff within the
+    unsegmented batch's to 1e-6."""
+    from effectivediffusivityfvm_tpu_torch.solvers.compact import \
+        solve_batched_compacted
+
+    rng = np.random.default_rng(6)
+    d = torch.tensor(np.stack([np.exp(rng.uniform(0, np.log(10.0 ** k),
+                                                  (64, 64)))
+                               for k in range(1, 7)]), device=cuda)
+    c, s = fvm.fvm_coefficients(d, 0.0, 1.0), make_flux_spec(d, 0.0, 1.0)
+    x0 = (torch.arange(64, dtype=torch.float64, device=cuda) / 64).expand(
+        6, 64, 64)
+    kw = dict(tol=1e-9, max_iter=400, check_every=10, criterion="residual",
+              min_size=8, coarse_iters=8, nu1=2, nu2=2)
+    ref = multigrid.solve_mgcg_batched(c, s, x0, **kw)
+    cg_steps.launches = 0
+    got = solve_batched_compacted(multigrid.solve_mgcg_batched, c, s, x0,
+                                  segment=20, **kw)
+    assert cg_steps.launches > 0
+    assert bool(torch.all(got.conv <= 1e-9))
+    np.testing.assert_allclose(got.deff.cpu().numpy(), ref.deff.cpu().numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("ny, use_pallas, nu", [(36, None, 2), (32, False, 2),
+                                                (32, None, 5)])
+def test_sharded_pcg_routes_match_plain(cuda, ny, use_pallas, nu):
+    """Routes (a) and (b) under run_pcg on four shards of the card: K2
+    (the gathered tail) against its plain version, the same iterations."""
+    from effectivediffusivityfvm_tpu_torch.parallel import halo
+    from effectivediffusivityfvm_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(8)
+    d = torch.tensor(np.exp(rng.uniform(0, np.log(10.0), (ny, 64))),
+                     device=cuda)
+    c, s = fvm.fvm_coefficients(d, 0.0, 1.0), make_flux_spec(d, 0.0, 1.0)
+    x0 = (torch.arange(64, dtype=torch.float64, device=cuda) / 64).expand(
+        ny, 64)
+    mesh = make_mesh(4, dp=1, sp=4, devices=[cuda] * 4)
+    kw = dict(tol=1e-9, max_iter=300, check_every=10,
+              criterion="relresidual", nu1=nu, nu2=nu, use_pallas=use_pallas)
+    v_cycle.launches = 0
+    got = halo.sharded_solve_mgcg(c, s, x0, mesh, **kw)
+    assert v_cycle.launches > 0
+    ref = halo.sharded_solve_mgcg(c, s, x0, mesh, plain=True, **kw)
+    assert int(got.iters) == int(ref.iters)
+    np.testing.assert_allclose(float(got.deff), float(ref.deff), rtol=1e-9)
+
+
+def test_sharded_3d_tail_matches_plain(cuda):
+    """The z-slab sharded MGCG with its gathered tail on K6 against K6's
+    plain version."""
+    from effectivediffusivityfvm_tpu_torch.parallel import halo3d
+    from effectivediffusivityfvm_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(9)
+    d = torch.tensor(np.exp(rng.uniform(0, np.log(1e2), (32, 24, 24))),
+                     device=cuda)
+    c, s = fvm3d.fvm_coefficients_3d(d, 0.0, 1.0), fvm3d.make_flux_spec_3d(
+        d, 0.0, 1.0)
+    x0 = (torch.arange(24, dtype=torch.float64, device=cuda) / 24).expand(
+        32, 24, 24)
+    mesh = make_mesh(4, dp=1, sp=4, devices=[cuda] * 4)
+    kw = dict(tol=1e-9, max_iter=200, check_every=10, nu1=2, nu2=2)
+    v3.v_cycle3d.launches = 0
+    got = halo3d.sharded_solve_mgcg_3d(c, s, x0, mesh, **kw)
+    assert v3.v_cycle3d.launches > 0
+    ref = halo3d.sharded_solve_mgcg_3d(c, s, x0, mesh, plain=True, **kw)
+    assert int(got.iters) == int(ref.iters)
+    np.testing.assert_allclose(float(got.deff), float(ref.deff), rtol=1e-9)
+
+
+def test_native_flood_fill_on_the_card_machine(cuda):
+    """The native library builds on this machine and agrees with the scipy
+    route and with the label propagation on the card."""
+    from effectivediffusivityfvm_tpu_torch.models import _native, floodfill
+
+    assert _native.native_available()
+    rng = np.random.default_rng(10)
+    solid = rng.random((6, 96, 80)) < 0.42
+    part, iso, flag = floodfill.participating_mask_device(
+        torch.as_tensor(solid, device=cuda))
+    for k, m in enumerate(solid):
+        a = floodfill.flood_fill(m)
+        b = floodfill.flood_fill(m, use_native=False)
+        assert np.array_equal(a.participating, b.participating)
+        assert np.array_equal(a.participating, part[k].cpu().numpy())
+        assert np.array_equal(a.isolated, iso[k].cpu().numpy())

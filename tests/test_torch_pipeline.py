@@ -271,11 +271,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     np.save(tmp_path / "vol.npy", np.zeros((4, 4, 4), np.uint8))
     _write_png(tmp_path / "00000.jpg", _img2(1, 8))
-    for text, word in (("InputName: vol.npy\nSolver: dmg\nDtype: float64\n",
-                        "dmg3d"),
-                       ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
-                        "Compact: 1\n", "Compact: 1"),
-                       # the mesh routes are ported; on the CPU the CLI
+    for text, word in (# the mesh routes are ported; on the CPU the CLI
                        # sees one device
                        ("RunBatch: 1\nNumImages: 1\nDevices: 2\n",
                         "2 requested, 1 visible"),
@@ -284,6 +280,16 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
         (tmp_path / "in.txt").write_text(text)
         assert cli.main(["in.txt"], device="cpu") == 1
         assert word in capsys.readouterr().out
+    # the 3D dmg (solvers/dmg3d.py) and Compact: 1 (solvers/compact.py),
+    # refused before they were ported, now run and write their rows
+    for text, out in (("InputName: vol.npy\nSolver: dmg\nDtype: float64\n",
+                       "dmg3d.csv"),
+                      ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
+                       "Compact: 1\n", "compact.csv")):
+        (tmp_path / "in.txt").write_text(text + f"OutputName: {out}\n")
+        assert cli.main(["in.txt"], device="cpu") == 0
+        rows = (tmp_path / out).read_text().strip().splitlines()
+        assert len(rows) >= 1 and np.isfinite(float(rows[-1].split(",")[3]))
 
 
 def test_pipelines_need_cuda_unless_told_cpu(tmp_path, monkeypatch, capsys):

@@ -556,12 +556,19 @@ def test_sharded_mgcg_refuses_unported_modes():
     d = _medium(12, (32, 16))
     (c, s, x0), _ = _systems(d)
     pm = _cpu_mesh(4)
-    with pytest.raises(NotImplementedError, match="run_pcg"):
-        halo.sharded_solve_mgcg(c, s, x0, pm, use_pallas=False)
-    with pytest.raises(NotImplementedError, match="run_pcg"):
+    # use_pallas=False and 4-row shards run under run_pcg now
+    # (parallel/sharded_pcg.py; tests/test_torch_sharded_pcg.py against the
+    # JAX package); only V(nu1 != nu2) is refused
+    kw = dict(tol=1e-7, max_iter=400, check_every=10, coarse_iters=4,
+              criterion="relresidual")
+    runs = [halo.sharded_solve_mgcg(c, s, x0, pm, use_pallas=False, **kw),
+            halo.sharded_solve_mgcg(c, s, x0, _cpu_mesh(8), **kw)]
+    for res in runs:
+        assert float(res.conv) <= 1e-7
+    np.testing.assert_allclose(float(runs[1].deff), float(runs[0].deff),
+                               rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="Do not port"):
         halo.sharded_solve_mgcg(c, s, x0, pm, nu1=1, nu2=2)
-    with pytest.raises(NotImplementedError, match="run_pcg"):
-        halo.sharded_solve_mgcg(c, s, x0, _cpu_mesh(8))     # 4-row shards
     assert not fused2d.fused_shard_level_ok(6, 16)
     assert fused2d.shard_band(2048, 2048) == 2048
 
@@ -644,4 +651,6 @@ def test_batch_sim_mesh_refusals(tmp_path):
 
 def test_dryrun_twin(tmp_path):
     lines = dryrun_multichip([CPU] * 8, device="cpu", out_dir=str(tmp_path))
-    assert len(lines) == 4 and "dp x sp Jacobi" in lines[0]
+    # the 3D leg (z-slab sharded CG) is the second line
+    assert len(lines) == 5 and "dp x sp Jacobi" in lines[0]
+    assert "3D z-slab sharded CG" in lines[1]

@@ -183,7 +183,32 @@ non-zero):
     solvers (rtol 1e-6), and the dry-run twin's 3D leg;
 40. native preprocessing: the library builds; the flood fill of config
     3's 2048^2 image and of 256 x 128^2 images equal to the scipy route's
-    and to ``participating_mask_device`` on the card; their times.
+    and to ``participating_mask_device`` on the card; their times;
+41. the differentiable Deff (``ops/autodiff.py``): ``deff_and_grad`` on 8
+    of phase 5's images in float64 (relres 1e-10, a check every 500,
+    V(2,2)), forward and adjoint solves on K1/K2: forward and backward
+    times (best of 3 after a warm-up), their ratio, the iterations and
+    the launches of each pass; the same call on the plain versions,
+    converged (iterations within 10% + 2, Deff 1e-8, gradient within 1e-5
+    of max|g|: this ill-conditioned medium's solve moves that much under
+    another order of the sums) and at a fixed budget of 10 iterations
+    (gradient within 1e-9 of max|g|); central differences
+    on image 0's four fluid cells of the largest |grad| (eps 1e-5 d;
+    the gradient and the differences from solves of a fixed 600
+    iterations; 1e-5 relative); a uniform 512^2 medium (Deff 2.5 to
+    1e-9, the gradient summing to 1 to 1e-6); then config 3's 2048^2 image
+    in float32 at relres 1e-6 (at most 100 iterations) on K4/K5 against
+    its plain route (iterations within 2, gradient within 1e-5 of
+    max|g|) and, ungated, against the float64 gradient (K1/K2);
+42. the other modules: ``checkpointed_solve`` of ``solve_mgcg`` on one
+    512^2 image in segments of 20 iterations (K1/K2) against the
+    unsegmented solve (Deff 1e-6) and resumed from its file at once; the
+    protocol carry of ``solve_jacobi`` on a 128^2 image, stopping at the
+    continuous run's sweep with Deff and field equal; ``AsyncSaver``;
+    ``trace()`` of a slice solve naming K1's and K2's kernels;
+    ``benchmark_solver`` on it beside phase 5's time; ``nan_guard`` on a
+    CUDA NaN; ``read_cmap`` of the CMAP ``single_sim`` wrote; ``entry()``
+    on the card against ``entry(device="cpu")`` (rtol 1e-5).
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -3216,6 +3241,408 @@ def solver_matrix_phases(dev, card, lib):
     return launches
 
 
+# Phase 41: the differentiable Deff (ops/autodiff.py) on bench.py's images
+# in float64 (K1/K2), a check every 500 iterations: at the default 10 the
+# restart at every check stalls this medium's float64 solve near relres
+# 1e-6 (PERF.md, PR 14), and V(2,2) as in the bench settings
+AD_BATCH, AD_SIZE = 8, 512
+AD_CYCLE = dict(min_size=8, coarse_iters=8, nu1=2, nu2=2, over=1.8,
+                mg_omega=(1.281, 0.5584))
+AD_KW = dict(tol=1e-10, max_iter=2000, check_every=500)
+AD_FD_ITERS = 600                     # the finite differences' solves
+AD_FIXED = 10                         # the fixed-budget leg against plain
+AD_FD_CELLS = 4
+# config 3's image in float32 on the banded engine (K4/K5) at relres 1e-6,
+# phase 14's cycle and cadence; capped, since float32 may stall above 1e-6
+AD32_CYCLE = dict(min_size=32, coarse_iters=64, nu1=2, nu2=2, over=1.8,
+                  mg_omega=0.8)
+AD32_KW = dict(tol=1e-6, max_iter=100, check_every=10)
+# phase 42
+CKPT_SEGMENT = 20
+CKPT_KW = dict(tol=1e-8, check_every=10, first_window=10,
+               criterion="residual", **AD_CYCLE)
+PC_SIZE = 128                         # protocol carry: one bench image
+PC_KW = dict(tol=1e-3, check_every=200, criterion="deff")
+PC_SEGMENT = 3 * PC_KW["check_every"] + 1
+
+
+def slice7_phases(dev, card, imgs, slice_s):
+    """Phases 41-42: the differentiable Deff on K1/K2 and K4/K5, then the
+    checkpoints, the profiling and debug helpers, the CMAP reader and the
+    entry() twin on the card.  ``imgs``: phase 5's images; ``slice_s``: its
+    best slice solve time."""
+    import glob
+
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch import entry as entry_mod
+    from effectivediffusivityfvm_tpu_torch.config import SimulationConfig
+    from effectivediffusivityfvm_tpu_torch.models import phases
+    from effectivediffusivityfvm_tpu_torch.ops import fvm
+    from effectivediffusivityfvm_tpu_torch.ops.autodiff import (
+        deff_and_grad, make_differentiable_deff)
+    from effectivediffusivityfvm_tpu_torch.ops.flux import make_flux_spec
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import cg_steps
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import \
+        cg_steps_tiled
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import \
+        v_cycle_tiled
+    from effectivediffusivityfvm_tpu_torch.pipeline import single
+    from effectivediffusivityfvm_tpu_torch.solvers import multigrid
+    from effectivediffusivityfvm_tpu_torch.solvers.driver import SolveResult
+    from effectivediffusivityfvm_tpu_torch.solvers.jacobi import solve_jacobi
+    from effectivediffusivityfvm_tpu_torch.utils import checkpoint, debug
+    from effectivediffusivityfvm_tpu_torch.utils.profiling import (
+        benchmark_solver, trace)
+    from effectivediffusivityfvm_tpu_torch.viz import read_cmap
+
+    wrappers = {"K1": cg_steps, "K2": v_cycle, "K4": v_cycle_tiled,
+                "K5": cg_steps_tiled}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts(names):
+        return {k: wrappers[k].launches for k in names}
+
+    def value_and_grad(f, d):
+        """One forward and one backward pass of ``f`` at ``d``: (value,
+        grad, forward s, backward s, launches of each pass)."""
+        dd = d.clone().requires_grad_()
+        torch.cuda.synchronize()
+        zero_counts()
+        t1 = time.perf_counter()
+        val = f(dd)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        fwd_n = counts(wrappers)
+        zero_counts()
+        (grad,) = torch.autograd.grad(val.sum(), dd)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return (val.detach(), grad, t2 - t1, t3 - t2, fwd_n,
+                counts(wrappers))
+
+    def timed_pair(f, d, names):
+        """A warm-up, then the best of 3 forward and backward times; the
+        main path's launch counts from the first timed run, each pass
+        gated on every kernel in ``names``."""
+        value_and_grad(f, d)
+        runs = [value_and_grad(f, d) for _ in range(3)]
+        val, grad, _, _, fwd_n, bwd_n = runs[0]
+        for label, n in (("forward", fwd_n), ("backward", bwd_n)):
+            for k in names:
+                check(n[k] > 0, f"{k} not launched in the {label} pass: "
+                      f"{n}")
+        fwd = min(r[2] for r in runs)
+        bwd = min(r[3] for r in runs)
+        return val, grad, fwd, bwd, {k: fwd_n[k] for k in names}, \
+            {k: bwd_n[k] for k in names}
+
+    def iters_of(f):
+        return {k: v.cpu().numpy() for k, v in f.iterations.items()}
+
+    # -- 41: differentiable Deff, B=8 x 512^2 f64 on K1/K2
+    t0 = time.perf_counter()
+    classes = phases.two_phase_classes(imgs[:AD_BATCH])
+    d = torch.tensor(phases.d_field_from_classes(classes, 1.0, CONTRAST),
+                     dtype=torch.float64, device=dev)
+    f = make_differentiable_deff(**AD_KW, solver_kw=AD_CYCLE)
+    val, grad, fwd_s, bwd_s, fwd_n, bwd_n = timed_pair(f, d, ("K1", "K2"))
+    its = iters_of(f)
+    gmax = float(grad.abs().max())
+    check(bool(torch.isfinite(grad).all()) and bool(torch.isfinite(val).all())
+          and bool(((val > 0) & (val <= 1)).all()), "B=8 Deff/grad: "
+          f"{val.tolist()}, grad finite {bool(torch.isfinite(grad).all())}")
+    check(int(its["forward"].max()) < AD_KW["max_iter"]
+          and int(its["adjoint"].max()) < AD_KW["max_iter"],
+          f"B=8 solves at the cap: {its}")
+    # the plain route, converged: its iterations and gradient differ as any
+    # other order of the double sums makes them on this ill-conditioned
+    # medium (a CPU run with K1's plain sums reversed: up to 5 of ~290
+    # iterations and 5.3e-7 of max|g|), so the gates are the solve's own
+    # sensitivity; then a fixed budget of AD_FIXED iterations (tol 0), where
+    # the two routes must agree to rounding (that CPU run: 2.1e-11)
+    legs = {}
+    for leg, kw in (("converged", AD_KW),
+                    ("fixed", dict(AD_KW, tol=0.0, max_iter=AD_FIXED))):
+        runs = []
+        for plain in (False, True):
+            fr = make_differentiable_deff(**kw, solver_kw=dict(AD_CYCLE,
+                                                               plain=plain))
+            zero_counts()
+            vr, gr, *_ = value_and_grad(fr, d)
+            n = counts(("K1", "K2"))
+            check(all((v == 0) if plain else (v > 0) for v in n.values()),
+                  f"{leg} leg, plain {plain}: launches {n}")
+            runs.append((vr, gr, iters_of(fr)))
+        (vk, gk, itk), (vp, gp, itp) = runs
+        legs[leg] = (itp, float(((vk - vp) / vp).abs().max()),
+                     float((gk - gp).abs().max() / gk.abs().max()),
+                     max(int(np.abs(itk[k].astype(int) - itp[k]).max())
+                         for k in itk))
+    its_p, v_err, g_err, d_it = legs["converged"]
+    for k in its:
+        check(bool(np.all(np.abs(its[k].astype(int) - its_p[k])
+                          <= 0.1 * its_p[k] + 2)),
+              f"{k} iterations {its[k].tolist()} vs plain "
+              f"{its_p[k].tolist()}")
+    check(v_err <= 1e-8 and g_err <= 1e-5, f"converged vs plain: Deff rel "
+          f"err {v_err}, grad err {g_err} of max|g|")
+    _, fv_err, fg_err, fd_it = legs["fixed"]
+    check(fd_it == 0 and fv_err <= 1e-12 and fg_err <= 1e-9,
+          f"{AD_FIXED} iterations vs plain: iterations differ by {fd_it}, "
+          f"Deff rel err {fv_err}, grad err {fg_err} of max|g|")
+    phase(41, t0, f"differentiable Deff {card}, B={AD_BATCH} x {AD_SIZE}^2 "
+          f"f64 (relres {AD_KW['tol']:g}, a check every "
+          f"{AD_KW['check_every']}): forward {fwd_s:.4f} s, backward "
+          f"{bwd_s:.4f} s (ratio {bwd_s / fwd_s:.3f}), iterations forward "
+          f"{its['forward'].tolist()}, adjoint {its['adjoint'].tolist()}, "
+          f"launches forward {fwd_n}, backward {bwd_n}; vs plain converged: "
+          f"iterations forward {its_p['forward'].tolist()}, adjoint "
+          f"{its_p['adjoint'].tolist()} (max diff {d_it}), Deff rel err "
+          f"{v_err:.3e}, grad err {g_err:.3e} of max|g| {gmax:.3e}; "
+          f"{AD_FIXED} iterations: Deff rel err {fv_err:.3e}, grad err "
+          f"{fg_err:.3e} of max|g|")
+
+    # central differences on image 0's fluid cells of the largest |grad|.
+    # The gradient and the differences come from one callable that runs
+    # AD_FD_ITERS iterations (tol 0: past the float64 floor), so both
+    # solves of a difference take the same steps: solved to a tolerance
+    # instead, their errors (~1e-13 of Deff at relres 1e-13) differ by
+    # ~1e-5 of these cells' differences
+    t0 = time.perf_counter()
+    d0 = d[0].clone().requires_grad_()
+    ff = make_differentiable_deff(
+        **dict(AD_KW, tol=0.0, max_iter=AD_FD_ITERS), solver_kw=AD_CYCLE)
+    (g0,) = torch.autograd.grad(ff(d0), d0)
+    d0 = d0.detach()
+    g0_dist = float((grad[0] - g0).abs().max() / g0.abs().max())
+    fluid = torch.where(d0 == 1.0, g0.abs(), torch.zeros_like(g0))
+    fd_err, fd_lines = 0.0, []
+    for c in torch.topk(fluid.flatten(), AD_FD_CELLS).indices.tolist():
+        i, j = divmod(c, AD_SIZE)
+        eps = 1e-5 * float(d0[i, j])
+        fvals = []
+        for sgn in (1.0, -1.0):
+            dpm = d0.clone()
+            dpm[i, j] += sgn * eps
+            fvals.append(float(ff(dpm)))
+        fd = (fvals[0] - fvals[1]) / (2 * eps)
+        an = float(g0[i, j])
+        rel = abs(fd - an) / max(abs(fd), abs(an))
+        check(rel <= 1e-5, f"finite difference at {(i, j)}: {fd} vs {an}")
+        fd_err = max(fd_err, rel)
+        fd_lines.append(f"{(i, j)} {an:.6e}")
+    u = torch.full((AD_SIZE, AD_SIZE), 2.5, dtype=torch.float64, device=dev)
+    uv, ug = deff_and_grad(u, **AD_KW, solver_kw=AD_CYCLE)
+    u_err = abs(float(uv) - 2.5) / 2.5
+    u_sum = float(ug.sum())
+    check(u_err <= 1e-9, f"uniform medium Deff {float(uv)}")
+    check(abs(u_sum - 1.0) <= 1e-6, f"uniform medium sum grad {u_sum}")
+    phase(41, t0, f"central differences (eps 1e-5 d, solves of "
+          f"{AD_FD_ITERS} iterations) on image 0 at {', '.join(fd_lines)}: "
+          f"max rel err {fd_err:.3e} (the batch gradient at relres "
+          f"{AD_KW['tol']:g} is {g0_dist:.3e} of max|g| off image 0's); "
+          f"uniform "
+          f"{AD_SIZE}^2 d=2.5: Deff rel err {u_err:.3e}, sum grad - 1 "
+          f"{u_sum - 1:.3e}")
+    del d, grad, g0, f, ff, u, ug
+
+    # config 3's 2048^2 image in float32 (K4/K5), against its plain route
+    # and, ungated, the float64 gradient (K1/K2)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(C3_SEED)
+    d3 = c3_problem(correlated_binary(rng, C3_SIZE, C3_SIZE), dev)[0]
+    f32 = make_differentiable_deff(**AD32_KW, solver_kw=AD32_CYCLE)
+    val32, g32, fwd32, bwd32, fwd32_n, bwd32_n = timed_pair(
+        f32, d3, ("K4", "K5"))
+    its32 = iters_of(f32)
+    fp32 = make_differentiable_deff(**AD32_KW, solver_kw=dict(AD32_CYCLE,
+                                                              plain=True))
+    zero_counts()
+    vp32, gp32, *_ = value_and_grad(fp32, d3)
+    check(counts(("K4", "K5")) == {"K4": 0, "K5": 0},
+          f"the plain route launched {counts(('K4', 'K5'))}")
+    its32_p = iters_of(fp32)
+    g32max = float(g32.abs().max())
+    g32_err = float((g32 - gp32).abs().max())
+    for k in ("forward", "adjoint"):
+        check(abs(int(its32[k]) - int(its32_p[k])) <= 2,
+              f"fp32 {k} iterations {its32[k]} vs plain {its32_p[k]}")
+    check(bool(torch.isfinite(g32).all()), "fp32 gradient not finite")
+    check(g32_err <= 1e-5 * g32max, f"fp32 grad vs plain {g32_err} > "
+          f"1e-5 * {g32max}")
+    f64 = make_differentiable_deff(**AD_KW, solver_kw=AD32_CYCLE)
+    zero_counts()
+    v64, g64, fwd64, bwd64, *_ = value_and_grad(f64, d3.double())
+    its64 = iters_of(f64)
+    check(counts(("K1", "K2"))["K1"] > 0, "f64 2048^2 launched no K1")
+    g_dist = float((g32.double() - g64).abs().max() / g64.abs().max())
+    phase(41, t0, f"config 3 {C3_SIZE}^2 fp32 (relres {AD32_KW['tol']:g}, "
+          f"cap {AD32_KW['max_iter']}) {card}: forward {fwd32:.4f} s, "
+          f"backward {bwd32:.4f} s (ratio {bwd32 / fwd32:.3f}), iterations "
+          f"forward {its32['forward']}, adjoint {its32['adjoint']} (plain "
+          f"{its32_p['forward']}, {its32_p['adjoint']}), launches forward "
+          f"{fwd32_n}, backward {bwd32_n}; grad vs plain max abs err "
+          f"{g32_err:.3e} (max|g| {g32max:.3e}); Deff {float(val32):.6f} vs "
+          f"f64 {float(v64):.6f}; f64 on K1/K2: {its64['forward']}, "
+          f"{its64['adjoint']} iterations, forward {fwd64:.4f} s, backward "
+          f"{bwd64:.4f} s; fp32 grad vs f64 max|diff|/max|g64| {g_dist:.3e} "
+          f"(not gated)")
+    del d3, g32, gp32, g64, f32, fp32, f64
+    torch.cuda.empty_cache()
+
+    # -- 42: the other modules on the card
+    t0 = time.perf_counter()
+    lines = []
+    d1 = torch.tensor(phases.d_field_from_classes(classes[:1], 1.0,
+                                                  CONTRAST)[0],
+                      dtype=torch.float64, device=dev)
+    c1, s1 = fvm.fvm_coefficients(d1, 0.0, 1.0), make_flux_spec(d1, 0.0, 1.0)
+    x1 = (torch.arange(AD_SIZE, dtype=torch.float64, device=dev)
+          / AD_SIZE).expand(AD_SIZE, AD_SIZE)
+    ck = WORK_DIR / "ckpt42.npz"
+    ck.unlink(missing_ok=True)
+    zero_counts()
+    seg = checkpoint.checkpointed_solve(
+        multigrid.solve_mgcg, c1, s1, x1, checkpoint_path=str(ck),
+        segment_iters=CKPT_SEGMENT, max_iter=2000, **CKPT_KW)
+    seg_n = counts(("K1", "K2"))
+    check(seg_n["K1"] > 0 and seg_n["K2"] > 0, f"checkpointed solve {seg_n}")
+    ref = multigrid.solve_mgcg(c1, s1, x1, max_iter=2000, **CKPT_KW)
+    ck_rel = abs(float(seg.deff) - float(ref.deff)) / float(ref.deff)
+    check(float(seg.conv) <= CKPT_KW["tol"], f"segmented conv {seg.conv}")
+    check(ck_rel <= 1e-6, f"segmented Deff rel err {ck_rel}")
+    zero_counts()
+    t1 = time.perf_counter()
+    again = checkpoint.checkpointed_solve(
+        multigrid.solve_mgcg, c1, s1, x1, checkpoint_path=str(ck),
+        segment_iters=CKPT_SEGMENT, max_iter=2000, **CKPT_KW)
+    resume_s = time.perf_counter() - t1
+    check(counts(("K1",))["K1"] == 0 and int(again.iters) == int(seg.iters)
+          and float(again.deff) == float(seg.deff)
+          and again.x.device == x1.device, "the resumed call solved again")
+    lines.append(f"checkpointed mgcg {AD_SIZE}^2 f64, segments of "
+                 f"{CKPT_SEGMENT}: {int(seg.iters)} iterations (unsegmented "
+                 f"{int(ref.iters)}), Deff rel err {ck_rel:.3e}, launches "
+                 f"{seg_n}; resumed from the file in {resume_s * 1e3:.1f} ms")
+
+    img_pc = bench_images(1, PC_SIZE)[0]
+    dpc = torch.tensor(phases.d_field_from_classes(
+        phases.two_phase_classes(img_pc), 1.0, CONTRAST), dtype=torch.float64,
+        device=dev)
+    cpc, spc = fvm.fvm_coefficients(dpc, 0.0, 1.0), make_flux_spec(dpc, 0.0,
+                                                                  1.0)
+    xpc = (torch.arange(PC_SIZE, dtype=torch.float64, device=dev)
+           / PC_SIZE).expand(PC_SIZE, PC_SIZE)
+    t1 = time.perf_counter()
+    cont = solve_jacobi(cpc, spc, xpc, max_iter=500_000, **PC_KW)
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t1
+    pc = WORK_DIR / "carry42.npz"
+    pc.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    carried = checkpoint.checkpointed_solve(
+        solve_jacobi, cpc, spc, xpc, checkpoint_path=str(pc),
+        segment_iters=PC_SEGMENT, max_iter=500_000, protocol_carry=True,
+        **PC_KW)
+    torch.cuda.synchronize()
+    carry_s = time.perf_counter() - t1
+    check(int(carried.iters) == int(cont.iters) < 500_000,
+          f"protocol carry stopped at {int(carried.iters)}, the continuous "
+          f"run at {int(cont.iters)}")
+    check(float(carried.deff) == float(cont.deff)
+          and bool(torch.equal(carried.x, cont.x)),
+          f"protocol carry Deff {float(carried.deff)} vs {float(cont.deff)}")
+    lines.append(f"protocol carry, jacobi {PC_SIZE}^2 f64 (deff "
+                 f"{PC_KW['tol']:g}, a check every {PC_KW['check_every']}, "
+                 f"segments of {PC_SEGMENT}): {int(carried.iters)} sweeps "
+                 f"as the continuous run, Deff {float(cont.deff):.6f} and "
+                 f"the field equal, {carry_s:.2f} s vs {cont_s:.2f} s")
+
+    saved = [WORK_DIR / f"async42_{i}.npz" for i in range(2)]
+    with checkpoint.AsyncSaver() as saver:
+        for i, p in enumerate(saved):
+            saver.save(str(p), seg.x + i, iters=i,
+                       meta={"deff": seg.deff})
+    for i, p in enumerate(saved):
+        xs, it, meta = checkpoint.load_state(str(p))
+        check(np.array_equal(xs, (seg.x + i).cpu().numpy()) and it == i
+              and float(meta["deff"]) == float(seg.deff),
+              f"AsyncSaver file {p.name}")
+    lines.append("AsyncSaver round trip of the CUDA field equal")
+
+    coeffs, spec, x0 = build_problem(imgs, dev)
+    log_dir = WORK_DIR / "trace42"
+    for old in glob.glob(str(log_dir / "*")):
+        Path(old).unlink()
+    with trace(str(log_dir)):
+        multigrid.solve_mgcg_batched(coeffs, spec, x0, **SOLVE_KW)
+    files = glob.glob(str(log_dir / "*.pt.trace.json"))
+    check(len(files) == 1, f"trace files {files}")
+    names = {e.get("name", "") for e in json.load(open(files[0]))
+             .get("traceEvents", [])}
+    k1_seen = sorted({n for n in names if any(
+        k in n for k in ("pass_p_kernel", "pass_x_kernel", "pass_z_kernel"))})
+    k2_seen = sorted({n for n in names if any(k in n for k in K2_KERNELS)})
+    check(k1_seen and k2_seen, f"the trace names no K1 ({k1_seen}) or K2 "
+          f"({k2_seen}) kernel")
+    lines.append(f"trace of a slice solve: {Path(files[0]).stat().st_size} "
+                 f"bytes, {len(k1_seen)} K1 and {len(k2_seen)} K2 kernel "
+                 f"names")
+    bench = benchmark_solver(multigrid.solve_mgcg_batched, coeffs, spec, x0,
+                             **SOLVE_KW)
+    lines.append(f"benchmark_solver: best {bench['seconds']:.4f} s "
+                 f"({BATCH / bench['seconds']:.1f} solves/s, times "
+                 f"{', '.join(f'{t:.4f}' for t in bench['times'])}, "
+                 f"{bench['iterations']} iterations) beside phase 5's "
+                 f"{slice_s:.4f} s")
+    del coeffs, spec, x0
+
+    nan_res = SolveResult(x=torch.full((4, 4), float("nan"), device=dev),
+                          deff=torch.tensor(0.5, device=dev),
+                          conv=torch.tensor(0.0, device=dev),
+                          iters=torch.tensor(1, device=dev))
+    try:
+        debug.nan_guard(lambda: nan_res, "nan-solve")()
+    except FloatingPointError as e:
+        nan_msg = str(e)
+    else:
+        raise RuntimeError("check failed: nan_guard let a CUDA NaN through")
+    debug.check_finite(seg, "checkpointed solve")
+    lines.append(f"nan_guard: {nan_msg}")
+
+    cmap = WORK_DIR / "cmap42.csv"
+    cfg = SimulationConfig(solver="mgcg", d_solid=CONTRAST, dtype="float64",
+                           criterion="residual", convergence=1e-8,
+                           max_iter=2000, print_cmap=True,
+                           cmap_name=str(cmap),
+                           output_name=str(WORK_DIR / "single42.csv"))
+    res = single.single_sim(cfg, img=img_pc, device="cuda")
+    back = read_cmap(str(cmap))
+    check(back.shape == res.x.shape, f"read_cmap shape {back.shape}")
+    cmap_err = np.max(np.abs(back - res.x) / np.maximum(np.abs(res.x),
+                                                        1e-300))
+    check(cmap_err <= 1e-3, f"read_cmap vs the field: rel err {cmap_err}")
+    lines.append(f"read_cmap of single_sim's {PC_SIZE}^2 CMAP equal to the "
+                 f"field to its printed digits (max rel err "
+                 f"{cmap_err:.1e})")
+
+    fwd_e, args_e = entry_mod.entry()
+    deff_card = fwd_e(*args_e).cpu().numpy()
+    fwd_c, args_c = entry_mod.entry(device="cpu")
+    deff_cpu = fwd_c(*args_c).numpy()
+    e_rel = float(np.max(np.abs(deff_card - deff_cpu) / np.abs(deff_cpu)))
+    check(np.all(np.isfinite(deff_card)) and e_rel <= 1e-5,
+          f"entry() on the card {deff_card} vs the CPU {deff_cpu}")
+    lines.append(f"entry(): Deff {np.round(deff_card, 6).tolist()}, rel err "
+                 f"to the CPU {e_rel:.3e}")
+    phase(42, t0, f"{card}: " + "; ".join(lines))
+
+
 def main():
     import torch
 
@@ -3747,6 +4174,8 @@ def main():
     krylov_phases(dev, card, lib)
     torch.cuda.empty_cache()
     solver_matrix_phases(dev, card, lib)
+    torch.cuda.empty_cache()
+    slice7_phases(dev, card, imgs, min(times))
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
     k3_ms, _, k3_ms_p, _, k3_bound = next(iter(k3_times.values()))

@@ -25,7 +25,19 @@ Ported so far:
 * the row-sharded 2D path (``parallel/``): a mesh of torch devices driven
   from one process, the sharded Jacobi and MGCG solves (the latter on
   hand-written CUDA kernels for one shard's cycle level and its CG
-  passes), and the ``Devices``/``DP``/``SP`` routes of the batch pipeline.
+  passes), and the ``Devices``/``DP``/``SP`` routes of the batch pipeline;
+* the auxiliary modules: ``ops/autodiff.py`` (Deff as a differentiable
+  function of the D field, a ``torch.autograd.Function`` whose backward is
+  one adjoint solve on the same MGCG engine and kernels),
+  ``utils/checkpoint.py`` (npz checkpoints in the JAX package's layout,
+  segmented and resumable solves, ``AsyncSaver``), ``utils/profiling.py``
+  (``torch.profiler`` traces, ``benchmark_solver``, ``RunManifest``),
+  ``utils/debug.py``, ``viz.py`` and ``entry.py`` (the twin of
+  ``__graft_entry__.entry()``).
+
+The port does everything the JAX package does except the benchmark
+scripts' twins and what the ROADMAP's "Do not port" list names (engines
+kept for TPU debugging, the orbax checkpoint backend).
 
 Everything runs on the CUDA device by default; pass ``device="cpu"`` to the
 pipelines (or CPU tensors to the solvers) to run the kernels' plain PyTorch

@@ -22,8 +22,8 @@ import numpy as np
 import torch
 
 from ..config import SimulationConfig
+from ..entry import problem as _problem
 from ..io.images import parallel_slab
-from ..models import phases
 from ..ops import fvm, fvm3d
 from ..ops.flux import make_flux_spec
 from ..pipeline.batch import batch_sim
@@ -33,17 +33,6 @@ from .halo3d import sharded_solve_cg_3d
 from .mesh import make_mesh
 
 __all__ = ["dryrun_multichip"]
-
-
-def _problem(batch, ny, nx, dtype, device, seed=0):
-    rng = np.random.default_rng(seed)
-    imgs = (rng.random((batch, ny, nx)) < 0.45).astype(np.uint8) * 255
-    classes = np.stack([phases.two_phase_classes(im) for im in imgs])
-    d = torch.tensor(phases.d_field_from_classes(classes, 1.0, 1e-6),
-                     dtype=dtype, device=device)
-    x0 = (torch.arange(nx, dtype=dtype, device=device) / nx).expand(
-        batch, ny, nx)
-    return fvm.fvm_coefficients(d, 0.0, 1.0), make_flux_spec(d, 0.0, 1.0), x0
 
 
 def _check(ok, what):

@@ -345,7 +345,7 @@ def solve_mgcg(coeffs, spec, x0, *, tol: float = 1e-8, max_iter: int = 10_000,
                nu1: int = 1, nu2: int = 1, mg_omega=0.8,
                coarse_iters: int = 32, min_size: int = 8, over: float = 1.8,
                use_pallas=None, d_field=None,
-               first_window: int = 1) -> SolveResult:
+               first_window: int = 1, plain: bool = False) -> SolveResult:
     """Multigrid-preconditioned CG on one ``(ny, nx)`` image.
 
     ``criterion``: "residual" (mean |b - A x|), "relresidual" (divided by
@@ -364,14 +364,15 @@ def solve_mgcg(coeffs, spec, x0, *, tol: float = 1e-8, max_iter: int = 10_000,
     ignore it.  Keep ``first_window=1`` with it (auto picks 1).
 
     The kernels run on a CUDA tensor and their plain PyTorch versions on a
-    CPU tensor.
+    CPU tensor; ``plain=True`` runs the plain versions on a CUDA tensor too
+    (for comparisons on the card).
     """
     return _mgcg_core(coeffs, spec, x0, tol=tol, max_iter=max_iter,
                       check_every=resolve_check_every(check_every, 10),
                       criterion=criterion, batched=False, nu1=nu1, nu2=nu2,
                       mg_omega=mg_omega, coarse_iters=coarse_iters,
                       min_size=min_size, over=over, first_window=first_window,
-                      use_pallas=use_pallas, d_field=d_field)
+                      use_pallas=use_pallas, d_field=d_field, plain=plain)
 
 
 def solve_mgcg_batched(coeffs, spec, x0, *, tol: float = 1e-8,
@@ -380,7 +381,8 @@ def solve_mgcg_batched(coeffs, spec, x0, *, tol: float = 1e-8,
                        nu2: int = 1, mg_omega=0.8, coarse_iters: int = 32,
                        min_size: int = 8, over: float = 1.8,
                        use_pallas=None, d_field=None,
-                       first_window: int = 1) -> SolveResult:
+                       first_window: int = 1,
+                       plain: bool = False) -> SolveResult:
     """Batched :func:`solve_mgcg` on ``(B, ny, nx)`` (``d_field`` too);
     converged images are frozen while the rest iterate."""
     return _mgcg_core(coeffs, spec, x0, tol=tol, max_iter=max_iter,
@@ -388,4 +390,4 @@ def solve_mgcg_batched(coeffs, spec, x0, *, tol: float = 1e-8,
                       criterion=criterion, batched=True, nu1=nu1, nu2=nu2,
                       mg_omega=mg_omega, coarse_iters=coarse_iters,
                       min_size=min_size, over=over, first_window=first_window,
-                      use_pallas=use_pallas, d_field=d_field)
+                      use_pallas=use_pallas, d_field=d_field, plain=plain)

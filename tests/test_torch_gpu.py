@@ -1211,3 +1211,42 @@ def test_native_flood_fill_on_the_card_machine(cuda):
         assert np.array_equal(a.participating, b.participating)
         assert np.array_equal(a.participating, part[k].cpu().numpy())
         assert np.array_equal(a.isolated, iso[k].cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_differentiable_deff_on_the_kernels_matches_plain(cuda, dtype):
+    """``deff_and_grad`` of a B=2 x 64^2 field on K1/K2 (forward and adjoint
+    solves) against the same call on their plain versions: the same
+    iterations (within 2 in float32), values and gradients to the kernels'
+    tolerance."""
+    from effectivediffusivityfvm_tpu_torch.ops.autodiff import (
+        deff_and_grad, make_differentiable_deff)
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import cg_steps
+
+    rng = np.random.default_rng(12)
+    d = torch.tensor(np.exp(rng.uniform(0, np.log(30), (2, 64, 64))),
+                     dtype=dtype, device=cuda)
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    runs = {}
+    for plain in (False, True):
+        f = make_differentiable_deff(tol=tol, max_iter=500,
+                                     solver_kw={"plain": plain})
+        dd = d.clone().requires_grad_()
+        before = (cg_steps.launches, v_cycle.launches)
+        val = f(dd)
+        (grad,) = torch.autograd.grad(val.sum(), dd)
+        torch.cuda.synchronize()
+        launched = (cg_steps.launches - before[0],
+                    v_cycle.launches - before[1])
+        runs[plain] = (val.detach(), grad, dict(f.iterations), launched)
+    (v, g, its, launched), (vp, gp, itsp, launched_p) = runs[False], runs[True]
+    assert launched[0] > 0 and launched[1] > 0 and launched_p == (0, 0)
+    slack = 0 if dtype == torch.float64 else 2
+    for k in ("forward", "adjoint"):
+        assert int((its[k] - itsp[k]).abs().max()) <= slack, (k, its[k],
+                                                              itsp[k])
+    torch.testing.assert_close(v, vp, rtol=TOL[dtype], atol=0)
+    assert _rel_err(g, gp) <= TOL[dtype]
+    v1, g1 = deff_and_grad(d[1], tol=tol, max_iter=500)
+    torch.testing.assert_close(v1, v[1], rtol=TOL[dtype], atol=0)
+    assert _rel_err(g1, g[1]) <= TOL[dtype]

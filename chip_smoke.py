@@ -208,7 +208,25 @@ non-zero):
     ``trace()`` of a slice solve naming K1's and K2's kernels;
     ``benchmark_solver`` on it beside phase 5's time; ``nan_guard`` on a
     CUDA NaN; ``read_cmap`` of the CMAP ``single_sim`` wrote; ``entry()``
-    on the card against ``entry(device="cpu")`` (rtol 1e-5).
+    on the card against ``entry(device="cpu")`` (rtol 1e-5);
+43. config 3's image on the engines under ``run_pcg``: the cycle-only PCG
+    on K2 (``use_pallas=True``) and on K4 (``"tiledcycle"``) in float32
+    against their plain-version runs (iterations within 2, Deff rtol
+    1e-6), the plain torch cycle (``use_pallas=False``) in float32
+    (reported), and in float64 (150 iterations) with V(2,2) and, by the
+    auto rule, V(2,1), against the fused "cgstep" float64 solve (Deff rtol
+    1e-6 and 1e-4);
+44. config 5 on the plain 3D cycle with V(2,2) and V(2,1) (at most 60
+    iterations; Deff rtol 5e-3 against the fused solve where relres 1e-4
+    is reached); config 3 in float64 at SP=4 on the card with V(2,1)
+    against the unsharded solve (iterations within 2, Deff 1e-3);
+    ``solve_dmg(use_pallas=False)`` on phase 32's float64 leg against its
+    K4 run (Deff 1e-4), and ``solve_dmg_3d`` on phase 36's volume, the
+    plain cycle at nu = 3 against K6 (Deff and relres 1e-6) and at nu = 4
+    (relres within 1.2 of nu = 3's), all capped;
+45. phase 10's mgcg CLI batch input with ``Pallas: interpret`` (Deff
+    within 1e-4 of phase 10's) and ``Pallas: off`` (equal to a direct
+    ``use_pallas=False`` solve, within 0.1 of phase 10's).
 
 The last lines are a JSON object describing the kernels, the
 ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.
@@ -3643,6 +3661,280 @@ def slice7_phases(dev, card, imgs, slice_s):
     phase(42, t0, f"{card}: " + "; ".join(lines))
 
 
+# phases 43-45: the general-cycle engines.  On config 3 the run_pcg form
+# stalls above relres 1e-4 in float32 (on an NVIDIA H100 80GB HBM3 at
+# 700 W: K2 5.8e-4 and K4 1.7e-4 after 400 iterations, the plain cycle
+# 1.5e-4 after 251), so its float32 legs run to a cap and are held to
+# their plain versions.  In float64 no engine reaches relres 1e-8 in 400
+# iterations there (a restart every 10: fused 1.2e-6, plain V(2,2) 1.7e-6,
+# V(2,1) 4.4e-7; every 100: 1.6e-7, 3.4e-8 and, the V(2,1) cycle not
+# being symmetric, 7.2e-5), so the float64 legs run to a cap with a
+# restart every 10: the plain V(2,2) engine follows the fused engine's
+# iterates (Deff 1.8e-12 apart at 400), V(2,1) is held as the sharded
+# float64 solves are.  On config 5 two solves that each stop at relres
+# 1e-4 differ by up to 1.5e-3 in Deff (the fused engine at 4.6e-5 and at
+# 2.1e-5: 1.4e-3), so phase 44 holds the plain 3D cycle to 5e-3
+GC_CAP = 100                          # phase 43's float32 legs
+GC64_KW = dict(C3_KW, tol=1e-8, max_iter=150)      # phase 43's float64 legs
+GC5_CAP = 60                          # phase 44: config 5 on the plain cycle
+GC_SH_KW = dict(C3_KW, tol=1e-5, max_iter=600, nu2=1)   # phase 44 sharded
+GC_DMG_CAP, GC_DMG3D_CAP = 100, 40    # phase 44: the dmg legs' caps
+# Deff gates against another engine at the same cap, each set above its
+# reading (NVIDIA H100 80GB HBM3, 700 W) and below what a wrong cycle
+# would give: auto V(2,1) against the fused V(2,2) after 150 iterations
+# (3.1e-5), dmg's plain cycle against its K4 cycle after 100 (3.0e-5)
+GC_V21_RTOL = GC_DMG_RTOL = 1e-4
+# dmg3d on phase 36's volume after 40 iterations (that card): the plain
+# cycle at nu = 3 has K6's relres (5.0461e-4 both) and Deff (1e-8 apart),
+# so it is held to K6 at 1e-6; nu = 4 reaches 4.5996e-4, 0.91 of nu = 3's
+# (nu = 2: 9.6514e-4, 1.9 of it), and is held to 1.2 of it
+GC_DMG3D_RTOL, GC_DMG3D_NU4 = 1e-6, 1.2
+
+
+def general_cycle_phases(dev, card, imgs64, inp10_text, table10):
+    """Phases 43-45: the engines under ``run_pcg`` that take any cycle --
+    the cycle-only PCG on K2 (``use_pallas=True``) and on K4
+    (``"tiledcycle"``), the plain torch cycle (``False``, and auto for
+    V(2,1)) -- on config 3, then the plain cycle on config 5, config 3 at
+    SP=4, the ``dmg`` legs, and the CLI batch with ``Pallas: off`` and
+    ``interpret``.  ``imgs64``, ``inp10_text``, ``table10``: phase 10's
+    images, input and table."""
+    import torch
+
+    from effectivediffusivityfvm_tpu_torch.config import parse_input_file
+    from effectivediffusivityfvm_tpu_torch.models import phases, volume
+    from effectivediffusivityfvm_tpu_torch.ops import fvm3d
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep import cg_steps
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.cgstep_tiled import \
+        cg_steps_tiled
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle import v_cycle
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle3d import \
+        v_cycle3d
+    from effectivediffusivityfvm_tpu_torch.ops.kernels.vcycle_tiled import \
+        v_cycle_tiled
+    from effectivediffusivityfvm_tpu_torch.parallel import halo
+    from effectivediffusivityfvm_tpu_torch.parallel.mesh import make_mesh
+    from effectivediffusivityfvm_tpu_torch.pipeline import batch
+    from effectivediffusivityfvm_tpu_torch.solvers import (dispatch, dmg,
+                                                           dmg3d, multigrid,
+                                                           solvers3d)
+
+    wrappers = {"K1": cg_steps, "K2": v_cycle, "K4": v_cycle_tiled,
+                "K5": cg_steps_tiled, "K6": v_cycle3d}
+
+    def run(fn):
+        """``fn()`` with the launch counts set to 0 just before and read just
+        after: (result, seconds, launches)."""
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        return out, secs, {k: w.launches for k, w in wrappers.items()}
+
+    def rel(a, b):
+        return abs(float(a) - float(b)) / abs(float(b))
+
+    def text(res, secs, l=None):
+        out = (f"{int(res.iters)} iterations, relres {float(res.conv):.3e}, "
+               f"Deff {float(res.deff):.6f}, {secs:.3f} s")
+        if l is not None:
+            out += f", launches K2 {l['K2']} K4 {l['K4']}"
+        return out
+
+    # -- 43: config 3's image on the run_pcg engines
+    t0 = time.perf_counter()
+    img3 = correlated_binary(np.random.default_rng(C3_SEED), C3_SIZE,
+                             C3_SIZE)
+    _, c32, s32, x32 = c3_problem(img3, dev)
+    lines = []
+    for engine, key in ((True, "K2"), ("tiledcycle", "K4")):
+        kw = dict(C3_KW, use_pallas=engine, max_iter=GC_CAP)
+        multigrid.solve_mgcg(c32, s32, x32, **kw)                # warm-up
+        res, secs, l = run(lambda: multigrid.solve_mgcg(c32, s32, x32, **kw))
+        others = sum(v for k, v in l.items() if k != key)
+        check(l[key] > 0 and others == 0,
+              f"use_pallas={engine!r} launches {l}")
+        plain, p_secs, _ = run(lambda: multigrid.solve_mgcg(
+            c32, s32, x32, plain=True, **kw))
+        d_it, r_p = abs(int(res.iters) - int(plain.iters)), rel(res.deff,
+                                                                plain.deff)
+        check(np.isfinite(float(res.deff)) and d_it <= 2 and r_p <= 1e-6,
+              f"use_pallas={engine!r}: Deff {float(res.deff)}, iterations "
+              f"{int(res.iters)} vs plain {int(plain.iters)}, Deff rel err "
+              f"{r_p}")
+        lines.append(f"use_pallas={engine!r} ({key}) fp32 V(2,2), cap "
+                     f"{GC_CAP}: {text(res, secs, l)}; plain "
+                     f"{int(plain.iters)} iterations, {p_secs:.3f} s, Deff "
+                     f"rel err {r_p:.3e}")
+    res, secs, l = run(lambda: multigrid.solve_mgcg(
+        c32, s32, x32, use_pallas=False, **dict(C3_KW, max_iter=GC_CAP)))
+    check(sum(l.values()) == 0 and np.isfinite(float(res.deff)),
+          f"use_pallas=False fp32: launches {l}, Deff {float(res.deff)}")
+    lines.append(f"use_pallas=False fp32 V(2,2), cap {GC_CAP}: "
+                 f"{text(res, secs)}" + ("" if float(res.conv) <= C3_KW["tol"]
+                                         else " (relres 1e-4 not reached; "
+                                         "not gated)"))
+    del c32, s32, x32, res, plain
+    _, c64, s64, x64 = c3_problem(img3, dev, torch.float64)
+    fused, f_secs, _ = run(lambda: multigrid.solve_mgcg(
+        c64, s64, x64, use_pallas="cgstep", **GC64_KW))
+    lines.append(f"fused \"cgstep\" f64 V(2,2) to {GC64_KW['tol']:.0e} "
+                 f"(cap {GC64_KW['max_iter']}): {text(fused, f_secs)}")
+    check(multigrid._engine_auto(C3_SIZE, C3_SIZE, torch.float64, 2, 1)
+          is False, "auto does not take the plain engine for V(2,1)")
+    for label, kw, gate in (("use_pallas=False f64 V(2,2)",
+                             dict(GC64_KW, use_pallas=False), 1e-6),
+                            ("auto f64 V(2,1)", dict(GC64_KW, nu2=1),
+                             GC_V21_RTOL)):
+        res, secs, l = run(lambda: multigrid.solve_mgcg(c64, s64, x64, **kw))
+        r_f = rel(res.deff, fused.deff)
+        check(sum(l.values()) == 0 and r_f <= gate,
+              f"{label}: launches {l}, relres {float(res.conv)}, Deff "
+              f"{float(res.deff)} vs the fused f64 {float(fused.deff)}")
+        lines.append(f"{label}: {text(res, secs)}, Deff rel err to the "
+                     f"fused f64 {r_f:.3e}")
+    phase(43, t0, f"config 3 on the run_pcg engines {card}: "
+          + "; ".join(lines))
+
+    # -- 44: config 5 on the plain cycle, config 3 at SP=4 with V(2,1), dmg
+    t0 = time.perf_counter()
+    lines = []
+    _, c5, s5, x05 = c5_problem(c5_fluid((C5_SIZE,) * 3, C5_SEED), dev)
+    ref5, r5_secs, _ = run(lambda: solvers3d.solve_mgcg_3d(c5, s5, x05,
+                                                           **C5_KW))
+    lines.append(f"config 5 fused (phase 21's): {text(ref5, r5_secs)}")
+    check(solvers3d._engine_auto_3d(2, 1) is False,
+          "auto does not take the plain 3D engine for V(2,1)")
+    for label, kw in (("use_pallas=False V(2,2)",
+                       dict(use_pallas=False)), ("auto V(2,1)", dict(nu2=1))):
+        res, secs, l = run(lambda: solvers3d.solve_mgcg_3d(
+            c5, s5, x05, **dict(C5_KW, max_iter=GC5_CAP, **kw)))
+        reached = float(res.conv) <= C5_KW["tol"]
+        r_5 = rel(res.deff, ref5.deff)
+        check(np.isfinite(float(res.deff)) and (not reached or r_5 <= 5e-3),
+              f"config 5 {label}: relres {float(res.conv)}, Deff "
+              f"{float(res.deff)} vs {float(ref5.deff)}")
+        lines.append(f"config 5 {label}: {text(res, secs)}, Deff rel err "
+                     f"{r_5:.3e}" + ("" if reached else
+                                     f" (the cap {GC5_CAP}; not gated)"))
+    del c5, s5, x05, ref5
+    mesh4 = make_mesh(4, dp=1, sp=4, devices=[dev] * 4)
+    res, secs, l = run(lambda: halo.sharded_solve_mgcg(c64, s64, x64, mesh4,
+                                                       **GC_SH_KW))
+    one, o_secs, _ = run(lambda: multigrid.solve_mgcg(c64, s64, x64,
+                                                      **GC_SH_KW))
+    r_1 = rel(res.deff, one.deff)
+    d_1 = abs(int(res.iters) - int(one.iters))
+    check(float(res.conv) <= GC_SH_KW["tol"] and r_1 <= 1e-3 and d_1 <= 2
+          and l["K2"] == 0, f"config 3 SP=4 V(2,1): relres "
+          f"{float(res.conv)}, iterations {int(res.iters)} vs "
+          f"{int(one.iters)}, Deff rel err to the unsharded solve {r_1}, "
+          f"launches {l}")
+    lines.append(f"config 3 f64 SP=4 V(2,1) (run_pcg, the plain tail): "
+                 f"{text(res, secs, l)}; unsharded {text(one, o_secs)}, "
+                 f"Deff rel err {r_1:.3e}")
+    kw = dict(DMG3_KW, max_iter=GC_DMG_CAP)
+    res, secs, l = run(lambda: dmg.solve_dmg(c64, s64, x64, use_pallas=False,
+                                             **kw))
+    k4, k_secs, _ = run(lambda: dmg.solve_dmg(c64, s64, x64, **kw))
+    r_k4 = rel(res.deff, k4.deff)
+    check(sum(l.values()) == 0 and float(res.conv) <= 1e-2
+          and r_k4 <= GC_DMG_RTOL, f"dmg use_pallas=False: launches {l}, "
+          f"relres {float(res.conv)}, Deff {float(res.deff)} vs "
+          f"{float(k4.deff)} on K4")
+    lines.append(f"config 3 dmg f64 use_pallas=False (cap {GC_DMG_CAP}): "
+                 f"{text(res, secs)}; on K4 {text(k4, k_secs)}, Deff rel "
+                 f"gap {r_k4:.3e}")
+    del c64, s64, x64, res, one, k4
+    n = DMG3D_SIZE
+    vol = gas_volume(c5_fluid((n,) * 3, C5_SEED), C5_SEED)
+    classes = phases.three_phase_classes(vol)
+    mask = (vol > 200) | volume.flood_fill_3d(vol > 200).isolated
+    gas = (classes == phases.GAS) & ~mask
+    d = torch.tensor(phases.d_field_from_classes(
+        classes, 1.0, 0.0, DMG3D_DG, dtype=np.float64), device=dev)
+    c = fvm3d.fvm_coefficients_3d(d, 0.0, 1.0, mask=torch.as_tensor(
+        mask, device=dev), symmetric=True)
+    s = fvm3d.make_flux_spec_3d(d, 0.0, 1.0)
+    x0 = (torch.arange(n, dtype=torch.float64, device=dev) / n).expand(
+        (n,) * 3)
+    defl = dmg3d.build_component_deflation_3d(c, gas)
+    check(dmg3d._dmg3d_engine_auto((n,) * 3, torch.float32, 4) is False,
+          "dmg3d auto does not take the plain cycle at nu=4")
+    kw = dict(DMG3D_KW, max_iter=GC_DMG3D_CAP, defl=defl)
+    # the plain cycle held to K6's at nu = 3, then run at nu = 4, past K6's
+    k6, k_secs, l = run(lambda: dmg3d.solve_dmg_3d(c, s, x0, nu=3, **kw))
+    check(l["K6"] > 0, f"dmg3d nu=3 on K6: launches {l}")
+    res, secs, l = run(lambda: dmg3d.solve_dmg_3d(c, s, x0, nu=3,
+                                                  use_pallas=False, **kw))
+    r_6 = rel(res.deff, k6.deff)
+    c_6 = rel(res.conv, k6.conv)
+    check(l["K6"] == 0 and r_6 <= GC_DMG3D_RTOL and c_6 <= GC_DMG3D_RTOL,
+          f"dmg3d nu=3 plain cycle vs K6: launches {l}, Deff rel err "
+          f"{r_6}, relres {float(res.conv)} vs {float(k6.conv)}")
+    lines.append(f"{n}^3 3-phase dmg3d f64 nu=3 (cap {GC_DMG3D_CAP}) on "
+                 f"K6: {text(k6, k_secs)}; on the plain cycle "
+                 f"{text(res, secs)}, Deff rel err {r_6:.3e}, relres rel "
+                 f"err {c_6:.3e}")
+    res, secs, l = run(lambda: dmg3d.solve_dmg_3d(c, s, x0, nu=4, **kw))
+    check(l["K6"] == 0 and np.isfinite(float(res.deff))
+          and float(res.conv) <= GC_DMG3D_NU4 * float(k6.conv),
+          f"dmg3d nu=4: launches {l}, relres {float(res.conv)} vs "
+          f"{float(k6.conv)} at nu=3")
+    lines.append(f"dmg3d nu=4 (the plain cycle, cap {GC_DMG3D_CAP}): "
+                 f"{text(res, secs)}, relres / nu=3's "
+                 f"{float(res.conv) / float(k6.conv):.3f}")
+    del c, s, d, x0, defl, res, k6
+    phase(44, t0, f"3D, sharded and dmg on the plain cycle {card}: "
+          + "; ".join(lines))
+
+    # -- 45: phase 10's mgcg CLI batch with Pallas: off and interpret
+    t0 = time.perf_counter()
+    lines = []
+    for mode in ("off", "interpret"):
+        csv = WORK_DIR / f"batch_mgcg_{mode}.csv"
+        csv.unlink(missing_ok=True)
+        inp = WORK_DIR / f"input_mgcg_{mode}.txt"
+        inp.write_text(re.sub(r"OutputName: .*", f"OutputName: {csv}",
+                              inp10_text) + f"Pallas: {mode}\n")
+        cfg = parse_input_file(str(inp))
+        table, secs, l = run(lambda: batch.batch_sim(cfg, imgs=list(imgs64),
+                                                     device="cuda"))
+        r10 = np.abs(table[:, 3] - table10[:, 3]) / np.abs(table10[:, 3])
+        check(sum(l.values()) == 0 and bool(np.all(table[:, 6] <= 1e-6)),
+              f"Pallas: {mode}: launches {l}, max conv {table[:, 6].max()}")
+        line = (f"Pallas: {mode}: max conv {table[:, 6].max():.3e}, "
+                f"{secs:.3f} s, Deff vs phase 10 max rel err {r10.max():.3e}"
+                f" (median {np.median(r10):.3e})")
+        if mode == "interpret":
+            check(bool(np.all(r10 <= 1e-4)), f"Pallas: interpret Deff vs "
+                  f"phase 10 rel err {r10.max()}")
+        else:
+            # the CLI route must compute what the plain engine computes with
+            # the pipeline's settings; against phase 10 (the fused engine,
+            # which stops at another iterate) only a sanity bound, as phase
+            # 10 holds against phase 5
+            c, s, xk = build_problem(imgs64, dev)
+            direct = dispatch.solve_batched(
+                "mgcg", c, s, xk, omega=cfg.omega, tol=cfg.convergence,
+                max_iter=cfg.max_iter, check_every=cfg.check_every,
+                criterion=cfg.criterion, first_window=cfg.first_window,
+                use_pallas=False)
+            d_direct = direct.deff.cpu().numpy().astype(np.float64)
+            r_d = np.abs(table[:, 3] - d_direct) / d_direct
+            check(bool(np.all(r_d <= 1e-6) and np.all(r10 <= 0.1)),
+                  f"Pallas: off Deff vs the direct solve {r_d.max()}, vs "
+                  f"phase 10 {r10.max()}")
+            line += f", vs the direct use_pallas=False solve {r_d.max():.3e}"
+            del c, s, xk, direct
+        lines.append(line)
+    phase(45, t0, f"CLI batch mgcg, 64 x {SIZE}^2 {card}: "
+          + "; ".join(lines))
+
+
 def main():
     import torch
 
@@ -4176,6 +4468,8 @@ def main():
     solver_matrix_phases(dev, card, lib)
     torch.cuda.empty_cache()
     slice7_phases(dev, card, imgs, min(times))
+    torch.cuda.empty_cache()
+    general_cycle_phases(dev, card, imgs[:64], inp10.read_text(), table10)
     print(f"all phases {time.perf_counter() - t_all:.1f} s", flush=True)
 
     k3_ms, _, k3_ms_p, _, k3_bound = next(iter(k3_times.values()))

@@ -36,8 +36,8 @@ Ported so far:
   ``__graft_entry__.entry()``).
 
 The port does everything the JAX package does except the benchmark
-scripts' twins and what the ROADMAP's "Do not port" list names (engines
-kept for TPU debugging, the orbax checkpoint backend).
+scripts' twins, the orbax checkpoint backend, the TPU-era probes and the
+Mosaic-only machinery (ROADMAP).
 
 Everything runs on the CUDA device by default; pass ``device="cpu"`` to the
 pipelines (or CPU tensors to the solvers) to run the kernels' plain PyTorch

@@ -10,9 +10,8 @@ The same 17 ``Key: value`` keys are accepted, order-independent, unknown keys
 ignored, so an existing reference ``input.txt`` drops in unchanged.  On top of
 that the dataclass carries the JAX package's extra knobs (dtype, solver
 choice, check cadence, sharding).  The fields, keys and validation are the
-JAX package's exactly, so every ``input.txt`` it accepts parses here; the
-pipelines refuse the settings whose engines are not ported yet
-(``pipeline/batch.py``, ``pipeline/volume.py``).
+JAX package's exactly, so every ``input.txt`` it accepts parses here and
+runs.
 """
 
 from __future__ import annotations
@@ -77,9 +76,9 @@ class SimulationConfig:
     pallas: str = "auto"              # fused-kernel selection for solver=mgcg:
                                       #   "auto" picks by size (K4/K5 past
                                       #   the whole-cycle size), "force" is
-                                      #   K1/K2 (batch pipelines); "off" and
-                                      #   "interpret" name JAX engines the
-                                      #   port does not have
+                                      #   K1/K2, "off" the plain torch cycle
+                                      #   under run_pcg, "interpret" K1/K2's
+                                      #   plain versions (batch pipelines)
     first_window: int = 0             # "FirstWindow:" — iterations in the FIRST
                                       #   fused-mgcg window.  0 = auto:
                                       #   check_every for the residual/

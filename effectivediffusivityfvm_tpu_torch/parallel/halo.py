@@ -24,10 +24,12 @@ import torch.nn.functional as F
 
 from ..ops import fvm
 from ..ops.flux import BoundaryFluxSpec
-from ..ops.kernels.vcycle import smoothing_schedule, v_cycle, v_cycle_reference
+from ..ops.kernels.vcycle import (MAX_NU, smoothing_schedule, v_cycle,
+                                  v_cycle_reference)
 from ..solvers import driver
 from ..solvers.driver import SolveResult
 from ..solvers.multigrid import build_hierarchy, prolong, restrict
+from ..solvers.multigrid import v_cycle as plain_v_cycle
 from .mesh import (Mesh, ShardedField, all_gather, gather_rows, halo_strips,
                    psum, shard_batch, shard_rows)
 
@@ -296,16 +298,16 @@ def _smooth_local_2d(c_row, xs, bs, omega):
 class ShardedHierarchy(NamedTuple):
     """One mesh row's multigrid hierarchy: ``sharded[l][s]`` the shard-local
     levels, and per shard the replicated tail built from the last local
-    level gathered (``build_hierarchy(..., pad_levels=True)``, one hierarchy
-    per device, shared by its shards)."""
+    level gathered (``build_hierarchy``, padded for K2 or not, one
+    hierarchy per device, shared by its shards)."""
 
     sharded: list
     replicated: list
 
 
-def _gathered_levels(c_row, min_size):
-    """Per shard, the padded hierarchy of the row's level ``c_row``
-    gathered; built once per device."""
+def _gathered_levels(c_row, min_size, pad_levels=True):
+    """Per shard, the hierarchy of the row's level ``c_row`` gathered,
+    padded for K2 (``pad_levels``) or not; built once per device."""
     fields = [all_gather([getattr(c, f) for c in c_row])
               for f in fvm.StencilCoeffs._fields]
     built = {}
@@ -315,15 +317,18 @@ def _gathered_levels(c_row, min_size):
         if dev not in built:
             built[dev] = build_hierarchy(
                 fvm.StencilCoeffs(*(f[s] for f in fields)),
-                min_size=min_size, pad_levels=True)
+                min_size=min_size, pad_levels=pad_levels)
         out.append(built[dev])
     return out
 
 
-def _build_sharded_hierarchy_2d(c_row, ny_local, min_size=8):
+def _build_sharded_hierarchy_2d(c_row, ny_local, min_size=8,
+                                pad_levels=True):
     """Coarsen shard-locally while the local rows stay even (and >= 4) and
     the columns even and above ``min_size``; the last local level is
-    gathered and coarsened on, replicated."""
+    gathered and coarsened on, replicated: padded for K2's tail
+    (``pad_levels``), else as the plain cycle takes it (the JAX package's
+    ``build_hierarchy(gathered)``)."""
     sharded = [c_row]
     nx = c_row[0].diag.shape[-1]
     while ny_local % 2 == 0 and ny_local >= 4 and nx % 2 == 0 \
@@ -333,16 +338,28 @@ def _build_sharded_hierarchy_2d(c_row, ny_local, min_size=8):
         nx = c_row[0].diag.shape[-1]
         sharded.append(c_row)
     return ShardedHierarchy(sharded[:-1],
-                            _gathered_levels(sharded[-1], min_size))
+                            _gathered_levels(sharded[-1], min_size,
+                                             pad_levels))
+
+
+def gathered_on_k2(nu, nu2):
+    """Whether the gathered tail of a V(nu, nu2) cycle runs on K2."""
+    return nu2 == nu and 1 <= nu <= MAX_NU
 
 
 def gathered_cycle(levels_per_shard, rs, *, nu, omega, coarse_iters, over,
-                   plain=False, live=None):
-    """The replicated cycle of a row: the shards' residuals gathered, zero-
-    padded to the hierarchy's level 0, one K2 cycle per device (its plain
-    version if ``plain``), and each shard's rows sliced back out.  ``live``
-    (optional, per shard an int or bool ``(B,)``): the images whose flag
-    is 0 skip the cycle and get a zero correction."""
+                   nu2=None, plain=False, live=None):
+    """The replicated cycle of a row: the shards' residuals gathered, one
+    cycle per device, and each shard's rows sliced back out.  The cycle is
+    K2 (its plain version if ``plain``) on the padded hierarchy where
+    :func:`gathered_on_k2`; else (``nu2 != nu``, ``nu2=None`` being ``nu``,
+    or a deeper ``nu``) the plain torch ``multigrid.v_cycle`` on the
+    unpadded one, as the JAX package's tail runs.  ``live`` (optional, per
+    shard an int or bool ``(B,)``): on K2, the images whose flag is 0 skip
+    the cycle and get a zero correction; the plain cycle computes them and
+    the PCG loop discards them."""
+    nu2 = nu if nu2 is None else nu2
+    on_k2 = gathered_on_k2(nu, nu2)
     cycle = v_cycle_reference if plain else v_cycle
     gathered = all_gather(rs)
     ny_l = rs[0].shape[-2]
@@ -354,12 +371,16 @@ def gathered_cycle(levels_per_shard, rs, *, nu, omega, coarse_iters, over,
             levels = levels_per_shard[s]
             ny_f, nx_f = r_full.shape[-2:]
             py, px = levels[0].diag.shape[-2:]
-            if (py, px) != (ny_f, nx_f):
-                r_full = F.pad(r_full, (0, px - nx_f, 0, py - ny_f))
-            act = None if live is None else live[s].to(dev)
-            done[dev] = cycle(levels, r_full.contiguous(), omega=omega, nu=nu,
-                              coarse_iters=coarse_iters, over=over,
-                              active=act)[..., :ny_f, :nx_f]
+            if not on_k2:
+                done[dev] = plain_v_cycle(
+                    levels, r_full, nu1=nu, nu2=nu2, omega=omega,
+                    coarse_iters=coarse_iters, over=over)
+            else:
+                rp = F.pad(r_full, (0, px - nx_f, 0, py - ny_f))
+                act = None if live is None else live[s].to(dev)
+                done[dev] = cycle(levels, rp.contiguous(), omega=omega,
+                                  nu=nu, coarse_iters=coarse_iters,
+                                  over=over, active=act)[..., :ny_f, :nx_f]
         out.append(done[dev][..., s * ny_l:(s + 1) * ny_l, :].contiguous())
     return out
 
@@ -367,13 +388,13 @@ def gathered_cycle(levels_per_shard, rs, *, nu, omega, coarse_iters, over,
 def _v_cycle_sharded_2d(hier: ShardedHierarchy, rs, *, nu1=1, nu2=1,
                         omega=0.8, coarse_iters=32, over=1.8, level=0,
                         plain=False, live=None):
-    """The sharded V-cycle in plain torch, a one-row exchange per sweep;
-    below the local levels, :func:`gathered_cycle` (K2) on the replicated
-    hierarchy (which takes V(nu1, nu1); ``live`` gates it)."""
+    """The sharded V(nu1, nu2) cycle in plain torch, a one-row exchange per
+    sweep; below the local levels, :func:`gathered_cycle` on the replicated
+    hierarchy (K2 where it takes the cycle; ``live`` gates it)."""
     if level == len(hier.sharded):
-        return gathered_cycle(hier.replicated, rs, nu=nu1, omega=omega,
-                              coarse_iters=coarse_iters, over=over,
-                              plain=plain, live=live)
+        return gathered_cycle(hier.replicated, rs, nu=nu1, nu2=nu2,
+                              omega=omega, coarse_iters=coarse_iters,
+                              over=over, plain=plain, live=live)
     c = hier.sharded[level]
     e = [torch.zeros_like(r) for r in rs]
     for w in smoothing_schedule(omega, nu1):
@@ -424,33 +445,31 @@ def sharded_solve_mgcg(
         three passes per iteration, K8's cycle levels, K2's coarse tail)
         for V(nu, nu) with ``nu <= 4`` on a block of at least 8 even rows
         and even columns (``use_pallas`` None or True);
-      * otherwise (a block that fails that test, ``use_pallas=False``, or
-        V(nu, nu) with ``4 < nu <= 8``) ``run_pcg`` with the plain sharded
-        cycle and its gathered K2 tail (:mod:`.sharded_pcg`); this is the
-        JAX package's cycle-only engine too, since K8's band needs the
-        block the fused engine needs.
+      * otherwise (a block that fails that test, ``use_pallas=False``,
+        V(nu, nu) with ``nu > 4``, or V(nu1 != nu2)) ``run_pcg`` with the
+        plain sharded cycle and its gathered tail (:mod:`.sharded_pcg`):
+        K2 where it takes the cycle, V(nu, nu) with ``nu <= 8``, else the
+        plain torch ``multigrid.v_cycle``, the JAX package's XLA tail.
+        This is the JAX package's cycle-only engine too, since K8's band
+        needs the block the fused engine needs.
 
-    V(nu1, nu2) with ``nu1 != nu2``, or ``nu > 8``, raises
-    ``NotImplementedError``: the gathered K2 tail takes V(nu, nu) with
-    ``nu <= 8``, and the single-device port refuses the same cycles
-    (ROADMAP, "Do not port").  ``plain=True`` runs the kernels' plain
+    ``use_pallas=True`` runs V(nu1, nu1) whatever ``nu2``, as the JAX
+    package's kernel engines do.  ``plain=True`` runs the kernels' plain
     versions.  The result lies on ``x0``'s device."""
-    from ..ops.kernels.vcycle import MAX_NU as K2_MAX_NU
     from ..ops.kernels.vcycle_sharded import MAX_NU
     from .fused2d_cg import run_mgcg_sharded_fused, sharded_fused_cg_ok
 
     del omega   # accepted for signature parity, as the JAX solver does
     if use_pallas not in (None, True, False):
         raise ValueError(f"unknown use_pallas {use_pallas!r}")
-    if nu1 != nu2 or not 1 <= nu1 <= K2_MAX_NU:
-        raise NotImplementedError(
-            f"V({nu1}, {nu2}): the sharded engines' gathered K2 tail takes "
-            f"V(nu, nu) with 1 <= nu <= {K2_MAX_NU}; the JAX package's XLA "
-            "cycle for other cycles is not ported (ROADMAP, 'Do not port')")
+    if nu1 < 1 or nu2 < 0:
+        raise ValueError(f"V({nu1}, {nu2}): nu1 >= 1 and nu2 >= 0 required")
+    if use_pallas is True:
+        nu2 = nu1
     ny, nx = x0.shape[-2], x0.shape[-1]
     if ny % mesh.sp:
         raise ValueError(f"image rows ({ny}) must divide SP ({mesh.sp})")
-    fused_cg = (use_pallas is not False and nu1 <= MAX_NU
+    fused_cg = (use_pallas is not False and nu1 == nu2 and nu1 <= MAX_NU
                 and sharded_fused_cg_ok(ny // mesh.sp, nx, x0.element_size()))
     batched, c_rows, s_rows, x_rows = _place(mesh, coeffs, spec, x0)
     mg = dict(nu=nu1, mg_omega=mg_omega, coarse_iters=coarse_iters,
@@ -468,7 +487,7 @@ def sharded_solve_mgcg(
         x_rows, deff, conv, iters = run_mgcg_sharded_pcg(
             c_rows, s_rows, x_rows, batched=batched, shape=x0.shape,
             tol=tol, max_iter=max_iter, check_every=check_every,
-            criterion=criterion, plain=plain, **mg)
+            criterion=criterion, plain=plain, nu2=nu2, **mg)
     dev = x0.device
     return _unplace(batched, x_rows,
                     [deff.to(dev), conv.to(dev), iters.to(dev)], dev)

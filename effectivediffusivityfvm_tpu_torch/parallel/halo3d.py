@@ -12,9 +12,10 @@ shards' partials.
   * :func:`sharded_solve_mgcg_3d`: multigrid-PCG on the PCG engine, the
     hierarchy coarsened shard-locally while a slab keeps two planes or
     more, then gathered into a replicated tail that runs K6's whole cycle
-    (:func:`~..ops.kernels.vcycle3d.v_cycle3d`) on every device.  The JAX
-    package runs its XLA ``v_cycle_3d`` there; K6 takes V(nu, nu) with
-    ``nu <= MAX_NU3``, and other cycles raise.
+    (:func:`~..ops.kernels.vcycle3d.v_cycle3d`) on every device for
+    V(nu, nu) with ``nu <= MAX_NU3``, and for other cycles the plain torch
+    :func:`~..solvers.solvers3d.v_cycle_3d`, which the JAX package runs
+    there for every cycle.
 
 The PCG solves run ``solvers.pcg.run_pcg`` on a :class:`~.mesh.
 ShardedField` (:func:`.sharded_pcg.run_pcg_rows`), their dots and
@@ -37,7 +38,7 @@ from ..ops.kernels.vcycle3d import (MAX_NU3, Level3Args, v_cycle3d,
 from ..solvers import driver
 from ..solvers.driver import SolveResult
 from ..solvers.solvers3d import (_xsum, _ysum, _zsum, build_hierarchy_3d,
-                                 prolong_3d, restrict_3d)
+                                 prolong_3d, restrict_3d, v_cycle_3d)
 from .halo import RowSystem, _place, _unplace
 from .mesh import Mesh, ShardedField, all_gather, halo_strips, psum
 from .sharded_pcg import run_pcg_rows
@@ -252,9 +253,10 @@ def _smooth_local(c_row, xs, bs, omega):
             for c, x, b, nb in zip(c_row, xs, bs, nbs)]
 
 
-def _gathered_levels_3d(c_row, min_size):
-    """Per slab, the padded hierarchy of the row's level ``c_row`` gathered
-    along z and its K6 level tables; built once per device."""
+def _gathered_levels_3d(c_row, min_size, pad_levels=True):
+    """Per slab, the hierarchy of the row's level ``c_row`` gathered along z
+    and, padded for K6 (``pad_levels``), K6's level tables on a CUDA
+    device; built once per device."""
     fields = [all_gather([getattr(c, f) for c in c_row], dim=-3)
               for f in StencilCoeffs3D._fields]
     built = {}
@@ -264,9 +266,9 @@ def _gathered_levels_3d(c_row, min_size):
         if dev not in built:
             levels = build_hierarchy_3d(
                 StencilCoeffs3D(*(f[s] for f in fields)), min_size=min_size,
-                pad_levels=True)
-            args = (Level3Args(levels, levels[0].b) if dev.type == "cuda"
-                    else None)
+                pad_levels=pad_levels)
+            args = (Level3Args(levels, levels[0].b)
+                    if pad_levels and dev.type == "cuda" else None)
             built[dev] = (levels, args)
         out.append(built[dev])
     return out
@@ -274,9 +276,10 @@ def _gathered_levels_3d(c_row, min_size):
 
 class _MgRow3(_Row3):
     """A dp row's z-slab hierarchy: slab-local levels while a slab keeps
-    two planes or more, then the gathered tail on K6."""
+    two planes or more, then the gathered tail (K6 where it takes the
+    cycle, else the plain torch cycle)."""
 
-    def __init__(self, c_row, s_row, *, min_size, nu, mg, plain):
+    def __init__(self, c_row, s_row, *, min_size, nu1, nu2, mg, plain):
         super().__init__(c_row, s_row)
         sharded = [c_row]
         nz_l = c_row[0].diag.shape[-3]
@@ -285,8 +288,9 @@ class _MgRow3(_Row3):
             nz_l //= 2
             sharded.append(c_row)
         self.sharded = sharded[:-1]
-        self.tail = _gathered_levels_3d(sharded[-1], min_size)
-        self.nu = nu
+        self.on_k6 = nu1 == nu2 and 1 <= nu1 <= MAX_NU3
+        self.tail = _gathered_levels_3d(sharded[-1], min_size, self.on_k6)
+        self.nu1, self.nu2 = nu1, nu2
         self.mg = mg
         self.plain = plain
 
@@ -301,12 +305,17 @@ class _MgRow3(_Row3):
                 levels, args = self.tail[s]
                 nz, ny, nx = r_full.shape[-3:]
                 pz, py, px = levels[0].diag.shape[-3:]
-                rp = F.pad(r_full, (0, px - nx, 0, py - ny, 0, pz - nz))
-                if self.plain:
-                    e = v_cycle3d_reference(levels, rp, nu=self.nu, **self.mg)
+                if not self.on_k6:
+                    e = v_cycle_3d(levels, r_full, nu1=self.nu1,
+                                   nu2=self.nu2, **self.mg)
                 else:
-                    e = v_cycle3d(levels, rp.contiguous(), nu=self.nu,
-                                  level_args=args, **self.mg)
+                    rp = F.pad(r_full, (0, px - nx, 0, py - ny, 0, pz - nz))
+                    if self.plain:
+                        e = v_cycle3d_reference(levels, rp, nu=self.nu1,
+                                                **self.mg)
+                    else:
+                        e = v_cycle3d(levels, rp.contiguous(), nu=self.nu1,
+                                      level_args=args, **self.mg)
                 done[dev] = e[..., :nz, :ny, :nx]
             out.append(done[dev][..., s * nz_l:(s + 1) * nz_l, :, :]
                        .contiguous())
@@ -316,9 +325,8 @@ class _MgRow3(_Row3):
         if level == len(self.sharded):
             return self._tail_cycle(rs)
         c = self.sharded[level]
-        ws = smoothing_schedule(self.mg["omega"], self.nu)
         e = [torch.zeros_like(r) for r in rs]
-        for w in ws:
+        for w in smoothing_schedule(self.mg["omega"], self.nu1):
             e = _smooth_local(c, e, rs, w)
         nbs = _neighbor_sum_local(c, e)
         r_c = [restrict_3d(r - (ci.diag * ei - nb))
@@ -326,12 +334,12 @@ class _MgRow3(_Row3):
         e_c = self._cycle(r_c, level + 1)
         e = [ei + self.mg["over"] * prolong_3d(eci)
              for ei, eci in zip(e, e_c)]
-        for w in reversed(ws):
+        for w in reversed(smoothing_schedule(self.mg["omega"], self.nu2)):
             e = _smooth_local(c, e, rs, w)
         return e
 
     def precond(self, rs, live):
-        del live        # K6 takes no per-volume flag
+        del live        # no tail cycle takes a per-volume flag
         return self._cycle(rs, 0)
 
 
@@ -356,27 +364,23 @@ def sharded_solve_mgcg_3d(
 ) -> SolveResult:
     """Multigrid-PCG over z-slabs: slab-local Galerkin coarsening while a
     slab keeps two planes or more, then a replicated tail gathered once
-    per solve and run as K6's whole cycle; halo-exchanged smoothing and
+    per solve; halo-exchanged smoothing and
     matvec, the dots summed over the slabs, ``check_every`` clamped to 10
     as the JAX package clamps it.
 
     ``x0`` of shape ``(nz, ny, nx)`` solves one volume; ``(B, nz, ny,
-    nx)`` also splits the batch over ``dp`` with per-volume freezing.
-    V(nu1, nu2) with ``nu1 != nu2`` or ``nu > MAX_NU3`` raises (K6's
-    limits).  ``plain=True`` runs K6's plain version.  ``omega`` is
-    signature parity."""
+    nx)`` also splits the batch over ``dp`` with per-volume freezing.  The
+    tail is K6's whole cycle for V(nu, nu) with ``nu <= MAX_NU3`` and the
+    plain torch ``v_cycle_3d`` for any other V(nu1, nu2).  ``plain=True``
+    runs K6's plain version.  ``omega`` is signature parity."""
     del omega
-    if nu1 != nu2 or not 1 <= nu1 <= MAX_NU3:
-        raise NotImplementedError(
-            f"V({nu1}, {nu2}): the z-slab MGCG's gathered tail is K6's whole "
-            f"cycle, which takes V(nu, nu) with 1 <= nu <= {MAX_NU3}; the "
-            "JAX package's XLA v_cycle_3d is not ported (ROADMAP, 'Do not "
-            "port')")
+    if nu1 < 1 or nu2 < 0:
+        raise ValueError(f"V({nu1}, {nu2}): nu1 >= 1 and nu2 >= 0 required")
     mg = dict(omega=mg_omega, coarse_iters=coarse_iters, over=over)
 
     def make_row(c_row, s_row):
-        return _MgRow3(c_row, s_row, min_size=min_size, nu=nu1, mg=mg,
-                       plain=plain)
+        return _MgRow3(c_row, s_row, min_size=min_size, nu1=nu1, nu2=nu2,
+                       mg=mg, plain=plain)
     return _solve(coeffs, spec, x0, mesh, make_row, tol=tol,
                   max_iter=max_iter, check_every=min(check_every, 10),
                   criterion=criterion)

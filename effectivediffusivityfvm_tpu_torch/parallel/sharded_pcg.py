@@ -10,14 +10,16 @@ engine sums them), ``check_every`` clamped to 10 as the JAX package
 clamps it, and the per-image stop flags of every dp row in one ``any``.
 The preconditioner is the plain sharded cycle
 (:func:`~.halo._v_cycle_sharded_2d`: the shard-local sweeps with one-row
-halos, then K2 on the gathered tail).  It serves both modes the fused
+halos, then K2 on the gathered tail, or the plain torch cycle there for
+V(nu1 != nu2) and a ``nu`` past K2's).  It serves every mode the fused
 engine does not take: the JAX package's cycle-only engine, for a local
 block that fails ``sharded_fused_cg_ok`` (odd rows, or fewer than
-``HALO``), and its XLA route, for ``use_pallas=False`` and V(nu, nu) past
-K8's ``nu``.  K8 cannot serve the first: its band needs the same even
-block of ``HALO`` rows or more that the fused engine needs, so on such a
-block the cycle-only engine is this cycle, and a block of odd rows has no
-sharded level at all (the cycle is K2 on the gathered image).
+``HALO``), and its XLA route, for ``use_pallas=False``, V(nu, nu) past
+K8's ``nu`` and V(nu1 != nu2).  K8 cannot serve the first: its band
+needs the same even block of ``HALO`` rows or more that the fused engine
+needs, so on such a block the cycle-only engine is this cycle, and a block
+of odd rows has no sharded level at all (the cycle is the gathered tail on
+the whole image).
 
 The gathered K2 tail skips a frozen image (its ``live`` flag).
 """
@@ -26,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from .halo import RowSystem, _build_sharded_hierarchy_2d, _v_cycle_sharded_2d
+from .halo import (RowSystem, _build_sharded_hierarchy_2d,
+                   _v_cycle_sharded_2d, gathered_on_k2)
 from .mesh import ShardedField
 from ..solvers.pcg import run_pcg
 
@@ -76,11 +79,12 @@ def run_pcg_rows(rows, x_rows, *, shape, batched, **kw):
 class _PcgRow(RowSystem):
     """One dp row's system and its cycle."""
 
-    def __init__(self, c_row, s_row, *, min_size, mg, nu, plain):
+    def __init__(self, c_row, s_row, *, min_size, mg, nu, nu2, plain):
         super().__init__(c_row, s_row)
         self.hier = _build_sharded_hierarchy_2d(
-            c_row, c_row[0].diag.shape[-2], min_size=min_size)
-        self.kw = dict(nu1=nu, nu2=nu, plain=plain, **mg)
+            c_row, c_row[0].diag.shape[-2], min_size=min_size,
+            pad_levels=gathered_on_k2(nu, nu2))
+        self.kw = dict(nu1=nu, nu2=nu2, plain=plain, **mg)
 
     def precond(self, rs, live):
         return _v_cycle_sharded_2d(self.hier, rs, live=live, **self.kw)
@@ -88,18 +92,19 @@ class _PcgRow(RowSystem):
 
 def run_mgcg_sharded_pcg(c_rows, s_rows, x_rows, *, batched, shape, tol,
                          max_iter, check_every, criterion, nu, mg_omega,
-                         coarse_iters, min_size, over, plain=False):
-    """Sharded MGCG under ``run_pcg`` over the mesh rows ``c_rows[d][s]``,
-    ``s_rows`` and ``x_rows`` (``(B_l, ny_l, nx)`` shards of the global
-    ``shape``).  ``batched=False`` solves one image on dp row 0 (every row
+                         coarse_iters, min_size, over, nu2=None, plain=False):
+    """Sharded V(nu, nu2) MGCG under ``run_pcg`` (``nu2=None`` is ``nu``)
+    over the mesh rows ``c_rows[d][s]``, ``s_rows`` and ``x_rows``
+    (``(B_l, ny_l, nx)`` shards of the global ``shape``).  ``batched=False`` solves one image on dp row 0 (every row
     holds it).  Returns ``(x_rows, deff, conv, iters)``, the per-image
     values on shard (0, 0)'s device.  ``plain=True`` runs the kernels'
     plain versions."""
     if not batched:
         c_rows, s_rows, x_rows = c_rows[:1], s_rows[:1], x_rows[:1]
     mg = dict(omega=mg_omega, coarse_iters=coarse_iters, over=over)
-    rows = [_PcgRow(c, s, min_size=min_size, mg=mg, nu=nu, plain=plain)
-            for c, s in zip(c_rows, s_rows)]
+    nu2 = nu if nu2 is None else nu2
+    rows = [_PcgRow(c, s, min_size=min_size, mg=mg, nu=nu, nu2=nu2,
+                    plain=plain) for c, s in zip(c_rows, s_rows)]
     res = run_pcg_rows(rows, x_rows, shape=shape, batched=batched, tol=tol,
                        max_iter=max_iter, check_every=min(check_every, 10),
                        criterion=criterion)

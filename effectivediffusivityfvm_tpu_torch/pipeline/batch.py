@@ -32,12 +32,13 @@ mask, on one device and on each dp chunk of a mesh alike.
 
 ``Compact: 1`` with ``cg`` or ``mgcg`` on one device advances a 2-phase
 group in segments and re-packs the active images between them
-(:mod:`..solvers.compact`).  Not ported: ``Pallas: off|interpret`` (the
-JAX package's XLA and interpreter engines).
-``Pallas:`` maps as the JAX package maps it:
+(:mod:`..solvers.compact`).  ``Pallas:`` maps as the JAX package maps it:
 ``force`` runs the "cgstep" engine (K1/K2) at every size, ``auto`` lets the
 solver choose (the banded K4/K5 engine for float32 grids past the
-whole-cycle size).
+whole-cycle size), ``off`` runs the plain torch cycle under ``run_pcg``
+(``use_pallas=False``), and ``interpret`` runs the "cgstep" engine on the
+kernels' plain versions (``plain=True``), the counterpart of the JAX
+package's interpreter mode.
 """
 
 from __future__ import annotations
@@ -65,22 +66,16 @@ __all__ = ["batch_sim", "batch_sim_3phase", "solve_image_group",
            "solve_image_group_3phase"]
 
 
-def _check_supported(cfg: SimulationConfig) -> None:
-    """Refuse the batch settings whose engines are not ported."""
-    if cfg.solver == "mgcg" and cfg.pallas in ("off", "interpret"):
-        raise NotImplementedError(
-            f"Pallas: {cfg.pallas} selects an engine of the JAX package that "
-            "the torch package does not have; use auto or force (the CUDA "
-            "kernels)")
+_PALLAS_KW = {"auto": {}, "force": dict(use_pallas="cgstep"),
+              "off": dict(use_pallas=False),
+              "interpret": dict(use_pallas="cgstep", plain=True)}
 
 
 def _solver_kwargs(cfg: SimulationConfig, tol: float, max_iter: int) -> dict:
     kw = dict(omega=cfg.omega, tol=tol, max_iter=max_iter,
               check_every=cfg.check_every, criterion=cfg.criterion)
     if cfg.solver == "mgcg":
-        kw["first_window"] = cfg.first_window
-        if cfg.pallas == "force":
-            kw["use_pallas"] = "cgstep"
+        kw.update(first_window=cfg.first_window, **_PALLAS_KW[cfg.pallas])
     return kw
 
 
@@ -375,7 +370,6 @@ def batch_sim(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]] = None
     imgNum, porosity, PathFlag, Deff, Time, nElements, converge, ds, df.
     """
     cfg.validate()
-    _check_supported(cfg)
     resolve_device(device)
     if imgs is None:
         imgs = img_io.load_batch(cfg.num_images, cfg.image_dir)
@@ -425,7 +419,6 @@ def batch_sim_3phase(cfg: SimulationConfig, imgs: Optional[Sequence[np.ndarray]]
     imgNum, SVF, LVF, PathFlag, Deff, Time, nElements, converge, ds, df, dg.
     """
     cfg.validate()
-    _check_supported(cfg)
     resolve_device(device)
     if imgs is None:
         imgs = img_io.load_batch(cfg.num_images, cfg.image_dir)

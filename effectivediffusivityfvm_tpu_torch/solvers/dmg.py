@@ -19,14 +19,15 @@ corrections in the form the JAX package established by measurement:
   3. The iteration runs in f64 (``||Q|| ~ 1e6``), while the V-cycle
      preconditioner runs in f32 by default.
 
-The V-cycle is K2 (:func:`~..ops.kernels.vcycle.v_cycle`) or K4
-(:func:`~..ops.kernels.vcycle_tiled.v_cycle_tiled`), picked by
+The V-cycle is K2 (:func:`~..ops.kernels.vcycle.v_cycle`), K4
+(:func:`~..ops.kernels.vcycle_tiled.v_cycle_tiled`) or, for a ``nu`` past
+theirs, the plain torch :func:`~.multigrid.v_cycle`, picked by
 :func:`_dmg_engine_auto` from the shape, the cycle's dtype and ``nu``, never
-the device.  The JAX package takes a fused cycle only on a TPU and runs its
-XLA ``v_cycle`` elsewhere, which the port does not carry (ROADMAP, "Do not
-port").  ``plain=True`` runs the kernels' plain versions (for comparisons
-on the card); on a CPU tensor the kernels' wrappers run them anyway.
-Needs f64 inputs (``Dtype: float64``).
+the device; ``use_pallas=False`` forces the plain cycle, which is the JAX
+package's XLA ``v_cycle`` (its choice off a TPU).  ``plain=True`` runs the
+kernels' plain versions (for comparisons on the card); on a CPU tensor the
+kernels' wrappers run them anyway.  Needs f64 inputs (``Dtype:
+float64``).
 """
 
 from __future__ import annotations
@@ -35,19 +36,15 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..ops import fvm
 from ..ops.flux import boundary_deff
-from ..ops.kernels.vcycle import (MAX_NU, LevelArgs, v_cycle,
-                                  v_cycle_reference)
-from ..ops.kernels.vcycle_tiled import (HALO, fits_whole_cycle, tiled_band,
-                                        tiled_pad_shape, v_cycle_tiled,
-                                        v_cycle_tiled_reference)
+from ..ops.kernels.vcycle import MAX_NU
+from ..ops.kernels.vcycle_tiled import HALO, fits_whole_cycle
 from .deflation import (DeflationSpace, Segments, _coarse_apply, batch_defls,
                         batch_space, build_component_deflation)
 from .driver import SolveResult, resolve_check_every
-from .multigrid import _pad_op, build_hierarchy
+from .multigrid import cycle_fn
 from .pcg import run_pcg
 
 __all__ = ["solve_dmg", "solve_dmg_batched", "solve_dmg_refined"]
@@ -70,63 +67,22 @@ def _dmg_engine_auto(shape, dtype, nu):
     """The cycle for a ``(.., ny, nx)`` solve whose V-cycle runs in
     ``dtype``: ``"tiled"`` (K4) for a float32 cycle whose even-padded grid
     is past the whole-cycle size (``nu <= HALO``), else ``True`` (K2, float32
-    or float64, ``nu <= MAX_NU``).  Shape, dtype and ``nu`` alone decide,
-    as ``multigrid._engine_auto`` decides for mgcg."""
+    or float64, ``nu <= MAX_NU``), else ``False`` (the plain torch cycle).
+    Shape, dtype and ``nu`` alone decide, as ``multigrid._engine_auto``
+    decides for mgcg."""
     ny, nx = shape[-2], shape[-1]
     if (dtype == torch.float32 and nu <= HALO
             and not fits_whole_cycle(ny + ny % 2, nx + nx % 2)):
         return "tiled"
-    if nu <= MAX_NU:
-        return True
-    raise NotImplementedError(
-        f"dmg with nu={nu} has no fused cycle (K2 takes nu <= {MAX_NU}); the "
-        "JAX package's XLA v_cycle is not ported (ROADMAP, 'Do not port')")
+    return nu <= MAX_NU
 
 
 def _resolve_engine(use_pallas, shape, dtype, nu):
     if use_pallas is None:
         return _dmg_engine_auto(shape, dtype, nu)
-    if use_pallas is True or use_pallas == "tiled":
+    if use_pallas is True or use_pallas is False or use_pallas == "tiled":
         return use_pallas
-    if use_pallas is False:
-        raise NotImplementedError(
-            "use_pallas=False selects the JAX package's XLA v_cycle, which the "
-            "torch package does not port (ROADMAP, 'Do not port'); use None "
-            "(auto), True (K2) or 'tiled' (K4)")
     raise ValueError(f"unknown use_pallas {use_pallas!r}")
-
-
-def _cycle(raw: fvm.StencilCoeffs, engine, *, nu, mg_omega, coarse_iters,
-           min_size, over, plain):
-    """``cycle(rr, active)`` on ``(B, ny, nx)`` residuals in the cycle dtype,
-    with the hierarchy of ``raw`` and its :class:`LevelArgs` built once.
-
-    K4 (``"tiled"``): the operator padded to ``tiled_pad_shape``, levels as
-    ``multigrid.tiled_system`` builds them.  K2 (``True``): the even-padded
-    hierarchy, ``r`` padded to level 0.  K2 takes the batch's ``active``
-    flags, so a frozen image does no work; K4 has no such flag and computes
-    a frozen image's cycle, which the PCG loop discards."""
-    bsz, ny, nx = raw.b.shape
-    if engine == "tiled":
-        band = tiled_band(ny, nx, raw.b.element_size())
-        py, px = tiled_pad_shape(ny, nx, band)
-        levels = build_hierarchy(_pad_op(raw, py - ny, px - nx),
-                                 min_size=min_size, pad_levels=True)
-        fn = v_cycle_tiled_reference if plain else v_cycle_tiled
-    else:
-        levels = build_hierarchy(raw, min_size=min_size, pad_levels=True)
-        fn = v_cycle_reference if plain else v_cycle
-    py, px = levels[0].diag.shape[-2:]
-    kw = dict(omega=mg_omega, nu=nu, coarse_iters=coarse_iters, over=over)
-    if not plain and raw.b.is_cuda:
-        kw["level_args"] = LevelArgs(levels, levels[0].b)
-
-    def cycle(rr, active=None):
-        rp = F.pad(rr, (0, px - nx, 0, py - ny))
-        extra = {} if engine == "tiled" or active is None else dict(
-            active=active)
-        return fn(levels, rp, **kw, **extra)[..., :ny, :nx]
-    return cycle
 
 
 def _solve_dmg_core(coeffs, spec, x0, defl: Optional[DeflationSpace], *,
@@ -147,9 +103,9 @@ def _solve_dmg_core(coeffs, spec, x0, defl: Optional[DeflationSpace], *,
     raw = fvm.StencilCoeffs(*(a.to(pdt) for a in coeffs))
     if not batched:
         raw = fvm.StencilCoeffs(*(a[None] for a in raw))
-    cycle = _cycle(raw, engine, nu=nu, mg_omega=mg_omega,
-                   coarse_iters=coarse_iters, min_size=min_size, over=over,
-                   plain=plain)
+    cycle = cycle_fn(raw, engine, nu1=nu, nu2=nu, mg_omega=mg_omega,
+                     coarse_iters=coarse_iters, min_size=min_size, over=over,
+                     plain=plain)
 
     def matvec(p):
         return fvm.apply_operator(c_eq, p)
@@ -205,7 +161,7 @@ def solve_dmg(coeffs, spec, x0, *, omega: float = 0.0, tol: float = 1e-10,
     recovered field.  MG knobs (``nu/mg_omega/coarse_iters/min_size/over``)
     pass through; ``precond_f32=False`` runs the V-cycle in f64 (on K2).
     ``use_pallas``: None = :func:`_dmg_engine_auto`, True = K2, "tiled" =
-    K4, False raises.  ``plain=True`` runs the cycle's plain version (for
+    K4, False = the plain torch cycle.  ``plain=True`` runs the cycle's plain version (for
     comparisons on the card).  ``omega`` is signature parity.
     """
     _check_f64(x0, "solve_dmg")

@@ -12,11 +12,12 @@ cycle are 3D.
 
 The V-cycle is K6: its whole cycle
 (:func:`~..ops.kernels.vcycle3d.v_cycle3d`) on the even-padded hierarchy
-(:func:`_dmg3d_engine_auto`, at every size), or, forced, its banded cycle
-(:func:`~..ops.kernels.vcycle3d.v_cycle3d_tiled`) on
-:func:`~.solvers3d.tiled3d_system`'s.  The JAX
-package runs its XLA ``v_cycle_3d`` here, which the port does not carry
-(ROADMAP, "Do not port").  K6 takes no per-volume flag, so in a batch a
+(:func:`_dmg3d_engine_auto`, at every size and ``nu`` K6 takes), or,
+forced, its banded cycle (:func:`~..ops.kernels.vcycle3d.v_cycle3d_tiled`)
+on :func:`~.solvers3d.tiled3d_system`'s; for a ``nu`` past K6's, or with
+``use_pallas=False``, the plain torch :func:`~.solvers3d.v_cycle_3d` on
+the unpadded hierarchy, which is the JAX package's own cycle here (its
+XLA ``v_cycle_3d``).  No cycle takes a per-volume flag, so in a batch a
 converged volume's cycle is computed and discarded.  ``plain=True`` runs
 the kernels' plain versions (for comparisons on the card); on a CPU tensor
 the wrappers run them anyway.  Needs f64 inputs (``Dtype: float64``).
@@ -41,7 +42,7 @@ from .deflation import (DeflationSpace, Segments, _coarse_apply, batch_space,
 from .dmg import _check_f64
 from .driver import SolveResult, resolve_check_every
 from .pcg import run_pcg
-from .solvers3d import build_hierarchy_3d, tiled3d_system
+from .solvers3d import build_hierarchy_3d, tiled3d_system, v_cycle_3d
 
 __all__ = ["label_components_3d", "build_component_deflation_3d",
            "solve_dmg_3d", "solve_dmg_3d_batched"]
@@ -97,34 +98,32 @@ def build_component_deflation_3d(coeffs: StencilCoeffs3D, member: np.ndarray,
                           jitter, coeffs.diag.device, coeffs.diag.dtype)
 
 
+def _nu_ok(nu):
+    return 1 <= nu <= min(MAX_NU3, HALO_Z - 1)
+
+
 def _dmg3d_engine_auto(shape, dtype, nu):
     """The cycle for a ``(.., nz, ny, nx)`` solve whose V-cycle runs in
-    ``dtype``: ``True``, K6's whole cycle, at every shape and dtype.  On an
-    H100 one whole cycle of this solve was faster than the banded one, or
-    within 1% of it, at every size and batch measured (16^3 to 256^3, B=1
-    and 8: ``chip_smoke.py``'s phase 36), and the two give the same
-    iterates.  ``use_pallas="tiled3d"`` still forces the banded cycle.
-    Raises for a ``nu`` outside K6's ``1..MAX_NU3``."""
+    ``dtype``: ``True``, K6's whole cycle, at every shape and dtype for a
+    ``nu`` in K6's ``1..MAX_NU3``, else ``False``, the plain torch cycle.
+    On an H100 one whole cycle of this solve was faster than the banded
+    one, or within 1% of it, at every size and batch measured (16^3 to
+    256^3, B=1 and 8: ``chip_smoke.py``'s phase 36), and the two give the
+    same iterates.  ``use_pallas="tiled3d"`` still forces the banded
+    cycle."""
     del shape, dtype            # neither moves the choice on the card
-    if not 1 <= nu <= min(MAX_NU3, HALO_Z - 1):
-        raise NotImplementedError(
-            f"dmg3d with nu={nu} has no fused cycle (K6 takes 1 <= nu <= "
-            f"{MAX_NU3}); the JAX package's XLA v_cycle_3d is not ported "
-            "(ROADMAP, 'Do not port')")
-    return True
+    return _nu_ok(nu)
 
 
 def _resolve_engine(use_pallas, shape, dtype, nu):
     if use_pallas is None:
         return _dmg3d_engine_auto(shape, dtype, nu)
-    if use_pallas is True or use_pallas == "tiled3d":
-        _dmg3d_engine_auto(shape, dtype, nu)       # the nu check
-        return use_pallas
     if use_pallas is False:
-        raise NotImplementedError(
-            "use_pallas=False selects the JAX package's XLA v_cycle_3d, which "
-            "the torch package does not port (ROADMAP, 'Do not port'); use "
-            "None (auto), True (K6 whole) or 'tiled3d' (K6 banded)")
+        return False
+    if use_pallas is True or use_pallas == "tiled3d":
+        if not _nu_ok(nu):
+            raise ValueError(f"K6 takes 1 <= nu <= {MAX_NU3}, got nu={nu}")
+        return use_pallas
     raise ValueError(f"unknown use_pallas {use_pallas!r}")
 
 
@@ -135,8 +134,17 @@ def _cycle3(raw: StencilCoeffs3D, engine, *, nu, mg_omega, coarse_iters,
 
     K6 whole (``True``): the even-padded hierarchy, ``r`` padded to level
     0.  K6 banded (``"tiled3d"``): the operator padded to ``pad_shape_3d``,
-    levels as the 3D MGCG engine builds them."""
+    levels as the 3D MGCG engine builds them.  ``False``:
+    :func:`~.solvers3d.v_cycle_3d`, V(nu, nu), on ``build_hierarchy_3d(raw)``
+    unpadded, as the JAX package builds it."""
     bsz, nz, ny, nx = raw.b.shape
+    if engine is False:
+        levels = build_hierarchy_3d(raw, min_size=min_size)
+
+        def plain_cycle(rr):
+            return v_cycle_3d(levels, rr, nu1=nu, nu2=nu, omega=mg_omega,
+                              coarse_iters=coarse_iters, over=over)
+        return plain_cycle
     kw = dict(omega=mg_omega, nu=nu, coarse_iters=coarse_iters, over=over)
     on_card = not plain and raw.b.is_cuda
     if engine == "tiled3d":
@@ -161,7 +169,8 @@ def _solve_dmg3d_core(coeffs, spec, x0, defl: Optional[DeflationSpace], *,
                       batched, tol, max_iter, check_every, criterion, engine,
                       precond_f32, plain, nu, mg_omega, coarse_iters,
                       min_size, over) -> SolveResult:
-    """JAX ``_solve_dmg_3d_jit`` term for term, on K6's cycle."""
+    """JAX ``_solve_dmg_3d_jit`` term for term, on K6's cycle or the
+    plain one."""
     dtype = x0.dtype
     coeffs = decouple_empty_rows(coeffs)
     c_eq, s = fvm3d.equilibrate_3d(coeffs)
@@ -223,7 +232,8 @@ def solve_dmg_3d(coeffs, spec, x0, *, omega: float = 0.0, tol: float = 1e-10,
                  plain: bool = False) -> SolveResult:
     """Deflated multigrid-PCG on one ``(nz, ny, nx)`` volume, f64 in and
     out.  ``use_pallas``: None = :func:`_dmg3d_engine_auto`, True = K6's
-    whole cycle, ``"tiled3d"`` = its banded cycle, False raises;
+    whole cycle, ``"tiled3d"`` = its banded cycle, False = the plain torch
+    cycle;
     ``plain=True`` runs the cycle's plain version.  ``omega`` is signature
     parity."""
     del omega

@@ -10,15 +10,17 @@ red-black SOR, diagonal-PCG and multigrid-PCG.
   (``use_pallas="tiled3d"``): ``k`` whole PCG iterations per window on K7
   (:func:`~..ops.kernels.cgstep3d.cg_steps3d`), with the driver refreshing
   every active volume at every check through the stored level 0 and K6's
-  banded cycle (:func:`~..ops.kernels.vcycle3d.v_cycle3d_tiled`).
+  banded cycle (:func:`~..ops.kernels.vcycle3d.v_cycle3d_tiled`); or, for
+  ``use_pallas=False`` and the cycles that engine does not take, the PCG
+  engine (:mod:`.pcg`) with the plain torch :func:`v_cycle_3d`, the JAX
+  package's XLA engine.
 * ``solve_jacobi_3d*`` and ``solve_rbsor_3d*`` run the sweep driver
   (:mod:`.driver`) with the 3D Jacobi sweep or the red-black SOR sweep
   (``(k+i+j)`` parity colouring) in plain PyTorch, as the JAX package runs
   them in XLA; ``solve_cg_3d*`` run the PCG engine (:mod:`.pcg`) with the
   3D matvec and the reciprocal diagonal.
 
-The pipelines' 3D ``dmg`` is :mod:`.dmg3d`; the JAX package's XLA MGCG
-engine (``use_pallas=False``) is not ported (ROADMAP, "Do not port").  All solvers return
+The pipelines' 3D ``dmg`` is :mod:`.dmg3d`.  All solvers return
 :class:`~.driver.SolveResult`; the batched variants take ``(B, nz, ny,
 nx)``.
 """
@@ -39,6 +41,7 @@ from ..ops.kernels.vcycle3d import (HALO_Z, band_z_for, pad_op_3d,
                                     v_cycle3d_tiled_reference)
 from . import driver
 from .driver import SolveResult
+from .multigrid import GridOps, plain_cycle
 from .pcg import run_pcg
 from .rbsor import omega_opt, sweeps_fn
 
@@ -47,7 +50,7 @@ __all__ = [
     "solve_jacobi_3d_batched", "solve_rbsor_3d_batched",
     "solve_cg_3d_batched", "solve_mgcg_3d_batched",
     "restrict_3d", "prolong_3d", "coarsen_3d", "build_hierarchy_3d",
-    "tiled3d_system",
+    "v_cycle_3d", "tiled3d_system",
 ]
 
 
@@ -141,6 +144,17 @@ def build_hierarchy_3d(c: StencilCoeffs3D, min_size: int = 4,
     return levels
 
 
+_OPS_3D = GridOps(3, fvm3d.jacobi_sweep_3d, fvm3d.apply_operator_3d,
+                  restrict_3d, prolong_3d)
+
+
+def v_cycle_3d(levels: List[StencilCoeffs3D], r, **kw):
+    """One V(nu1, nu2) cycle of :func:`~.multigrid.plain_cycle` on a 3D
+    hierarchy (:func:`build_hierarchy_3d`) and ``(..., nz, ny, nx)``
+    residuals: the JAX package's XLA ``v_cycle_3d``."""
+    return plain_cycle(_OPS_3D, levels, r, **kw)
+
+
 def tiled3d_system(coeffs: StencilCoeffs3D, d_field=None, *, min_size: int):
     """The banded engine's system for a ``(B, nz, ny, nx)`` batch, as the
     JAX engine builds it: the band (``band_z_for``: 12 window fields when
@@ -173,16 +187,14 @@ def tiled3d_system(coeffs: StencilCoeffs3D, d_field=None, *, min_size: int):
 
 def _engine_auto_3d(nu1: int, nu2: int):
     """The 3D engine for V(nu1, nu2): the banded fused engine ``"tiled3d"``
-    for V(nu, nu) with ``nu <= HALO_Z - 1``, in float32 and float64 and on
-    any device (the JAX package takes it only for float32 on a TPU).  It
-    reads the cycle only, never the device, so the CPU path runs the
+    for V(nu, nu) with ``1 <= nu <= HALO_Z - 1``, in float32 and float64 and
+    on any device (the JAX package takes it only for float32 on a TPU),
+    else ``False`` (the plain torch cycle under ``run_pcg``), as the JAX
+    package's ``_pallas_auto_3d`` returns for the cycles it does not take.
+    It reads the cycle only, never the device, so the CPU path runs the
     algorithm the card runs."""
-    if nu1 != nu2:
-        raise ValueError(f"the fused 3D engine implements V(nu, nu), got "
-                         f"V({nu1}, {nu2})")
-    if nu1 < 1 or nu1 > HALO_Z - 1:
-        raise ValueError(f"the fused 3D engine needs 1 <= nu <= {HALO_Z - 1}, "
-                         f"got {nu1}")
+    if nu1 != nu2 or not 1 <= nu1 <= HALO_Z - 1:
+        return False
     return "tiled3d"
 
 
@@ -318,16 +330,22 @@ def _mgcg3_core(coeffs, spec, x0, *, tol, max_iter, check_every, criterion,
                                                criterion)
     if use_pallas is None:
         use_pallas = _engine_auto_3d(nu1, nu2)
-    elif use_pallas is False:
-        raise NotImplementedError(
-            "use_pallas=False selects the JAX package's XLA 3D engine "
-            "(v_cycle_3d + run_pcg), which the torch package does not port "
-            "(ROADMAP, 'Do not port'); use None (auto) or 'tiled3d'")
     elif use_pallas == "tiled3d":
-        _engine_auto_3d(nu1, nu2)
-    else:
+        if _engine_auto_3d(nu1, nu2) is False:
+            raise ValueError(f"the fused 3D engine implements V(nu, nu) with "
+                             f"1 <= nu <= {HALO_Z - 1}, got V({nu1}, {nu2})")
+    elif use_pallas is not False:
         raise ValueError(f"unknown use_pallas {use_pallas!r} for the 3D "
-                         "solvers (None or 'tiled3d')")
+                         "solvers (None, False or 'tiled3d')")
+    if use_pallas is False:
+        levels = build_hierarchy_3d(coeffs, min_size=min_size)
+
+        def precond(r, active=None):
+            return v_cycle_3d(levels, r, nu1=nu1, nu2=nu2, omega=mg_omega,
+                              coarse_iters=coarse_iters, over=over)
+        return _pcg3(coeffs, spec, x0, precond, batched, tol=tol,
+                     max_iter=max_iter, check_every=check_every,
+                     criterion=criterion)
     if not batched:
         coeffs = StencilCoeffs3D(*(a[None] for a in coeffs))
         spec = FluxSpec3D(*(torch.as_tensor(a)[None] for a in spec))
@@ -353,8 +371,9 @@ def solve_mgcg_3d(coeffs, spec, x0, *, omega: float = 0.0, tol: float = 1e-8,
     """3D multigrid-PCG on one ``(nz, ny, nx)`` volume.
 
     ``use_pallas``: ``None`` = auto (the banded fused engine for V(nu, nu),
-    ``nu <= 3``), ``"tiled3d"`` = that engine; ``False`` (the JAX package's
-    XLA engine) raises ``NotImplementedError``.  ``d_field``: the
+    ``nu <= 3``, else ``False``), ``"tiled3d"`` = that engine, ``False`` =
+    the JAX package's XLA engine: :func:`v_cycle_3d` (any V(nu1, nu2))
+    preconditioning :func:`~.pcg.run_pcg`.  ``d_field``: the
     diffusivity volume behind ``coeffs``, which must then be exactly the
     plain unmasked ``fvm_coefficients_3d(d_field, cl, cr)``; K7 rebuilds
     its level 0 from it (matrix-free).  ``first_window``: iterations in the
@@ -471,18 +490,22 @@ def solve_rbsor_3d_batched(coeffs, spec, x0, *, omega: float = 0.0,
 # Diagonal-PCG
 # --------------------------------------------------------------------------
 
-def _pcg3(coeffs, spec, x0, batched, *, tol, max_iter, check_every,
+def _pcg3(coeffs, spec, x0, precond, batched, *, tol, max_iter, check_every,
           criterion):
+    """``run_pcg`` on the 3D matvec with ``precond(r, active)``."""
     return run_pcg(
         matvec=lambda p: fvm3d.apply_operator_3d(coeffs, p),
-        precond=lambda r, active=None: coeffs.diag_inv * r,
+        precond=precond,
         b=coeffs.b,
         x0=x0,
         deff_fn=lambda x: boundary_deff_3d(spec, x),
-        tol=tol, max_iter=max_iter,
-        check_every=driver.resolve_check_every(check_every, 100),
+        tol=tol, max_iter=max_iter, check_every=check_every,
         criterion=criterion, grid_ndim=3, batched=batched,
     )
+
+
+def _diag_precond(coeffs):
+    return lambda r, active=None: coeffs.diag_inv * r
 
 
 def solve_cg_3d(coeffs, spec, x0, *, omega: float = 0.0, tol: float = 1e-8,
@@ -490,8 +513,10 @@ def solve_cg_3d(coeffs, spec, x0, *, omega: float = 0.0, tol: float = 1e-8,
                 criterion: str = "residual") -> SolveResult:
     """Jacobi-preconditioned CG on one volume (:func:`~.pcg.run_pcg`);
     ``omega`` is signature parity."""
-    return _pcg3(coeffs, spec, x0, False, tol=tol, max_iter=max_iter,
-                 check_every=check_every, criterion=criterion)
+    return _pcg3(coeffs, spec, x0, _diag_precond(coeffs), False, tol=tol,
+                 max_iter=max_iter,
+                 check_every=driver.resolve_check_every(check_every, 100),
+                 criterion=criterion)
 
 
 def solve_cg_3d_batched(coeffs, spec, x0, *, omega: float = 0.0,
@@ -499,5 +524,7 @@ def solve_cg_3d_batched(coeffs, spec, x0, *, omega: float = 0.0,
                         check_every: int = 0,
                         criterion: str = "residual") -> SolveResult:
     """Batched :func:`solve_cg_3d` with per-volume freezing."""
-    return _pcg3(coeffs, spec, x0, True, tol=tol, max_iter=max_iter,
-                 check_every=check_every, criterion=criterion)
+    return _pcg3(coeffs, spec, x0, _diag_precond(coeffs), True, tol=tol,
+                 max_iter=max_iter,
+                 check_every=driver.resolve_check_every(check_every, 100),
+                 criterion=criterion)

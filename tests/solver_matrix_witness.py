@@ -1,9 +1,11 @@
-"""Two slow solves of ``chip_smoke.py`` (phases 36 and 39) on reduced
+"""Slow solves of ``chip_smoke.py`` (phases 36, 39 and 43) on reduced
 copies of their media, the port against the JAX package on the CPU (a
 script, not a pytest module: one run takes minutes).
 
     JAX_PLATFORMS=cpu python tests/solver_matrix_witness.py dmg3d [n] [caps]
     JAX_PLATFORMS=cpu python tests/solver_matrix_witness.py halo3d [n] [cap]
+    JAX_PLATFORMS=cpu python tests/solver_matrix_witness.py general_cycle \
+        [n] [caps] [engines]
 
 ``dmg3d``: phase 36's 3-phase volume (bench3d.py's medium, sigma 3,
 ``default_rng(11)``, 48 gas balls, a quarter centred on each Dirichlet
@@ -20,6 +22,16 @@ JAX package's ``solve_mgcg_3d`` (its XLA engine) and the port's (the
 banded fused engine on K6/K7's plain versions).  Where both sharded
 solves stop at the cap at the same relres, the float32 stall is the
 z-slab algorithm's, not the port's.
+
+``general_cycle``: config 3's medium (``default_rng(3)``, porosity 0.65,
+sigma 8, contrast 1e-6) in float32 at ``n``^2 (default 512), phase 43's
+settings (V(2,2), min_size 32, 64 coarse sweeps, relres 1e-4), through
+the ``run_pcg`` form of ``solve_mgcg`` with each cap of ``caps`` (default
+100,200,400) as its ``max_iter``, on each of ``engines`` (default
+``False,True``): ``use_pallas=False`` (the plain cycle; the JAX package's
+XLA cycle) and ``True`` (K2's plain version; the JAX package's Pallas
+cycle in interpret mode).  Equal relres at each cap says
+the residual history is the algorithm's, a float32 stall included.
 
 Prints iterations, relres and Deff of each solve.
 """
@@ -40,15 +52,20 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from effectivediffusivityfvm_tpu.models import phases as jphases  # noqa: E402
+from effectivediffusivityfvm_tpu.ops import fvm as jfvm  # noqa: E402
 from effectivediffusivityfvm_tpu.ops import fvm3d as jfvm3d  # noqa: E402
+from effectivediffusivityfvm_tpu.ops.flux import \
+    make_flux_spec as jspec  # noqa: E402
 from effectivediffusivityfvm_tpu.parallel import halo3d as jhalo3d  # noqa: E402
 from effectivediffusivityfvm_tpu.parallel.mesh import make_mesh as jmesh  # noqa: E402
 from effectivediffusivityfvm_tpu.solvers import dmg3d as jdmg3d  # noqa: E402
+from effectivediffusivityfvm_tpu.solvers import multigrid as jmg  # noqa: E402
 from effectivediffusivityfvm_tpu.solvers import solvers3d as js3  # noqa: E402
 from effectivediffusivityfvm_tpu_torch.models import phases, volume  # noqa: E402
 from effectivediffusivityfvm_tpu_torch.ops import fvm3d  # noqa: E402
 from effectivediffusivityfvm_tpu_torch.parallel import halo3d, mesh  # noqa: E402
-from effectivediffusivityfvm_tpu_torch.solvers import dmg3d, solvers3d  # noqa: E402
+from effectivediffusivityfvm_tpu_torch.solvers import (  # noqa: E402
+    dmg3d, multigrid, solvers3d)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)
@@ -124,6 +141,26 @@ def witness_halo3d(n, cap):
         c, s, torch.tensor(x0), **kw), t0)
 
 
+def witness_general_cycle(n, caps, engines):
+    img = cs.correlated_binary(np.random.default_rng(cs.C3_SEED), n, n)
+    _, c, s, x0 = cs.c3_problem(img, CPU)
+    d = np.where(img == 0, 1.0, cs.CONTRAST).astype(np.float32)
+    jc = jfvm.fvm_coefficients(jnp.asarray(d), 0.0, 1.0)
+    js = jspec(jnp.asarray(d), 0.0, 1.0)
+    jx0 = jnp.asarray(x0.numpy())
+    print(f"general_cycle {n}^2 float32", flush=True)
+    for cap in caps:
+        kw = dict(cs.C3_KW, max_iter=cap)
+        for engine in engines:
+            t0 = time.time()
+            report(f"  cap {cap} use_pallas={engine} port", multigrid.solve_mgcg(
+                c, s, x0, use_pallas=engine, **kw), t0)
+            t0 = time.time()
+            report(f"  cap {cap} use_pallas={engine} JAX ", jmg.solve_mgcg(
+                jc, js, jx0, use_pallas=engine, pallas_interpret=engine,
+                **kw), t0)
+
+
 if __name__ == "__main__":
     what = sys.argv[1]
     if what == "dmg3d":
@@ -133,5 +170,13 @@ if __name__ == "__main__":
     elif what == "halo3d":
         witness_halo3d(int(sys.argv[2]) if len(sys.argv) > 2 else 128,
                        int(sys.argv[3]) if len(sys.argv) > 3 else 600)
+    elif what == "general_cycle":
+        witness_general_cycle(
+            int(sys.argv[2]) if len(sys.argv) > 2 else 512,
+            [int(v) for v in (sys.argv[3] if len(sys.argv) > 3
+                              else "100,200,400").split(",")],
+            [v == "True" for v in (sys.argv[4] if len(sys.argv) > 4
+                                   else "False,True").split(",")])
     else:
-        sys.exit(f"unknown witness {what!r}: dmg3d or halo3d")
+        sys.exit(f"unknown witness {what!r}: dmg3d, halo3d or "
+                 "general_cycle")

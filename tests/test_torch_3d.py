@@ -378,9 +378,14 @@ def test_solver_refusals_and_auto_rule():
     spec = tfvm3d.make_flux_spec_3d(d, 0.0, 1.0)
     x0 = torch.zeros_like(d)
     assert float(ts3.solve_mgcg_3d(c, spec, x0, tol=1e-6).conv) <= 1e-6
-    for kw, err in ((dict(nu1=1, nu2=2), ValueError),
-                    (dict(nu1=4, nu2=4), ValueError),
-                    (dict(use_pallas=False), NotImplementedError),
+    # the cycles the fused engine does not take run the plain engine
+    assert ts3._engine_auto_3d(1, 2) is False
+    assert ts3._engine_auto_3d(4, 4) is False
+    for kw in (dict(nu1=1, nu2=2), dict(nu1=4, nu2=4),
+               dict(use_pallas=False)):
+        assert float(ts3.solve_mgcg_3d(c, spec, x0, tol=1e-6,
+                                       **kw).conv) <= 1e-6
+    for kw, err in ((dict(use_pallas="tiled3d", nu1=4, nu2=4), ValueError),
                     (dict(use_pallas="tiled"), ValueError),
                     (dict(min_size=8), ValueError)):       # one level only
         with pytest.raises(err):

@@ -200,6 +200,12 @@ def test_assembly_gradients_match_jax(with_zeros):
 
 
 def test_engines_left_out_raise():
+    """The plain engine (``use_pallas=False``), refused before it was
+    ported, gives the fused engine's Deff and gradient (against the JAX
+    package: tests/test_torch_general_cycle.py)."""
     d = torch.tensor(_field(1, (8, 8)))
-    with pytest.raises(NotImplementedError):
-        deff_and_grad(d, solver_kw={"use_pallas": False})
+    value, grad = deff_and_grad(d, solver_kw={"use_pallas": False})
+    ref_value, ref_grad = deff_and_grad(d)
+    np.testing.assert_allclose(float(value), float(ref_value), rtol=1e-8)
+    np.testing.assert_allclose(grad.numpy(), ref_grad.numpy(), rtol=1e-6,
+                               atol=1e-6 * float(ref_grad.abs().max()))

@@ -243,14 +243,19 @@ def test_dmg_engine_auto_rule():
     assert auto((48, 48), f32, 2) is True
     assert auto((2048, 2048), f64, 2) is True      # precond_f32=False: K2
     assert auto((2048, 2048), f32, 8) == "tiled"
-    with pytest.raises(NotImplementedError, match="Do not port"):
-        auto((2048, 2048), f32, 9)
+    assert auto((2048, 2048), f32, 9) is False     # the plain torch cycle
+    assert auto((48, 48), f64, 9) is False
 
 
 def test_dmg_refusals():
     c, s, x0, gas = _system(_blob_image(1, n=16, blobs=2))
-    with pytest.raises(NotImplementedError, match="Do not port"):
-        dmg.solve_dmg(c, s, x0, use_pallas=False)
+    # use_pallas=False, refused before the plain cycle was ported, runs it
+    # (against the JAX package: tests/test_torch_general_cycle.py)
+    kw = dict(member=gas, tol=1e-10, max_iter=300)
+    plain = dmg.solve_dmg(c, s, x0, use_pallas=False, **kw)
+    k2 = dmg.solve_dmg(c, s, x0, use_pallas=True, **kw)
+    assert float(plain.conv) <= 1e-10
+    np.testing.assert_allclose(float(plain.deff), float(k2.deff), rtol=1e-7)
     with pytest.raises(ValueError, match="f64"):
         dmg.solve_dmg(fvm.StencilCoeffs(*(a.float() for a in c)), s,
                       x0.float())

@@ -199,10 +199,16 @@ def test_engine_rule_and_refusals(case):
     for shape in ((16, 16, 16), (90, 89, 90), (92, 92, 92), (256,) * 3):
         assert dmg3d._dmg3d_engine_auto(shape, f32, 2) is True
     assert dmg3d._dmg3d_engine_auto((80,) * 3, f64, 3) is True
-    with pytest.raises(NotImplementedError, match="nu=4"):
-        dmg3d._dmg3d_engine_auto((16,) * 3, f32, 4)
-    with pytest.raises(NotImplementedError, match="XLA"):
-        dmg3d.solve_dmg_3d(c, s, x0, use_pallas=False)
+    # past K6's nu, and with use_pallas=False, the plain torch cycle
+    assert dmg3d._dmg3d_engine_auto((16,) * 3, f32, 4) is False
+    with pytest.raises(ValueError, match="nu=4"):
+        dmg3d.solve_dmg_3d(c, s, x0, use_pallas=True, nu=4)
+    kw = dict(tol=1e-10, max_iter=300)
+    plain = dmg3d.solve_dmg_3d(c, s, x0, use_pallas=False, **kw)
+    whole = dmg3d.solve_dmg_3d(c, s, x0, **kw)
+    assert float(plain.conv) <= 1e-10
+    np.testing.assert_allclose(float(plain.deff), float(whole.deff),
+                               rtol=1e-8)
     with pytest.raises(ValueError, match="f64"):
         dmg3d.solve_dmg_3d(fvm3d.StencilCoeffs3D(*(a.float() for a in c)),
                            s, x0.float())

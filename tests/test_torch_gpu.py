@@ -200,6 +200,38 @@ def test_cg_steps_kernel_cycle_forms(cuda, dtype, nu, shape, min_size):
         assert torch.equal(g[1], s[1])          # frozen: bit-unchanged
 
 
+@pytest.mark.parametrize("use_pallas", [True, "tiledcycle"])
+def test_cycle_only_engines_match_plain(cuda, use_pallas):
+    """The cycle-only PCG on K2 and on K4 against the same solves on the
+    kernels' plain versions (``plain=True``), float32: iterations within
+    2, Deff rtol 1e-6; and the plain torch engine on the card against its
+    run on the CPU (float64, the same iterations)."""
+    d, c, _, _ = _problem(cuda, torch.float32, 3, 64, 72, seed=3)
+    spec = make_flux_spec(d, 0.0, 1.0)
+    x0 = torch.arange(72, dtype=torch.float32, device=cuda).div(72)
+    x0 = x0.expand(3, 64, 72)
+    kw = dict(tol=1e-5, max_iter=300, check_every=10, nu1=2, nu2=2,
+              criterion="relresidual", min_size=4, coarse_iters=8,
+              use_pallas=use_pallas)
+    n0 = (v_cycle if use_pallas is True else vt.v_cycle_tiled).launches
+    got = multigrid.solve_mgcg_batched(c, spec, x0, **kw)
+    assert (v_cycle if use_pallas is True
+            else vt.v_cycle_tiled).launches > n0
+    ref = multigrid.solve_mgcg_batched(c, spec, x0, plain=True, **kw)
+    assert (got.iters - ref.iters).abs().max() <= 2
+    torch.testing.assert_close(got.deff, ref.deff, rtol=1e-6, atol=0)
+    kw64 = dict(kw, use_pallas=False, tol=1e-9, nu2=1)
+    c64 = fvm.StencilCoeffs(*(a.double() for a in c))
+    s64 = type(spec)(*(a.double() for a in spec))
+    on_card = multigrid.solve_mgcg_batched(c64, s64, x0.double(), **kw64)
+    on_cpu = multigrid.solve_mgcg_batched(
+        fvm.StencilCoeffs(*(a.cpu() for a in c64)),
+        type(s64)(*(a.cpu() for a in s64)), x0.double().cpu(), **kw64)
+    assert on_card.iters.cpu().tolist() == on_cpu.iters.tolist()
+    torch.testing.assert_close(on_card.deff.cpu(), on_cpu.deff, rtol=1e-9,
+                               atol=0)
+
+
 def _dying_window(levels, r, p, dtype, dev, axes):
     """The CG state of a window in which every image dies early: image b
     stops once sum|r| falls to ``STOP[b]`` of its entry value."""

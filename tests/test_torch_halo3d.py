@@ -131,11 +131,26 @@ def test_mgcg_3d_matches_the_unsharded_engine():
 
 
 def test_unequal_and_deep_cycles_raise():
+    """V(1, 2) and V(4, 4), refused before the plain ``v_cycle_3d`` was
+    ported, run it on the gathered tail and equal the unsharded solve (on
+    the plain engine too); V(0, 0) and an SP that does not divide nz
+    raise."""
+    from effectivediffusivityfvm_tpu_torch.solvers.solvers3d import \
+        solve_mgcg_3d
+
     (c, s, x0), _ = _systems(_medium(4, (8, 8, 8)))
     pm = mesh.make_mesh(2, dp=1, devices=[CPU] * 2)
+    kw = dict(tol=1e-9, max_iter=200, check_every=10,
+              criterion="relresidual", coarse_iters=4)
     for nu1, nu2 in ((1, 2), (4, 4)):
-        with pytest.raises(NotImplementedError, match="Do not port"):
-            halo3d.sharded_solve_mgcg_3d(c, s, x0, pm, nu1=nu1, nu2=nu2)
+        got = halo3d.sharded_solve_mgcg_3d(c, s, x0, pm, nu1=nu1, nu2=nu2,
+                                           **kw)
+        ref = solve_mgcg_3d(c, s, x0, nu1=nu1, nu2=nu2, **kw)
+        assert int(got.iters) == int(ref.iters)
+        np.testing.assert_allclose(float(got.deff), float(ref.deff),
+                                   rtol=1e-9)
+    with pytest.raises(ValueError, match="nu1 >= 1"):
+        halo3d.sharded_solve_mgcg_3d(c, s, x0, pm, nu1=0, nu2=0)
     with pytest.raises(ValueError, match="divide"):
         halo3d.sharded_solve_cg_3d(
             c, s, x0, mesh.make_mesh(3, dp=1, devices=[CPU] * 3))

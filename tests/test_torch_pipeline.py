@@ -271,21 +271,22 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     np.save(tmp_path / "vol.npy", np.zeros((4, 4, 4), np.uint8))
     _write_png(tmp_path / "00000.jpg", _img2(1, 8))
-    for text, word in (# the mesh routes are ported; on the CPU the CLI
-                       # sees one device
-                       ("RunBatch: 1\nNumImages: 1\nDevices: 2\n",
-                        "2 requested, 1 visible"),
-                       ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
-                        "Pallas: off\n", "Pallas: off")):
-        (tmp_path / "in.txt").write_text(text)
-        assert cli.main(["in.txt"], device="cpu") == 1
-        assert word in capsys.readouterr().out
-    # the 3D dmg (solvers/dmg3d.py) and Compact: 1 (solvers/compact.py),
-    # refused before they were ported, now run and write their rows
+    # the mesh routes are ported; on the CPU the CLI sees one device
+    (tmp_path / "in.txt").write_text("RunBatch: 1\nNumImages: 1\n"
+                                     "Devices: 2\n")
+    assert cli.main(["in.txt"], device="cpu") == 1
+    assert "2 requested, 1 visible" in capsys.readouterr().out
+    # the 3D dmg (solvers/dmg3d.py), Compact: 1 (solvers/compact.py) and
+    # Pallas: off/interpret, refused before they were ported, now run and
+    # write their rows
     for text, out in (("InputName: vol.npy\nSolver: dmg\nDtype: float64\n",
                        "dmg3d.csv"),
                       ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
-                       "Compact: 1\n", "compact.csv")):
+                       "Compact: 1\n", "compact.csv"),
+                      ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
+                       "Pallas: off\n", "off.csv"),
+                      ("RunBatch: 1\nNumImages: 1\nSolver: mgcg\n"
+                       "Pallas: interpret\n", "interpret.csv")):
         (tmp_path / "in.txt").write_text(text + f"OutputName: {out}\n")
         assert cli.main(["in.txt"], device="cpu") == 0
         rows = (tmp_path / out).read_text().strip().splitlines()
@@ -335,12 +336,13 @@ def test_three_phase_parallel_slab_analytic(solver):
     assert res.lvf == pytest.approx(0.5)
 
 
-@pytest.mark.parametrize("pallas", ["auto", "force"])
+@pytest.mark.parametrize("pallas", ["auto", "force", "off", "interpret"])
 @pytest.mark.parametrize("solver", ["mgcg", "jacobi"])
 def test_pallas_key_maps_as_jax(solver, pallas):
-    """``Pallas: force`` pins mgcg to the "cgstep" engine and ``auto``
-    leaves the choice to the solver, as the JAX batch pipeline maps them;
-    other solvers get no engine argument."""
+    """``Pallas: force`` pins mgcg to the "cgstep" engine, ``off`` to the
+    plain cycle (``False``), ``interpret`` to "cgstep" on the kernels'
+    plain versions, and ``auto`` leaves the choice to the solver, as the
+    JAX batch pipeline maps them; other solvers get no engine argument."""
     jcfg = jconfig.SimulationConfig(solver=solver, pallas=pallas)
     cfg = config_from_fields(dataclasses.asdict(jcfg))
     got = batch._solver_kwargs(cfg, 1e-6, 100)

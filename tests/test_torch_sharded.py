@@ -556,9 +556,9 @@ def test_sharded_mgcg_refuses_unported_modes():
     d = _medium(12, (32, 16))
     (c, s, x0), _ = _systems(d)
     pm = _cpu_mesh(4)
-    # use_pallas=False and 4-row shards run under run_pcg now
-    # (parallel/sharded_pcg.py; tests/test_torch_sharded_pcg.py against the
-    # JAX package); only V(nu1 != nu2) is refused
+    # use_pallas=False, 4-row shards and V(nu1 != nu2) run under run_pcg
+    # (parallel/sharded_pcg.py; tests/test_torch_sharded_pcg.py and
+    # tests/test_torch_general_cycle.py against the JAX package)
     kw = dict(tol=1e-7, max_iter=400, check_every=10, coarse_iters=4,
               criterion="relresidual")
     runs = [halo.sharded_solve_mgcg(c, s, x0, pm, use_pallas=False, **kw),
@@ -567,8 +567,16 @@ def test_sharded_mgcg_refuses_unported_modes():
         assert float(res.conv) <= 1e-7
     np.testing.assert_allclose(float(runs[1].deff), float(runs[0].deff),
                                rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Do not port"):
-        halo.sharded_solve_mgcg(c, s, x0, pm, nu1=1, nu2=2)
+    unequal = halo.sharded_solve_mgcg(c, s, x0, pm, nu1=1, nu2=2, **kw)
+    assert float(unequal.conv) <= 1e-7
+    np.testing.assert_allclose(float(unequal.deff), float(runs[0].deff),
+                               rtol=1e-6)
+    # use_pallas=True runs V(nu1, nu1) whatever nu2, as the JAX package does
+    forced = [halo.sharded_solve_mgcg(c, s, x0, pm, nu1=1, nu2=nu2,
+                                      use_pallas=True, **kw)
+              for nu2 in (2, 1)]
+    assert int(forced[0].iters) == int(forced[1].iters)
+    assert torch.equal(forced[0].deff, forced[1].deff)
     assert not fused2d.fused_shard_level_ok(6, 16)
     assert fused2d.shard_band(2048, 2048) == 2048
 

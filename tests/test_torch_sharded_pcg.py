@@ -142,11 +142,23 @@ def test_batch_sp_route_on_odd_shards(tmp_path):
 
 
 def test_unequal_and_deep_cycles_raise():
-    (c, s, x0), _ = _systems(_medium(12, (32, 16)))
+    """V(1, 2) and V(9, 9), refused before the plain cycle was ported, run
+    under run_pcg with it on the gathered tail and equal the unsharded solve
+    (the plain engine there too; against the JAX package:
+    tests/test_torch_general_cycle.py); V(0, 0) and an unknown engine
+    raise."""
+    from effectivediffusivityfvm_tpu_torch.solvers.multigrid import solve_mgcg
+
+    (c, s, x0), _ = _systems(_medium(12, (32, 16), 1e1))
     pm = _cpu_mesh(4)
-    for nu1, nu2 in ((1, 2), (9, 9), (0, 0)):
-        with pytest.raises(NotImplementedError, match="Do not port"):
-            halo.sharded_solve_mgcg(c, s, x0, pm, nu1=nu1, nu2=nu2)
+    for nu1, nu2 in ((1, 2), (9, 9)):
+        got = halo.sharded_solve_mgcg(c, s, x0, pm, nu1=nu1, nu2=nu2, **KW)
+        ref = solve_mgcg(c, s, x0, nu1=nu1, nu2=nu2, use_pallas=False, **KW)
+        assert int(got.iters) == int(ref.iters)
+        np.testing.assert_allclose(float(got.deff), float(ref.deff),
+                                   rtol=1e-9)
+    with pytest.raises(ValueError, match="nu1 >= 1"):
+        halo.sharded_solve_mgcg(c, s, x0, pm, nu1=0, nu2=0)
     with pytest.raises(ValueError, match="use_pallas"):
         halo.sharded_solve_mgcg(c, s, x0, pm, use_pallas="tiled")
 

@@ -229,6 +229,15 @@ def test_matrix_free_solve_matches_stored():
 
 @pytest.mark.parametrize("use_pallas", [False, True, "tiledcycle"])
 def test_engines_not_ported_raise(use_pallas):
-    d, x0 = _problem(13, 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="Do not port"):
-        _port_solve(d, x0, use_pallas=use_pallas, tol=1e-6, max_iter=5)
+    """The cycle-only engines, refused before they were ported, run under
+    run_pcg (tests/test_torch_general_cycle.py holds them against the JAX
+    package): each converges to the fused "cgstep" solve's Deff."""
+    d, x0 = _problem(13, 2, 20, 28)
+    kw = dict(tol=1e-10, max_iter=300, check_every=10,
+              criterion="relresidual", nu1=2, nu2=2, min_size=4,
+              coarse_iters=8)
+    ref = _port_solve(d, x0, use_pallas="cgstep", **kw)
+    got = _port_solve(d, x0, use_pallas=use_pallas, **kw)
+    assert np.all(got.conv.numpy() <= 1e-10)
+    np.testing.assert_allclose(got.deff.numpy(), ref.deff.numpy(),
+                               rtol=1e-8)
